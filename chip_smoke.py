@@ -2,22 +2,36 @@
 
 Run from the repository root on a machine with an NVIDIA GPU:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--png-dir DIR]
 
 Phases:
  1. environment: card name and power limit, CUDA/PyTorch/nvcc versions,
     whether Triton imports;
- 2. build the CUDA megakernel library from csrc/ with nvcc (timed);
- 3. the kernel against its plain PyTorch version, both on the card:
-    a unit-scale scene at 64x48 @ 16 spp (MIS and material; per-pixel
-    parity) and the flagship scene at 1800x800 @ 4 spp (statistical
-    parity);
- 4. the main path: scenes/disney_spheres_flagship.json -> render_frame on
+ 2. build the CUDA kernel library from csrc/ (every .cu compiled in
+    parallel, linked into one library; timed), ptxas registers and spills;
+ 3. kernel B1 (megakernel) against its plain PyTorch version, both on the
+    card: a unit-scale scene at 64x48 @ 16 spp (MIS and material;
+    per-pixel parity) and the flagship scene at 1800x800 @ 4 spp
+    (statistical parity);
+ 4. main path 1: scenes/disney_spheres_flagship.json -> render_frame on
     cuda at the file's 1800x800 @ 512 spp -> finalize -> write_png, which
-    must launch the kernel.
-The last line is the JSON result {"ok": true, "device": {...}}; any failure
-exits non-zero without it. A machine without CUDA fails at once.
+    must launch B1;
+ 5. the cluster kernels in the library: B3 (wide walk) and B4 (skip walk);
+ 6. B3 and B4 against their plain walks on the card, on terrain_scene
+    (100k and 500k triangles) with 131,072 camera, cosine-bounce and shadow
+    rays each: zero mismatches, kernel vs plain and wide vs skip; kernel
+    times with CUDA events; the bound of each;
+ 7. main path 2: terrain 100k at 512x256 @ 64 spp, max_depth 64,
+    batch 1<<17 -> render_frame -> finalize -> write_png through B3 (not
+    B1), after the same frame at 1 spp through B3 and through the plain
+    walk agree per pixel;
+ 8. main path 3: the same at terrain 500k through B4.
+Each main path is driven with every launch counter set to 0 just before
+and read just after. The line before the card's name is the kernels JSON;
+the last line is the JSON result {"ok": true, "device": {...}}; any
+failure exits non-zero without it. A machine without CUDA fails at once.
 """
+import dataclasses
 import json
 import os
 import subprocess
@@ -34,6 +48,27 @@ UNIT_MEAN, UNIT_PIX, UNIT_FRAC, UNIT_CORR = 1e-4, 1e-5, 0.01, 0.999
 FLAG_MEAN, FLAG_CORR = 6e-3, 0.99
 COUNT_REL = 1e-3
 MAIN_MEAN_REL = 0.02
+# wavefront, kernel vs plain walk at 1 spp: hits are bit-equal, only the
+# order of the film's atomic index_add_ may differ
+WF_MEAN, WF_CORR = 1e-5, 0.9999
+# the bench's mesh frames (bench.py terrain stages)
+MESH_W, MESH_H, MESH_SPP = 512, 256, 64
+MESH_BATCH = 1 << 17
+TERRAINS = ((100_000, "wide", "cluster_wide"), (500_000, "skip", "cluster_skip"))
+N_RAYS = 1 << 17
+TIMED_LAUNCHES = 20
+# the card's published peaks (H100 SXM data sheet, at 700 W)
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+# operations of kernel B1 per path segment and per shadow ray, counted
+# from csrc/megakernel.cu for the flagship (12 triangles, 6 spheres): a
+# segment is one closest trace (12 x ~52 + 6 x ~32 ops), hit shading and
+# its frame (~45), a light sample (~70), two Principled eval/pdf (~300
+# each), a Principled sample (~150), MIS bookkeeping (~30) and three
+# counter-RNG hashes (~90 integer ops); a shadow ray is one any-hit trace
+# of the same primitives. Estimates to about +-30%.
+MEGA_OPS_PER_SEGMENT = 1800
+MEGA_OPS_PER_SHADOW = 830
 
 
 def log(*a):
@@ -98,22 +133,283 @@ def timed(fn):
     return out, time.time() - t0
 
 
+def event_ms(fn, reps):
+    """Mean milliseconds of ``fn`` over ``reps`` calls, CUDA events."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end) / reps
+
+
+def zero_counts():
+    from vimg_tpu_torch.geometry import cluster_trace as ct
+    from vimg_tpu_torch.render.mega import kernel
+    kernel.LAUNCHES = 0
+    ct.LAUNCHES_WIDE = 0
+    ct.LAUNCHES_SKIP = 0
+
+
+def read_counts():
+    from vimg_tpu_torch.geometry import cluster_trace as ct
+    from vimg_tpu_torch.render.mega import kernel
+    return dict(megakernel_analytic=kernel.LAUNCHES,
+                cluster_wide=ct.LAUNCHES_WIDE, cluster_skip=ct.LAUNCHES_SKIP)
+
+
+def save_png(img, tonemap, name, png_dir):
+    from vimg_tpu_torch.render import film
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(png_dir or tmp, name)
+        film.write_png(path, film.finalize(img, tonemap=tonemap))
+        return os.path.getsize(path)
+
+
+# ---------------------------------------------------------------------------
+# phase 6 helpers: ray populations and the kernel-vs-plain comparison
+# ---------------------------------------------------------------------------
+
+def terrain_rays(scene, tracer):
+    """N_RAYS each of: camera rays (512x256 @ 1 spp), cosine bounce rays
+    from the first hits of 2-spp camera rays, and shadow rays from the same
+    hit points to a sampled light point (finite maxT)."""
+    import torch
+    from vimg_tpu_torch.core import rng
+    from vimg_tpu_torch.core.math import onb_to_world
+    from vimg_tpu_torch.core.rng import Draw
+    from vimg_tpu_torch.core.warps import sample_hemisphere_cosine
+    from vimg_tpu_torch.geometry import intersect
+    from vimg_tpu_torch.lights import emitters
+    from vimg_tpu_torch.render.integrators import (MIN_T, SHADOW_EPS,
+                                                   _primary_rays)
+    from vimg_tpu_torch.scene import ir
+    dev = scene.device
+    st = ir.RenderSettings(MESH_W, MESH_H, spp=2, integrator="mis")
+    pix = torch.arange(MESH_W * MESH_H, device=dev).repeat_interleave(2)
+    samp = torch.arange(2, device=dev).repeat(MESH_W * MESH_H)
+    ro, rd = _primary_rays(scene, st, pix, samp)
+    n = ro.shape[0]
+    mn = torch.full((n,), MIN_T, device=dev)
+    inf = torch.full((n,), float("inf"), device=dev)
+    hr = tracer.closest(scene, ro, rd, mn, inf)
+    idx = torch.nonzero(hr.hit)[:, 0]
+    if idx.numel() < N_RAYS:
+        fail(f"only {idx.numel()} camera hits for {N_RAYS} bounce rays")
+    idx = idx[:N_RAYS]
+    sub = intersect.HitResult(*(getattr(hr, f)[idx] for f in
+                                ("t", "prim_type", "prim_id", "u", "v")))
+    hi = intersect.hit_info(scene, ro[idx], rd[idx], sub)
+    p, s = pix[idx], samp[idx]
+    r1, r2 = rng.uniform2(p, s, 1, Draw.BSDF_SAMPLE)
+    wo = onb_to_world(hi.tangent, hi.bitangent, hi.n_s,
+                      sample_hemisphere_cosine(r1, r2))
+    pick, l1, l2, _ = rng.uniform4(p, s, 1, Draw.LIGHT_SAMPLE)
+    ls = emitters.sample_lights(scene, hi.p, pick, l1, l2)
+    mnN, infN = mn[:N_RAYS], inf[:N_RAYS]
+    shadow_max = ls.dist - SHADOW_EPS
+    if not bool(torch.isfinite(shadow_max).all()):
+        fail("shadow rays need a finite maxT")
+    return {"camera": (ro[::2].contiguous(), rd[::2].contiguous(), mnN, infN),
+            "bounce": (hi.p.contiguous(), wo.contiguous(), mnN, infN),
+            "shadow": (hi.p.contiguous(), ls.wi.contiguous(), mnN,
+                       shadow_max.contiguous())}
+
+
+def sorted_rays(tracer, rays):
+    """The rays in the tracer's Morton order (what trace() hands the
+    kernel)."""
+    order = tracer.sort_order(rays[0], rays[1], rays[3])
+    return tuple(x[order].contiguous() for x in rays)
+
+
+def mismatches(a, b):
+    """Rays whose (t, slot, u, v) differ in any bit; max |d| of t, u, v."""
+    import torch
+    bad = torch.zeros_like(a[1], dtype=torch.bool)
+    err = 0.0
+    for x, y in zip(a, b):
+        if x.dtype == torch.float32:
+            bad |= x.view(torch.int32) != y.view(torch.int32)
+            fin = torch.isfinite(x) & torch.isfinite(y)
+            if bool(fin.any()):
+                err = max(err, float((x[fin] - y[fin]).abs().max()))
+        else:
+            bad |= x != y
+    return int(bad.sum()), err
+
+
+def kernel_vs_plain(n_tris, scene):
+    """Phase 6 for one terrain: both walks, three ray kinds."""
+    import torch
+    from vimg_tpu_torch.geometry import cluster_trace as ct
+    t0 = time.time()
+    data = ct.ClusterData(scene)
+    wide = ct.ClusterTracer(scene, walk="wide", data=data)
+    skip = ct.ClusterTracer(scene, walk="skip", data=data)
+    log(f"  terrain {n_tris}: {data.n_clusters} clusters, {data.n_nodes} "
+        f"binary nodes (depth {data.tree_depth}), {wide.n_wide} wide nodes "
+        f"(stack {wide.max_stack}), tri table "
+        f"{data.tri_rows.nbytes / 1e6:.1f} MB; host build "
+        f"{time.time() - t0:.2f}s")
+    rays = terrain_rays(scene, wide)
+    fns = {
+        "wide": (lambda r, ah: ct.trace_wide(*wide.node_tables, wide.tri_rows,
+                                             wide.n_wide, wide.max_stack,
+                                             *r, ah),
+                 lambda r, ah, st: ct.wide_walk_plain(
+                     *wide.node_tables, wide.tri_rows, wide.max_stack, *r,
+                     ah, stats=st), wide),
+        "skip": (lambda r, ah: ct.trace_skip(*skip.node_tables, skip.tri_rows,
+                                             data.n_nodes, *r, ah),
+                 lambda r, ah, st: ct.skip_walk_plain(
+                     *skip.node_tables, skip.tri_rows, data.n_nodes, *r, ah,
+                     stats=st), skip)}
+    res = {}
+    for kind, r in rays.items():
+        any_hit = kind == "shadow"
+        rs = sorted_rays(wide, r)
+        outs = {}
+        for walk, (kfn, pfn, tr) in fns.items():
+            got = kfn(rs, any_hit)
+            torch.cuda.synchronize()
+            for _ in range(2):                              # warm-up
+                kfn(rs, any_hit)
+            _, ms = event_ms(lambda: kfn(rs, any_hit), TIMED_LAUNCHES)
+            st = {}
+            ref, plain_ms = event_ms(lambda: pfn(rs, any_hit, st), 1)
+            bad, err = mismatches(got, ref)
+            tables = sum(x.numel() * x.element_size()
+                         for x in (*tr.node_tables, tr.tri_rows))
+            nbytes = N_RAYS * (32 + 16) + tables
+            ops = (st["box_tests"] * ct.BOX_TEST_OPS
+                   + st["tri_tests"] * ct.TRI_TEST_OPS)
+            t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+            t_ops = 1e3 * ops / FP32_OPS_PER_S
+            hits = int((got[0] == -float("inf")).sum() if any_hit
+                       else (got[1] >= 0).sum())
+            outs[walk] = got
+            res[(walk, kind)] = dict(
+                mismatches=bad, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                box_tests=st["box_tests"], tri_tests=st["tri_tests"])
+            log(f"  {walk:4s} {kind:6s}: {'occluded' if any_hit else 'hits'} "
+                f"{hits}/{N_RAYS}, kernel vs plain mismatches {bad} "
+                f"(max|d| {err:g}); kernel {ms:.3f} ms, plain "
+                f"{plain_ms:.1f} ms; {st['box_tests']} box + "
+                f"{st['tri_tests']} tri tests -> bound "
+                f"{res[(walk, kind)]['bound_ms']:.4f} ms "
+                f"({res[(walk, kind)]['bound_by']}: bytes {t_bytes:.4f} ms, "
+                f"ops {t_ops:.4f} ms)")
+            if bad:
+                fail(f"terrain {n_tris} {walk} {kind}: {bad} mismatches")
+        ww, _ = mismatches(outs["wide"], outs["skip"])
+        log(f"  wide vs skip {kind}: {ww} mismatches")
+        if ww:
+            fail(f"terrain {n_tris} {kind}: wide and skip walks differ")
+    # the facade (sort, prim ids, barycentric convention) agrees too
+    ro, rd, mn, mx = rays["bounce"]
+    hw = wide.closest(scene, ro, rd, mn, mx)
+    hs = skip.closest(scene, ro, rd, mn, mx)
+    hp = ct.ClusterTracer(scene, walk="wide", data=data,
+                          plain=True).closest(scene, ro, rd, mn, mx)
+    for f in ("t", "prim_type", "prim_id", "u", "v"):
+        for name, other in (("skip", hs), ("plain", hp)):
+            if not torch.equal(getattr(hw, f), getattr(other, f)):
+                fail(f"terrain {n_tris}: closest().{f} wide vs {name}")
+    log("  closest() (t, prim type, prim id, u, v): wide kernel == skip "
+        "kernel == plain walk on the bounce rays")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phases 7/8: the mesh main path
+# ---------------------------------------------------------------------------
+
+def mesh_main_path(n_tris, walk, name, png_dir, card, dev):
+    import numpy as np
+    from vimg_tpu_torch.geometry import cluster_trace as ct
+    from vimg_tpu_torch.render import wavefront
+    from vimg_tpu_torch.render.render import render_frame
+    from vimg_tpu_torch.scene import ir
+    from vimg_tpu_torch.scene.synthetic import terrain_scene
+    scene = terrain_scene(n_tris, MESH_W, MESH_H, device=dev)
+    st = ir.RenderSettings(MESH_W, MESH_H, spp=MESH_SPP, max_depth=64,
+                           integrator="mis", tonemap="agx",
+                           batch_size=MESH_BATCH)
+    st1 = dataclasses.replace(st, spp=1)
+    data = ct.ClusterData(scene)
+    kt = ct.ClusterTracer(scene, data=data)
+    pt = ct.ClusterTracer(scene, data=data, plain=True)
+    if kt.walk != walk:
+        fail(f"terrain {n_tris}: the default walk is {kt.walk}, not {walk}")
+    (img_k, sk), _ = timed(lambda: wavefront.render_wavefront(
+        scene, st1, tracer=kt, return_stats=True))
+    (img_p, sp), _ = timed(lambda: wavefront.render_wavefront(
+        scene, st1, tracer=pt, return_stats=True))
+    r = compare(f"terrain {n_tris} {MESH_W}x{MESH_H}@1 kernel vs plain walk",
+                img_p, img_k)
+    log(f"    kernel {sk['seconds']:.2f}s, plain walk {sp['seconds']:.2f}s; "
+        f"segments {sk['segments']} / {sp['segments']}, shadow rays "
+        f"{sk['shadow_rays']} / {sp['shadow_rays']}, supersteps "
+        f"{sk['supersteps']} / {sp['supersteps']}")
+    if not (r["mean"] < WF_MEAN and r["corr"] > WF_CORR):
+        fail(f"terrain {n_tris}: 1-spp kernel vs plain walk per pixel")
+    if (sk["segments"], sk["shadow_rays"]) != (sp["segments"],
+                                               sp["shadow_rays"]):
+        fail(f"terrain {n_tris}: 1-spp ray counts differ")
+    plain_mean = img_p.reshape(-1, 3).mean(0).cpu().numpy()
+
+    zero_counts()
+    img, secs = timed(lambda: render_frame(scene, st))
+    counts = read_counts()
+    stats = wavefront.LAST_STATS
+    img_np = img.cpu().numpy()
+    if img_np.shape != (MESH_H, MESH_W, 3) or not np.isfinite(img_np).all():
+        fail(f"terrain {n_tris} image shape {img_np.shape} / non-finite")
+    if counts[name] < 1 or counts["megakernel_analytic"] != 0:
+        fail(f"terrain {n_tris} main path launches {counts}")
+    png = save_png(img, st.tonemap, f"terrain{n_tris // 1000}k.png", png_dir)
+    mean = img_np.reshape(-1, 3).mean(0)
+    rel = np.abs(mean - plain_mean) / np.maximum(plain_mean, 1e-12)
+    log(f"    {MESH_SPP}-spp mean {mean.tolist()} vs plain@1spp "
+        f"{plain_mean.tolist()} (rel {rel.tolist()}); png {png} bytes")
+    if not (rel < MAIN_MEAN_REL).all():
+        fail(f"terrain {n_tris} mean differs from the 1-spp plain mean")
+    paths = MESH_W * MESH_H * MESH_SPP
+    rays = stats["segments"] + stats["shadow_rays"]
+    log(f"    {MESH_W}x{MESH_H} @ {MESH_SPP} spp: {secs:.3f} s (render "
+        f"loop {stats['seconds']:.3f} s), {paths / secs / 1e6:.3f} Mpaths/s, "
+        f"{rays / secs / 1e6:.2f} Mrays/s ({stats['segments']} segments + "
+        f"{stats['shadow_rays']} shadow rays), {stats['supersteps']} "
+        f"supersteps, launches {counts}, on {card}")
+    return counts[name], r["max"]
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a GPU")
-    import numpy as np
-    from vimg_tpu_torch.render import film
-    from vimg_tpu_torch.render.mega import build, kernel
+    png_dir = None
+    if "--png-dir" in sys.argv:
+        png_dir = sys.argv[sys.argv.index("--png-dir") + 1]
+        os.makedirs(png_dir, exist_ok=True)
+    from vimg_tpu_torch.render.mega import kernel
     from vimg_tpu_torch.render.render import render_frame
+    from vimg_tpu_torch.runtime import cuda
     from vimg_tpu_torch.scene.json_loader import load_json_scene
+    from vimg_tpu_torch.scene.synthetic import terrain_scene
 
     # ---- 1. environment -------------------------------------------------
     card = nvidia_smi_line()
     log(f"[1] card: {card}")
     log(f"    torch {torch.__version__}, torch.version.cuda "
         f"{torch.version.cuda}, python {sys.version.split()[0]}")
-    nvcc = subprocess.run([build._nvcc(), "--version"], capture_output=True,
+    nvcc = subprocess.run([cuda._nvcc(), "--version"], capture_output=True,
                           text=True).stdout.strip().splitlines()
     log(f"    nvcc: {nvcc[-1] if nvcc else 'unknown'}")
     try:
@@ -125,15 +421,16 @@ def main():
 
     # ---- 2. build -------------------------------------------------------
     t0 = time.time()
-    build.load_library()
-    log(f"[2] built {os.path.relpath(build.BUILD_INFO['path'], ROOT)} in "
-        f"{time.time() - t0:.2f}s (nvcc {build.BUILD_INFO['seconds']:.2f}s)")
-    for line in build.BUILD_INFO["log"].splitlines():
-        if "registers" in line or "spill" in line or "mega_kernel" in line:
+    lib = cuda.load_library()
+    log(f"[2] built {os.path.relpath(cuda.BUILD_INFO['path'], ROOT)} in "
+        f"{time.time() - t0:.2f}s (nvcc {cuda.BUILD_INFO['seconds']:.2f}s, "
+        f"all sources in parallel)")
+    for line in cuda.BUILD_INFO["log"].splitlines():
+        if "registers" in line or "spill" in line or "entry function" in line:
             log(f"    ptxas: {line.strip()}")
 
-    # ---- 3. kernel vs plain version ------------------------------------
-    log("[3] kernel vs plain PyTorch version (both on the card)")
+    # ---- 3. kernel B1 vs plain version ---------------------------------
+    log("[3] B1 vs its plain PyTorch version (both on the card)")
     unit_err = 0.0
     for integ in ("mis", "material"):
         scene, st = unit_scene(dev, 16, integ)
@@ -151,7 +448,6 @@ def main():
                 fail(f"unit-scale {integ} {key} count")
 
     fscene, fst = load_json_scene(FLAGSHIP, device=dev)
-    import dataclasses
     fst4 = dataclasses.replace(fst, spp=4)
     kernel.render_megakernel(fscene, dataclasses.replace(fst4, spp=1))  # warm
     (img, ks), k_s = timed(lambda: kernel.render_megakernel(
@@ -165,25 +461,30 @@ def main():
     if not (r["mean"] < FLAG_MEAN and r["corr"] > FLAG_CORR):
         fail("flagship statistical parity")
     plain_mean = ref.reshape(-1, 3).mean(0).cpu().numpy()
+    mega_ops = (ks["segments"] * MEGA_OPS_PER_SEGMENT
+                + ks["shadow_rays"] * MEGA_OPS_PER_SHADOW)
+    mega_bytes = fst4.width * fst4.height * 3 * 4
+    mega_bound = 1e3 * max(mega_ops / FP32_OPS_PER_S,
+                           mega_bytes / HBM_BYTES_PER_S)
+    log(f"    bound at 4 spp: {mega_bound:.2f} ms (operations: "
+        f"{mega_ops:.4g} ops at 67 TFLOP/s)")
 
-    # ---- 4. main path ---------------------------------------------------
-    log("[4] main path: load_json_scene -> render_frame -> finalize -> "
+    # ---- 4. main path 1: flagship through B1 ----------------------------
+    log("[4] main path 1: load_json_scene -> render_frame -> finalize -> "
         "write_png")
-    kernel.LAUNCHES = 0
+    import numpy as np
     scene, st = load_json_scene(FLAGSHIP, device=dev)
     st = dataclasses.replace(st, tonemap="agx")
+    zero_counts()
     img, secs = timed(lambda: render_frame(scene, st))
-    launches = kernel.LAUNCHES
+    counts = read_counts()
+    mega_launches = counts["megakernel_analytic"]
     segs, shadow = (int(v) for v in kernel.LAST_COUNTS.cpu())
-    with tempfile.TemporaryDirectory() as tmp:
-        out = film.finalize(img, tonemap=st.tonemap)
-        path = os.path.join(tmp, "flagship.png")
-        film.write_png(path, out)
-        png_bytes = os.path.getsize(path)
+    png_bytes = save_png(img, st.tonemap, "flagship.png", png_dir)
     img_np = img.cpu().numpy()
     if img_np.shape != (st.height, st.width, 3) or not np.isfinite(img_np).all():
         fail(f"main path image shape {img_np.shape} / non-finite values")
-    if launches < 1:
+    if mega_launches < 1:
         fail("main path did not launch the CUDA kernel")
     mean = img_np.reshape(-1, 3).mean(0)
     rel = np.abs(mean - plain_mean) / np.maximum(plain_mean, 1e-12)
@@ -192,20 +493,70 @@ def main():
     if not (rel < MAIN_MEAN_REL).all():
         fail("main path mean differs from the plain version's by > 2%")
     paths = st.width * st.height * st.spp
+    frame_bound = (segs * MEGA_OPS_PER_SEGMENT
+                   + shadow * MEGA_OPS_PER_SHADOW) / FP32_OPS_PER_S
+    log(f"    B1 bound of this frame: {frame_bound:.4f} s (operations)")
     log(f"    {st.width}x{st.height} @ {st.spp} spp: {secs:.3f} s, "
         f"{paths / secs / 1e6:.2f} Mpaths/s, {(segs + shadow) / secs / 1e6:.2f}"
         f" Mrays/s ({segs} segments + {shadow} shadow rays), launches "
-        f"{launches}, on {card}")
+        f"{counts}, on {card}")
 
-    log(json.dumps({"kernels": [{
+    # ---- 5. the cluster kernels -----------------------------------------
+    log("[5] B3 (cluster_wide_kernel) and B4 (cluster_skip_kernel) are in "
+        "the library built in [2]")
+    for fn in ("vimg_cluster_wide", "vimg_cluster_skip"):
+        getattr(lib, fn)
+    for line in cuda.BUILD_INFO["log"].splitlines():
+        if "cluster" in line:
+            log(f"    {line.strip()}")
+
+    # ---- 6. B3 / B4 vs their plain walks --------------------------------
+    log(f"[6] B3 and B4 vs their plain walks, {N_RAYS} rays per kind")
+    cmp = {}
+    for n_tris, _, _ in TERRAINS:
+        scene = terrain_scene(n_tris, MESH_W, MESH_H, device=dev)
+        for key, v in kernel_vs_plain(n_tris, scene).items():
+            cmp[(n_tris,) + key] = v
+
+    # ---- 7/8. main paths 2 and 3: the mesh wavefront ---------------------
+    launches, wf_err = {}, {}
+    for phase, (n_tris, walk, name) in zip((7, 8), TERRAINS):
+        log(f"[{phase}] main path {phase - 5}: terrain {n_tris} -> "
+            f"render_frame ({MESH_W}x{MESH_H} @ {MESH_SPP} spp, batch "
+            f"{MESH_BATCH}) -> finalize -> write_png through {name}")
+        launches[name], wf_err[name] = mesh_main_path(n_tris, walk, name,
+                                                      png_dir, card, dev)
+
+    rows = [{
         "name": "megakernel_analytic",
         "route": "cuda",
         "source": "vimg_tpu_torch/csrc/megakernel.cu",
         "replaces": "vimg_tpu/render/mega/kernel.py:404",
-        "launches": launches,
+        "launches": mega_launches,
         "max_abs_err": unit_err,
         "ms": 1e3 * k_s,
-        "plain_ms": 1e3 * p_s}]}))
+        "plain_ms": 1e3 * p_s,
+        "bound_ms": mega_bound,
+        "bound_by": "operations",
+        "library_ms": None}]
+    for (n_tris, walk, name), line in zip(
+            TERRAINS, ("vimg_tpu/geometry/cluster_trace.py:455",
+                       "vimg_tpu/geometry/cluster_trace.py:800")):
+        c = cmp[(n_tris, walk, "bounce")]
+        rows.append({
+            "name": name,
+            "route": "cuda",
+            "source": "vimg_tpu_torch/csrc/cluster_trace.cu",
+            "replaces": line,
+            "launches": launches[name],
+            "max_abs_err": max(v["max_abs_err"] for k, v in cmp.items()
+                               if k[1] == walk),
+            "ms": c["ms"],
+            "plain_ms": c["plain_ms"],
+            "bound_ms": c["bound_ms"],
+            "bound_by": c["bound_by"],
+            "library_ms": None})
+    log(json.dumps({"kernels": rows}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -95,7 +95,8 @@ def test_sphere_cap_warp():
 def test_camera_rays(aperture):
     c2w = jm.look_at([0, 20, 1600], [0, -4, 0], [0, 1, 0])
     jc = jcam.Camera.make(c2w, 180, 80, 25.0, aperture, 1500.0)
-    tc = tcam.Camera.make(c2w, 180, 80, 25.0, aperture, 1500.0)
+    tc = tcam.Camera.make(c2w, 180, 80, 25.0, aperture, 1500.0,
+                          device="cpu")
     r = np.random.default_rng(6)
     px = (r.random(4000) * 180).astype(np.float32)
     py = (r.random(4000) * 80).astype(np.float32)
@@ -112,7 +113,7 @@ def test_primary_ray_indexing():
     from vimg_tpu.render.integrators import _primary_rays as jpr
     from vimg_tpu_torch.render.integrators import _primary_rays as tpr
     js, st = _flagship_scene()
-    ts = tir.scene_from_numpy(*tir.scene_to_numpy(js))
+    ts = tir.scene_from_numpy(*tir.scene_to_numpy(js), device="cpu")
     tst = tir.RenderSettings(**dataclasses.asdict(st))
     r = np.random.default_rng(7)
     pix = r.integers(0, 1800 * 800, 4000).astype(np.int32)
@@ -142,7 +143,7 @@ def test_json_loader_matches_flagship_and_vimg_tpu():
     from vimg_tpu_torch.scene.json_loader import load_json_scene as tload
     flag, fst = _flagship_scene()
     js, jst = jload(FLAGSHIP_JSON)
-    ts, tst = tload(FLAGSHIP_JSON)
+    ts, tst = tload(FLAGSHIP_JSON, device="cpu")
     _assert_same_scene(flag, ts)
     _assert_same_scene(js, ts)
     for f in ("width", "height", "spp", "max_depth", "integrator"):
@@ -171,10 +172,11 @@ def test_scene_numpy_roundtrip_and_builder():
         b.add_sphere((0, 3.0, 0), 1.0, light)
         b.add_quad(blue, np.eye(4, dtype=np.float32))
         b.add_quad(light, np.eye(4, dtype=np.float32) * 2)
-        scenes.append(b.build(camera=cam))
+        scenes.append(b.build(camera=cam) if B is JB
+                      else b.build(camera=cam, device="cpu"))
     _assert_same_scene(*scenes)
     ts = scenes[1]
-    back = tir.scene_from_numpy(*tir.scene_to_numpy(ts))
+    back = tir.scene_from_numpy(*tir.scene_to_numpy(ts), device="cpu")
     _assert_same_scene(ts, back)
 
 
@@ -185,10 +187,10 @@ def test_unported_entries_raise(tmp_path):
     p.write_text('{' + cam + '"materials": [{"name": "w", "type": "lambertian"}],'
                  ' "surfaces": [{"type": "mesh", "mat_name": "w",'
                  ' "filename": "cube.obj"}]}')
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        load_json_scene(p)
+    with pytest.raises(NotImplementedError, match="item 22"):
+        load_json_scene(p, device="cpu")
     p.write_text('{' + cam + '"materials": [{"name": "w", "type": "lambertian",'
                  ' "texture": {"type": "checkered", "col1": [0,0,0],'
                  ' "col2": [1,1,1], "width": 4, "height": 4}}]}')
     with pytest.raises(NotImplementedError, match="slice 3"):
-        load_json_scene(p)
+        load_json_scene(p, device="cpu")

@@ -1,17 +1,20 @@
-"""The CUDA megakernel against its plain PyTorch version, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card:
+the megakernel (B1) and the cluster walks (B3 wide, B4 skip).
 
 This file imports no JAX, so it also runs on the GPU machine, which has
 none: ``python3 -m pytest --noconftest tests/test_torch_cuda.py -q`` from
 the repository root (``--noconftest`` because tests/conftest.py imports
 JAX). Without CUDA the card tests skip and only the dispatch checks run.
-Criteria: tests/test_megakernel.py's per-pixel bound at unit scale (no
-epsilon races), equal segment and shadow-ray counts.
+Criteria: for B1, tests/test_megakernel.py's per-pixel bound at unit
+scale (no epsilon races) and equal segment and shadow-ray counts; for B3
+and B4, bit-equality with their plain walks.
 """
 import numpy as np
 import pytest
 import torch
 
 from vimg_tpu_torch.core.math import look_at
+from vimg_tpu_torch.geometry import cluster_trace as ct
 from vimg_tpu_torch.render.mega import kernel
 from vimg_tpu_torch.scene import ir
 from vimg_tpu_torch.scene.json_loader import SceneBuilder
@@ -68,3 +71,47 @@ def test_wrapper_dispatch_on_cpu():
         kernel.render_megakernel(meta, st)
     assert not kernel.supports_megakernel(scene, ir.RenderSettings(
         integrator="s_normal"))
+
+
+def _terrain_rays(device, n=16384, seed=0):
+    """Rays from above a 20k terrain toward it, half with a finite maxT."""
+    r = np.random.default_rng(seed)
+    ro = np.stack([r.uniform(-4, 4, n), r.uniform(0.5, 3, n),
+                   r.uniform(-4, 4, n)], -1).astype(np.float32)
+    rd = r.normal(size=(n, 3)).astype(np.float32)
+    rd[:, 1] = -np.abs(rd[:, 1])
+    rd /= np.linalg.norm(rd, axis=1, keepdims=True)
+    mx = np.where(r.random(n) < 0.5, np.inf, r.uniform(0.5, 4, n))
+    mx[::97] = -np.inf                              # idle lanes
+    return tuple(torch.as_tensor(np.ascontiguousarray(x, np.float32),
+                                 device=device)
+                 for x in (ro, rd, np.full(n, 1e-4), mx))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("walk", ["wide", "skip"])
+def test_cluster_kernels_match_plain_walks(cuda, walk):
+    from vimg_tpu_torch.scene.synthetic import terrain_scene
+    scene = terrain_scene(20_000, 16, 8, device=cuda)
+    tr = ct.ClusterTracer(scene, walk=walk)
+    rays = _terrain_rays(cuda)
+    if walk == "wide":
+        kern = lambda *r: ct.trace_wide(*tr.node_tables, tr.tri_rows,
+                                        tr.n_wide, tr.max_stack, *r)
+        plain = lambda *r: ct.wide_walk_plain(*tr.node_tables, tr.tri_rows,
+                                              tr.max_stack, *r)
+    else:
+        kern = lambda *r: ct.trace_skip(*tr.node_tables, tr.tri_rows,
+                                        tr.data.n_nodes, *r)
+        plain = lambda *r: ct.skip_walk_plain(*tr.node_tables, tr.tri_rows,
+                                              tr.data.n_nodes, *r)
+    for any_hit in (False, True):
+        before = (ct.LAUNCHES_WIDE, ct.LAUNCHES_SKIP)
+        got = kern(*rays, any_hit)
+        torch.cuda.synchronize()
+        moved = (ct.LAUNCHES_WIDE - before[0], ct.LAUNCHES_SKIP - before[1])
+        assert moved == ((1, 0) if walk == "wide" else (0, 1))
+        ref = plain(*rays, any_hit)
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b)
+        assert bool((got[1] >= 0).any()) or any_hit

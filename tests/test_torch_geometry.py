@@ -32,7 +32,7 @@ def _close(a, b, rtol=1e-6, atol=1e-6):
 def flagship():
     from __graft_entry__ import _flagship_scene
     js, st = _flagship_scene()
-    return js, tir.scene_from_numpy(*tir.scene_to_numpy(js))
+    return js, tir.scene_from_numpy(*tir.scene_to_numpy(js), device="cpu")
 
 
 def _scene_rays(n, seed):
@@ -153,11 +153,20 @@ def test_hit_info_flagship(flagship):
 
 
 def test_make_tracer_limits(flagship):
+    """<= 64 primitives: SoA; more triangles with <= 64 spheres: the
+    cluster tracer; more spheres than that: the unported BVH tracer."""
+    from vimg_tpu_torch.geometry.cluster_trace import ClusterTracer
     _, ts = flagship
     assert isinstance(make_tracer(ts), TSoA)
-    big = ts.replace(tri_vidx=torch.zeros((65, 3), dtype=torch.int64))
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        make_tracer(big)
+    big = ts.replace(tri_vidx=ts.tri_vidx.repeat(6, 1),
+                     tri_mat=ts.tri_mat.repeat(6),
+                     tri_flags=ts.tri_flags.repeat(6))
+    assert isinstance(make_tracer(big), ClusterTracer)
+    many = big.replace(sph_center=torch.zeros((65, 3)),
+                       sph_radius=torch.ones(65),
+                       sph_mat=torch.zeros(65, dtype=torch.int64))
+    with pytest.raises(NotImplementedError, match="item 21"):
+        make_tracer(many)
 
 
 def test_tri_constants_verbatim(flagship):

@@ -37,7 +37,7 @@ RTOL = ATOL = 1e-5
 def scenes():
     from __graft_entry__ import _flagship_scene
     js, _ = _flagship_scene()
-    return js, tir.scene_from_numpy(*tir.scene_to_numpy(js))
+    return js, tir.scene_from_numpy(*tir.scene_to_numpy(js), device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -56,7 +56,7 @@ def unit_scenes():
     b.add_sphere((0, 3.0, 0), 1.0, light)
     js = b.build(camera=Camera.make(look_at([0, 0, 6], [0.7, 0, 0],
                                             [0, 1, 0]), 32, 24, 45.0))
-    return js, tir.scene_from_numpy(*tir.scene_to_numpy(js))
+    return js, tir.scene_from_numpy(*tir.scene_to_numpy(js), device="cpu")
 
 
 def _unit(v):

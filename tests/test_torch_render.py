@@ -60,7 +60,7 @@ def _flagship_small():
 
 
 def _port(js, st):
-    return (tir.scene_from_numpy(*tir.scene_to_numpy(js)),
+    return (tir.scene_from_numpy(*tir.scene_to_numpy(js), device="cpu"),
             tir.RenderSettings(**dataclasses.asdict(st)))
 
 
@@ -137,7 +137,7 @@ def test_pack_tables_match_vimg_tpu():
     from __graft_entry__ import _flagship_scene
     from vimg_tpu.render.mega.kernel import _pack_scene as jpack
     js, _ = _flagship_scene()
-    ts = tir.scene_from_numpy(*tir.scene_to_numpy(js))
+    ts = tir.scene_from_numpy(*tir.scene_to_numpy(js), device="cpu")
     jt, jstatic = jpack(js)
     tt = tkernel._pack_scene(ts)
     assert np.array_equal(jt["tri_c"], tt["tri_c"])
@@ -226,6 +226,9 @@ def test_cuda_request_without_cuda_raises(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("CUDA is available: the no-CUDA path cannot be shown")
     from vimg_tpu_torch import cli
+    from vimg_tpu_torch.render.camera import Camera as TCamera
+    from vimg_tpu_torch.scene import synthetic
+    from vimg_tpu_torch.scene.json_loader import SceneBuilder as TB
     from vimg_tpu_torch.scene.json_loader import load_json_scene
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         load_json_scene(FLAGSHIP_JSON, device="cuda")
@@ -235,6 +238,21 @@ def test_cuda_request_without_cuda_raises(tmp_path):
     ts, _ = _port(*_unit_scene(1, "mis"))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ts.to("cuda")
+    # every scene entry point defaults to the card
+    c2w = np.eye(4, dtype=np.float32)
+    fields, meta = tir.scene_to_numpy(ts)
+    b = TB()
+    b.add_material(tir.MAT_LAMBERTIAN, base=(0.5, 0.5, 0.5))
+    b.add_sphere((0, 0, 0), 1.0, 0)
+    for call in (lambda: load_json_scene(FLAGSHIP_JSON),
+                 lambda: b.build(camera=dict(cam2world=c2w, width=4,
+                                             height=4, vfov_deg=45.0)),
+                 lambda: tir.scene_from_numpy(fields, meta),
+                 lambda: TCamera.make(c2w, 4, 4, 45.0),
+                 lambda: synthetic.terrain_scene(200, 4, 4),
+                 lambda: synthetic.bumpy_sphere_scene(200, 4, 4)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
 
 
 def test_package_never_imports_jax():

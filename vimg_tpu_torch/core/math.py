@@ -33,10 +33,21 @@ def length2(a):
     return dot(a, a)
 
 
+def sqrt_cr(x):
+    """Correctly rounded float32 square root. On the CPU, torch.sqrt runs
+    through MKL's vector math, which is not correctly rounded and whose
+    last bit depends on the code path MKL picks (it varied from process to
+    process); the float64 root rounded to float32 is correct except in
+    double-rounding ties. CUDA's sqrtf is correctly rounded."""
+    if x.device.type == "cpu":
+        return torch.sqrt(x.double()).float()
+    return torch.sqrt(x)
+
+
 def normalize(a):
     """Normalize; zero vectors map to zero."""
     n2 = dot(a, a)[..., None]
-    inv = 1.0 / torch.sqrt(torch.clamp_min(n2, 1e-38))
+    inv = 1.0 / sqrt_cr(torch.clamp_min(n2, 1e-38))
     return a * torch.where(n2 > 0, inv, torch.zeros_like(inv))
 
 

@@ -6,20 +6,22 @@ import math
 
 import torch
 
+from vimg_tpu_torch.core.math import sqrt_cr
+
 TWO_PI = 2.0 * math.pi
 INV_PI = 1.0 / math.pi
 INV_4PI = 1.0 / (4.0 * math.pi)
 
 
 def _dir(phi, cos_t):
-    sin_t = torch.sqrt(torch.clamp_min(1.0 - cos_t * cos_t, 0.0))
+    sin_t = sqrt_cr(torch.clamp_min(1.0 - cos_t * cos_t, 0.0))
     return torch.stack([torch.cos(phi) * sin_t, torch.sin(phi) * sin_t,
                         cos_t], dim=-1)
 
 
 def sample_disk(r1, r2):
     """Uniform point on the unit disk -> (..., 2)."""
-    r = torch.sqrt(r1)
+    r = sqrt_cr(r1)
     phi = TWO_PI * r2
     return torch.stack([r * torch.cos(phi), r * torch.sin(phi)], dim=-1)
 
@@ -42,7 +44,7 @@ def sample_hemisphere(r1, r2):
 
 def sample_hemisphere_cosine(r1, r2):
     """Cosine-weighted direction on the +z hemisphere; pdf = cos/pi."""
-    return _dir(TWO_PI * r1, torch.sqrt(r2))
+    return _dir(TWO_PI * r1, sqrt_cr(r2))
 
 
 def sample_triangle_uv(r1, r2):

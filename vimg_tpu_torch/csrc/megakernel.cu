@@ -1094,6 +1094,8 @@ extern "C" int vimg_mega_render(
   return (int)cudaGetLastError();
 }
 
-extern "C" const char* vimg_mega_error_string(int code) {
+// The error text of a launcher's return code, for every kernel of the
+// library (vimg_tpu_torch/runtime/cuda.py::check).
+extern "C" const char* vimg_cuda_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }

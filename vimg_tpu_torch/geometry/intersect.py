@@ -3,8 +3,9 @@
 - Triangles: the watertight test (pbrt / Woop et al.), boundary hits
   accepted when all edge signs agree.
 - Spheres: the numerically robust quadric (RT Gems 1 ch.7).
-- ``hit_info``: deferred shading data for the surviving hit, constant-colour
-  path only (no UV-derived frames or normal maps: slice 3).
+- ``hit_info``: deferred shading data for the surviving hit: interpolated
+  vertex normals on TRI_HAS_NORMALS triangles, the constant-colour path
+  only (no UV-derived frames or normal maps: slice 3).
 """
 from __future__ import annotations
 
@@ -12,7 +13,8 @@ from dataclasses import dataclass
 
 import torch
 
-from vimg_tpu_torch.core.math import cross, dot, normalize, onb_from_normal
+from vimg_tpu_torch.core.math import (cross, dot, normalize, onb_from_normal,
+                                     sqrt_cr)
 from vimg_tpu_torch.scene import ir
 
 INF = float("inf")
@@ -90,7 +92,7 @@ def sphere_intersect(ro, rd, center, radius, minT, maxT):
     one = torch.ones_like(disc)
     sign = torch.where(b_prime > 0, one, -one)
     disc_safe = torch.where(has_root, torch.clamp_min(a * disc, 1e-30), one)
-    q = b_prime + sign * torch.sqrt(disc_safe)
+    q = b_prime + sign * sqrt_cr(disc_safe)
     x0 = c / torch.where(q == 0.0, one, q)
     x1 = q / a
     t0 = torch.minimum(x0, x1)
@@ -206,9 +208,15 @@ def _tri_hit_info(scene: ir.Scene, hr: HitResult):
     u, v = hr.u, hr.v
     w = 1.0 - u - v
     n_g = normalize(cross(p1 - p0, p2 - p0))
+    # smooth shading: interpolated vertex normals on TRI_HAS_NORMALS tris
+    has_n = ((scene.tri_flags[tid] & ir.TRI_HAS_NORMALS) != 0)[:, None]
+    n_interp = normalize(u[:, None] * scene.vnormals[vidx[:, 0]]
+                         + v[:, None] * scene.vnormals[vidx[:, 1]]
+                         + w[:, None] * scene.vnormals[vidx[:, 2]])
+    n_s = torch.where(has_n, n_interp, n_g)
     hit_p = u[:, None] * p0 + v[:, None] * p1 + w[:, None] * p2
-    tangent, bitangent = onb_from_normal(n_g)
-    return dict(mat_id=scene.tri_mat[tid], p=hit_p, n_s=n_g, n_g=n_g,
+    tangent, bitangent = onb_from_normal(n_s)
+    return dict(mat_id=scene.tri_mat[tid], p=hit_p, n_s=n_s, n_g=n_g,
                 tangent=tangent, bitangent=bitangent)
 
 

@@ -13,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from vimg_tpu_torch.core.math import sqrt_cr
 from vimg_tpu_torch.geometry.intersect import HitResult
 from vimg_tpu_torch.scene import ir
 
@@ -90,7 +91,7 @@ def _trace_impl(tri_c, sph_c, ro, rd, minT, maxT, any_hit):
             cc = ro2 - 2.0 * ro_c + (cx * cx + cy * cy + cz * cz) - r2
             disc4 = b_prime * b_prime - rd2 * cc
             has = disc4 >= 0.0
-            sq = torch.sqrt(torch.where(has, torch.clamp_min(disc4, 1e-30),
+            sq = sqrt_cr(torch.where(has, torch.clamp_min(disc4, 1e-30),
                                         one))
             sign = torch.where(b_prime > 0.0, one, -one)
             q = b_prime + sign * sq

@@ -1,12 +1,24 @@
-"""Tracer facade (port of vimg_tpu.geometry.trace), restricted to the small
-analytic scenes of slice 1: the dense SoA tracer (default) and the
-brute-force tracer."""
+"""Tracer facade (port of vimg_tpu.geometry.trace): picks the intersection
+backend for a scene.
+
+- ``soa``: the dense SoA tracer, the default up to BRUTE_FORCE_MAX_PRIMS
+  primitives;
+- ``brute``: the brute-force tracer;
+- ``cluster``: the cluster tracer (kernels B3/B4 on CUDA, their plain
+  walks on the CPU), the default for larger scenes with triangles and at
+  most 64 spheres.
+
+vimg_tpu picks its BVH tracer on the CPU; that per-ray BVH walk is not
+ported (ROADMAP queue A item 21), so here the CPU takes the cluster tracer
+with its plain walks, which return the same hits as the kernels.
+"""
 from __future__ import annotations
 
 from vimg_tpu_torch.geometry import intersect
 from vimg_tpu_torch.scene import ir
 
 BRUTE_FORCE_MAX_PRIMS = 64
+CLUSTER_MAX_SPHERES = 64     # spheres merge densely beside the walk
 
 
 class BruteForceTracer:
@@ -23,14 +35,19 @@ class BruteForceTracer:
 
 
 def make_tracer(scene: ir.Scene, force=None):
-    """Pick the intersection backend: ``soa`` (default up to
-    BRUTE_FORCE_MAX_PRIMS primitives) or ``brute``."""
+    """Pick the intersection backend: ``soa``, ``brute`` or ``cluster``
+    (``force`` names one; None picks as the module docstring says)."""
     n_prims = scene.n_tris() + scene.n_spheres()
     if force == "brute":
         return BruteForceTracer(scene)
     if force == "soa" or (force is None and n_prims <= BRUTE_FORCE_MAX_PRIMS):
         from vimg_tpu_torch.geometry.soa_intersect import SoATracer
         return SoATracer(scene)
+    if force == "cluster" or (force is None and scene.n_tris() > 0
+                              and scene.n_spheres() <= CLUSTER_MAX_SPHERES):
+        from vimg_tpu_torch.geometry.cluster_trace import ClusterTracer
+        return ClusterTracer(scene)
     raise NotImplementedError(
-        f"tracer {force or 'auto'} for {n_prims} primitives is not ported "
-        f"yet: BVH and cluster tracers come with ROADMAP queue A slice 2")
+        f"tracer {force or 'auto'} for {scene.n_tris()} triangles and "
+        f"{scene.n_spheres()} spheres is not ported yet (the BVH tracer is "
+        f"ROADMAP queue A item 21)")

@@ -12,7 +12,7 @@ from dataclasses import dataclass
 import torch
 
 from vimg_tpu_torch.core.math import (cross, dot, length2, normalize,
-                                      onb_from_normal, onb_to_world)
+                                      onb_from_normal, onb_to_world, sqrt_cr)
 from vimg_tpu_torch.core.warps import (INV_4PI, sample_sphere,
                                        sample_sphere_cap, sample_triangle_uv)
 from vimg_tpu_torch.scene import ir
@@ -60,15 +60,15 @@ def _sample_tri(scene: ir.Scene, tri_id, look_from, r1, r2):
     dvec = hit_p - look_from
     dist2 = length2(dvec)
     wi = normalize(dvec)
-    area = torch.sqrt(torch.clamp_min(length2(cross(e2, e1)), 0.0)) / 2.0
+    area = sqrt_cr(torch.clamp_min(length2(cross(e2, e1)), 0.0)) / 2.0
     pdf = 1.0 / torch.clamp_min(area, 1e-20)
     G = dot(hit_n, -wi).abs() / torch.clamp_min(dist2, 1e-20)
     rad = _emitted_one_sided(scene, scene.tri_mat[tri_id], wi, hit_n)
-    return rad, wi, pdf, torch.sqrt(dist2), G
+    return rad, wi, pdf, sqrt_cr(dist2), G
 
 
 def _sphere_cone(radius, d2):
-    cos_max = torch.sqrt(torch.clamp(
+    cos_max = sqrt_cr(torch.clamp(
         1.0 - (radius * radius) / torch.clamp_min(d2, 1e-20), 0.0, 1.0))
     pdf_cone = 1.0 / (2.0 * math.pi * torch.clamp_min(1.0 - cos_max, 1e-12))
     return cos_max, pdf_cone
@@ -100,7 +100,7 @@ def _sample_sphere_light(scene: ir.Scene, sph_id, look_from, r1, r2):
     sa = 4.0 * math.pi * radius * radius
     pdf = torch.where(inside, 1.0 / sa, pdf_cone * G)
     rad = _emitted_one_sided(scene, scene.sph_mat[sph_id], wi, n)
-    return rad, wi, pdf, torch.sqrt(dist2), G
+    return rad, wi, pdf, sqrt_cr(dist2), G
 
 
 def sample_lights(scene: ir.Scene, look_from, pick_rand, r1, r2) -> LightSample:
@@ -151,7 +151,7 @@ def surf_pdf(scene: ir.Scene, prim_type, prim_id, look_from, point_on_light,
         p0 = scene.verts[vidx[:, 0]]
         p1 = scene.verts[vidx[:, 1]]
         p2 = scene.verts[vidx[:, 2]]
-        area = torch.sqrt(torch.clamp_min(
+        area = sqrt_cr(torch.clamp_min(
             length2(cross(p2 - p0, p1 - p0)), 0.0)) / 2.0
         pdf = torch.where(prim_type == ir.PRIM_TRI,
                           1.0 / torch.clamp_min(area, 1e-20), pdf)

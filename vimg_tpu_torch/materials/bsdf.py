@@ -14,7 +14,7 @@ from dataclasses import dataclass
 import torch
 
 from vimg_tpu_torch.core.math import (dot, dotk, normalize, onb_from_normal,
-                                      onb_to_world, pow5)
+                                      onb_to_world, pow5, sqrt_cr)
 from vimg_tpu_torch.core.warps import sample_hemisphere_cosine
 from vimg_tpu_torch.geometry.intersect import HitInfo
 from vimg_tpu_torch.materials import disney
@@ -240,7 +240,7 @@ def _dielectric_sample(scene, mat_id, wi, hit, rands):
     ratio = torch.where(front, 1.0 / ior, ior)
     sin_t_sq = ratio * ratio * (1.0 - cos_i * cos_i)
     tir = sin_t_sq > 1.0
-    cos_t = torch.sqrt(torch.clamp_min(1.0 - sin_t_sq, 0.0))
+    cos_t = sqrt_cr(torch.clamp_min(1.0 - sin_t_sq, 0.0))
     refl_prob = torch.where(front, schlick(cos_i, 1.0, ior),
                             torch.where(tir, torch.full_like(cos_t, 1.1),
                                         schlick(cos_t, ior, 1.0)))

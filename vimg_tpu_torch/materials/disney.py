@@ -12,7 +12,8 @@ import math
 import torch
 
 from vimg_tpu_torch.core.math import (dot, dotk, luminance, normalize,
-                                      onb_to_world, pow5, world_to_onb)
+                                      onb_to_world, pow5, sqrt_cr,
+                                      world_to_onb)
 
 PI = math.pi
 INV_PI = 1.0 / math.pi
@@ -41,7 +42,7 @@ def regularize_alpha(alpha, regularize):
 
 
 def anisotropic_alphas(roughness, anisotropic, clamp_roughness=True):
-    aspect = torch.sqrt(1.0 - 0.9 * anisotropic)
+    aspect = sqrt_cr(1.0 - 0.9 * anisotropic)
     r = torch.clamp(roughness, 0.01, 1.0) if clamp_roughness else roughness
     r2 = r * r
     return (torch.clamp_min(r2 / aspect, ALPHA_MIN),
@@ -57,7 +58,7 @@ def smith_g(w, alphax, alphay, fu, fv, fw):
     ax = lx * alphax
     ay = ly * alphay
     a = (ax * ax + ay * ay) / lz2
-    lam = (torch.sqrt(1.0 + a) - 1.0) / 2.0
+    lam = (sqrt_cr(1.0 + a) - 1.0) / 2.0
     return 1.0 / (1.0 + lam)
 
 
@@ -77,7 +78,7 @@ def sample_vndf(local_dir_in, alphax, alphay, r1, r2):
                                   din[..., 2]], dim=-1))
     phi = 2.0 * PI * r1
     z = (1.0 - r2) * (1.0 + hemi[..., 2]) - hemi[..., 2]
-    sin_t = torch.sqrt(torch.clamp(1.0 - z * z, 0.0, 1.0))
+    sin_t = sqrt_cr(torch.clamp(1.0 - z * z, 0.0, 1.0))
     c = torch.stack([sin_t * torch.cos(phi), sin_t * torch.sin(phi), z], -1)
     h = c + hemi
     n = normalize(torch.stack([alphax * h[..., 0], alphay * h[..., 1],
@@ -90,7 +91,7 @@ def fresnel_dielectric(n_dot_i, eta):
     reflection."""
     n_dot_t_sq = 1.0 - (1.0 - n_dot_i * n_dot_i) / (eta * eta)
     tir = n_dot_t_sq < 0.0
-    n_dot_t = torch.sqrt(torch.clamp_min(n_dot_t_sq, 0.0))
+    n_dot_t = sqrt_cr(torch.clamp_min(n_dot_t_sq, 0.0))
     ni = n_dot_i.abs()
     rs = (ni - eta * n_dot_t) / torch.clamp_min(ni + eta * n_dot_t, 1e-12)
     rp = (eta * ni - n_dot_t) / torch.clamp_min(eta * ni + n_dot_t, 1e-12)
@@ -195,7 +196,7 @@ def eval_pdf_rough_glass(dir_in, dir_out, n_g, base_col, mat_eta, half_vec,
     sqrt_denom = h_dot_in + eta * h_dot_out
     sd2 = torch.clamp_min(sqrt_denom * sqrt_denom, 1e-20)
     eta_factor = 1.0 / (eta * eta)
-    ev_refr = (torch.sqrt(torch.clamp_min(base_col, 0.0))
+    ev_refr = (sqrt_cr(torch.clamp_min(base_col, 0.0))
                * (eta_factor * (1.0 - F) * d * G * eta * eta
                   * (h_dot_out * h_dot_in).abs() / (abs_n_in * sd2))[..., None])
     dh_dout = eta * eta * h_dot_out / sd2
@@ -239,8 +240,8 @@ def sample_clearcoat(dir_in, n_g, clearcoat_gloss, fu, fv, fw, r1, r2,
     alpha_g = regularize_alpha(alpha_g, regularize)
     a2 = alpha_g * alpha_g
     cos2 = (1.0 - torch.pow(a2, 1.0 - r1)) / (1.0 - a2)
-    cos_e = torch.sqrt(torch.clamp(cos2, 0.0, 1.0))
-    sin_e = torch.sqrt(torch.clamp(1.0 - cos2, 0.0, 1.0))
+    cos_e = sqrt_cr(torch.clamp(cos2, 0.0, 1.0))
+    sin_e = sqrt_cr(torch.clamp(1.0 - cos2, 0.0, 1.0))
     az = 2.0 * PI * r2
     local_h = torch.stack([sin_e * torch.cos(az), sin_e * torch.sin(az),
                            cos_e], dim=-1)
@@ -273,7 +274,7 @@ def sample_rough_glass(dir_in, n_g, mat_eta, anisotropic, roughness,
 
     h_dot_out_sq = 1.0 - (1.0 - h_dot_in * h_dot_in) / (eta * eta)
     h_flip = torch.where((h_dot_in < 0.0)[..., None], -h, h)
-    h_dot_out = torch.sqrt(torch.clamp_min(h_dot_out_sq, 0.0))
+    h_dot_out = sqrt_cr(torch.clamp_min(h_dot_out_sq, 0.0))
     refr = (-dir_in / eta[..., None]
             + (h_dot_in.abs() / eta - h_dot_out)[..., None] * h_flip)
     refr_valid = (h_dot_out_sq > 0.0) & ((dot(refr, n_g) * in_geo) < 0.0)

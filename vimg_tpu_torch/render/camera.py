@@ -24,7 +24,12 @@ class Camera:
 
     @staticmethod
     def make(cam2world, width, height, vfov_deg, aperture_radius=0.0,
-             focal_dist=1.0, device="cpu"):
+             focal_dist=1.0, device="cuda"):
+        """A camera on ``device`` (CUDA by default; raises without CUDA
+        unless ``device="cpu"`` is passed)."""
+        from vimg_tpu_torch.scene.ir import check_device
+        device = check_device(device)
+
         def f32(x):
             # a copy: the inputs may be read-only views (np.asarray of a
             # JAX array)

@@ -282,7 +282,7 @@ def render_megakernel(scene: ir.Scene, settings: ir.RenderSettings,
     if not supports_megakernel(scene, settings):
         raise ValueError("scene/settings outside the megakernel's feature "
                          "set (see supports_megakernel)")
-    from vimg_tpu_torch.render.mega.build import load_library
+    from vimg_tpu_torch.runtime.cuda import check, load_library
     lib = load_library()
     tabs = _device_tables(scene)
     shapes = _table_shapes(scene)
@@ -304,9 +304,7 @@ def render_megakernel(scene: ir.Scene, settings: ir.RenderSettings,
             min(settings.max_depth, 2 ** 31 - 1), int(sample_offset),
             _flags(scene, settings),
             film.data_ptr(), counts.data_ptr(), stream.cuda_stream)
-        if rc != 0:
-            raise RuntimeError("megakernel launch failed: "
-                               + lib.vimg_mega_error_string(rc).decode())
+        check(rc, "megakernel")
         LAUNCHES += 1
         LAST_COUNTS = counts
         end.record(stream)

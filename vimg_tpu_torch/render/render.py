@@ -3,9 +3,10 @@
 ``render`` is the chunked loop over (pixel, sample) work: every chunk
 holds whole pixels with all their samples, and each pixel's samples are
 summed in sample order, as vimg_tpu's film accumulates them.
-``render_frame`` sends CUDA scenes that the megakernel supports to the
-hand-written CUDA kernel and CPU scenes to the loop integrator. Anything
-else raises: nothing moves silently between devices.
+``render_frame`` sends scenes that the megakernel supports to the
+hand-written CUDA kernel (CUDA) or the loop integrator (CPU), and other
+MIS frames to the refill wavefront. Anything else raises on CUDA: nothing
+moves silently between devices.
 """
 from __future__ import annotations
 
@@ -50,21 +51,47 @@ def render(scene: ir.Scene, settings: ir.RenderSettings, progress=False,
     return accum.view(H, W, 3) / spp
 
 
+MESH_WAVEFRONT_MIN_SPP = 8
+
+
+def prefer_wavefront_for_mesh(scene, settings):
+    """vimg_tpu's dispatch rule: mesh MIS frames at production sample
+    counts go to the refill wavefront even where a megakernel covers them
+    (on the TPU the wavefront measured faster there). With only the
+    analytic megakernel ported (<= 64 triangles) it decides nothing yet;
+    it matters once the mesh-mode megakernel (B2) lands."""
+    return (scene.n_tris() > 64
+            and settings.spp >= MESH_WAVEFRONT_MIN_SPP
+            and settings.integrator == "mis")
+
+
 def render_frame(scene, settings, progress=False):
-    """Render dispatch: CUDA scene + supported analytic scene + mis/material
-    -> the CUDA megakernel; CPU scene -> the loop integrator."""
+    """Render dispatch, the same choice on both devices:
+
+    - a scene and integrator the megakernel covers: the CUDA megakernel on
+      CUDA, its plain version (the loop integrator) on the CPU;
+    - else an MIS frame: the refill wavefront (cluster kernels B3/B4 on
+      CUDA, their plain walks on the CPU);
+    - else: the loop integrator on the CPU; on CUDA it raises (nothing
+      falls back to the CPU).
+    Any other device raises."""
     from vimg_tpu_torch.render.mega import (render_megakernel,
                                             supports_megakernel)
+    from vimg_tpu_torch.render.wavefront import render_wavefront
     dev = scene.device
-    if dev.type == "cuda":
-        if not supports_megakernel(scene, settings):
-            raise NotImplementedError(
-                "on CUDA only the megakernel path is ported (analytic "
-                "scenes, mis/material integrators); the wavefront is "
-                "ROADMAP queue A slice 2")
-        return render_megakernel(scene, settings, progress=progress)
-    if dev.type != "cpu":
+    if dev.type not in ("cpu", "cuda"):
         raise NotImplementedError(f"no render path for device {dev}")
+    mega = (supports_megakernel(scene, settings)
+            and not prefer_wavefront_for_mesh(scene, settings))
+    if mega and dev.type == "cuda":
+        return render_megakernel(scene, settings, progress=progress)
+    if not mega and settings.integrator == "mis":
+        return render_wavefront(scene, settings, progress=progress)
+    if dev.type == "cuda":
+        raise NotImplementedError(
+            f"on CUDA the {settings.integrator} integrator is ported only "
+            f"through the megakernel (analytic scenes of <= 64 triangles); "
+            f"the mesh-mode megakernel is ROADMAP queue B item B2")
     return render(scene, settings, progress=progress)
 
 

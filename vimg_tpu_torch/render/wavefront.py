@@ -1,0 +1,302 @@
+"""Persistent-wavefront MIS renderer with lane refill (port of
+vimg_tpu.render.wavefront).
+
+Each superstep advances every lane by one path segment and refills the
+lanes whose paths ended with fresh (pixel, sample) work from a global
+counter, handed out in Morton pixel order:
+
+  1. closest-trace each lane's pending ray (camera ray for fresh lanes,
+     BSDF bounce ray otherwise); resolve emissive / miss termination with
+     the MIS weight carried from the sampling step; Russian roulette
+  2. NEE at the surviving hits (shadow trace + balance heuristic)
+  3. sample the BSDF -> the next pending ray
+  4. add finished paths to the film; refill lanes from the counter
+
+Every step follows vimg_tpu's superstep operation for operation, with the
+same counter-RNG keys, so each path is the path vimg_tpu traces. Like
+vimg_tpu's wavefront it has no depth cut: ``settings.max_depth`` is not
+read (paths end by emission, a miss, absorption or roulette); the loop
+integrator and the megakernel do cut at max_depth. The roulette draw uses
+key ``d`` at the new hit, where the loop integrator draws key ``d`` after
+the bounce, so the wavefront and the loop agree only statistically.
+
+The run loop is a host loop over supersteps that reads ``n_done`` once per
+superstep, with vimg_tpu's safety valve on the superstep count. Segment and
+shadow-ray counters are exact int64. vimg_tpu's primary pre-pass
+(``trace_primaries``, ``VIMG_PREPASS``), the raster-order switch
+(``VIMG_NO_MORTON``), the ``ablate`` hook and the ``sample_offset`` of
+checkpoint slabs are not ported.
+"""
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from vimg_tpu_torch.core import rng
+from vimg_tpu_torch.core.rng import Draw
+from vimg_tpu_torch.geometry import intersect
+from vimg_tpu_torch.lights import emitters
+from vimg_tpu_torch.materials import bsdf
+from vimg_tpu_torch.render.integrators import (MIN_T, ROULETTE_CLAMP,
+                                               ROULETTE_THRESHOLD, SHADOW_EPS,
+                                               _balance, _geometric_term,
+                                               _primary_rays)
+from vimg_tpu_torch.scene import ir
+
+# default lane count (vimg_tpu's; settings.batch_size overrides it)
+MAX_LANES = 1 << 17
+INF = float("inf")
+# stats dict of the latest render_wavefront (what return_stats returns)
+LAST_STATS = None
+
+
+def morton_pixel_order(W, H):
+    """Pixel ids (y*W + x) in Morton (Z-curve) order: the work-dispensing
+    order, so the in-flight set is a compact 2D block rather than a
+    full-width strip."""
+    xs = np.arange(W, dtype=np.uint32)
+    ys = np.arange(H, dtype=np.uint32)
+    X, Y = np.meshgrid(xs, ys)                 # (H, W)
+
+    def spread(v):
+        v = (v | (v << 8)) & np.uint32(0x00FF00FF)
+        v = (v | (v << 4)) & np.uint32(0x0F0F0F0F)
+        v = (v | (v << 2)) & np.uint32(0x33333333)
+        v = (v | (v << 1)) & np.uint32(0x55555555)
+        return v
+
+    code = (spread(X) << np.uint32(1)) | spread(Y)
+    pid = (Y.astype(np.int64) * W + X).ravel()
+    order = np.argsort(code.ravel(), kind="stable")
+    return pid[order].astype(np.int32)
+
+
+def init_state(B, device):
+    """All lanes idle; the first superstep's refill hands out work."""
+    def z(*shape, dtype=torch.float32):
+        return torch.zeros((B, *shape), dtype=dtype, device=device)
+
+    def scalar():
+        return torch.zeros((), dtype=torch.int64, device=device)
+
+    return dict(
+        alive=z(dtype=torch.bool),         # lane holds an in-flight path
+        pix=z(dtype=torch.int64), samp=z(dtype=torch.int64),
+        d=z(dtype=torch.int64),
+        ro=z(3), rd=z(3),                  # pending ray
+        fresh=z(dtype=torch.bool),         # pending ray is a camera ray
+        throughput=z(3) + 1.0, result=z(3),
+        non_spec=z(dtype=torch.bool), eta_scale=z() + 1.0,
+        prev_pdf=z(), prev_delta=z(dtype=torch.bool),
+        next_work=scalar(), n_done=scalar(),
+        # exact counters: segments traced, shadow rays cast
+        n_segments=scalar(), n_shadow=scalar(),
+    )
+
+
+def make_superstep(scene: ir.Scene, settings: ir.RenderSettings, tracer,
+                   total_paths: int, morton_pix):
+    """Returns superstep(state, accum) -> (state, accum); ``accum`` is the
+    (3, H*W) film, ``morton_pix`` the work order's pixel ids (int64)."""
+    spp = settings.spp
+    n_lights = scene.n_lights()
+    nl = max(n_lights, 1)
+
+    def refill(s, accum, finished):
+        """Add finished paths to the film and pull new work."""
+        done = torch.nonzero(finished)[:, 0]
+        accum.index_add_(1, s["pix"][done], s["result"][done].T)
+        n_done = s["n_done"] + finished.sum()
+
+        free = finished | ~s["alive"]
+        slot = torch.cumsum(free.to(torch.int64), 0) - 1
+        new_k = s["next_work"] + slot
+        take = free & (new_k < total_paths)
+        next_work = s["next_work"] + take.sum()
+
+        k = new_k[take]
+        pix = s["pix"].clone()
+        samp = s["samp"].clone()
+        pix[take] = morton_pix[k // spp]
+        samp[take] = k % spp
+        ro, rd = s["ro"].clone(), s["rd"].clone()
+        ro[take], rd[take] = _primary_rays(scene, settings, pix[take],
+                                           samp[take])
+        m = take[:, None]
+        return dict(
+            s,
+            alive=(s["alive"] & ~finished) | take,
+            pix=pix, samp=samp,
+            d=torch.where(take, 0, s["d"]),
+            ro=ro, rd=rd,
+            fresh=s["fresh"] | take,
+            throughput=torch.where(m, 1.0, s["throughput"]),
+            result=torch.where(m, 0.0, s["result"]),
+            non_spec=s["non_spec"] & ~take,
+            eta_scale=torch.where(take, 1.0, s["eta_scale"]),
+            prev_pdf=torch.where(take, 0.0, s["prev_pdf"]),
+            prev_delta=s["prev_delta"] & ~take,
+            next_work=next_work, n_done=n_done,
+        ), accum
+
+    def superstep(s, accum):
+        alive, fresh = s["alive"], s["fresh"]
+        ro, rd, tp = s["ro"], s["rd"], s["throughput"]
+        pix, samp, d = s["pix"], s["samp"], s["d"]
+        B = alive.shape[0]
+        minT = torch.full((B,), MIN_T, device=ro.device)
+        infT = torch.full((B,), INF, device=ro.device)
+        n_segments = s["n_segments"] + alive.sum()
+
+        # ---- 1. trace pending rays ------------------------------------
+        # idle lanes walk with maxT = -inf: they leave the walk at once
+        hr = tracer.closest(scene, ro, rd, minT,
+                            torch.where(alive, infT, -INF))
+        hi = intersect.hit_info(scene, ro, rd, hr)
+        found = alive & hr.hit
+        missed = alive & ~hr.hit
+
+        emissive = found & bsdf.is_emissive(scene, hi.mat_id)
+        em = bsdf.emitted(scene, hi.mat_id, rd, hi.n_s)
+        # MIS weight of a light hit by BSDF sampling; camera rays and
+        # delta bounces weigh 1
+        light_pdf = emitters.surf_pdf(scene, hr.prim_type, hr.prim_id, ro,
+                                      hi.p, rd) / nl
+        G2 = _geometric_term(ro, hi.p, hi.n_g)
+        unweighted = fresh | s["prev_delta"] | (s["prev_pdf"] == 0.0)
+        # the clamp keeps an overflowing pdf*G2 from making the weight NaN
+        w_hit = torch.where(unweighted, 1.0, _balance(
+            torch.clamp_max(s["prev_pdf"] * G2, 1e30), light_pdf))
+        result = s["result"] + torch.where(
+            emissive[:, None], tp * w_hit[:, None] * em, 0.0)
+
+        # background on a miss: direct for camera rays, MIS-weighted
+        # otherwise
+        bg = emitters.background_emit(scene, rd)
+        bgp = emitters.background_pdf(scene, rd) / nl
+        w_bg = torch.where(unweighted, 1.0, _balance(s["prev_pdf"], bgp))
+        add_bg = missed & (fresh | scene.bg_is_emissive)
+        result = result + torch.where(
+            add_bg[:, None], tp * w_bg[:, None] * bg, 0.0)
+
+        terminated = missed | emissive
+        cont = found & ~emissive
+
+        # russian roulette on continuing paths (depth from path state)
+        rr_rand = rng.uniform1(pix, samp, d, Draw.ROULETTE)
+        max_val = torch.clamp_max((tp / s["eta_scale"][:, None]).amax(-1),
+                                  ROULETTE_CLAMP)
+        survive = rr_rand <= max_val
+        do_rr = cont & (d > ROULETTE_THRESHOLD) & ~fresh
+        tp = torch.where((do_rr & survive)[:, None],
+                         tp / torch.clamp_min(max_val, 1e-20)[:, None], tp)
+        rr_kill = do_rr & ~survive
+        terminated = terminated | rr_kill
+        cont = cont & ~rr_kill
+
+        # ---- 2. NEE ----------------------------------------------------
+        mat_delta = bsdf.is_delta(scene, hi.mat_id)
+        n_shadow = s["n_shadow"]
+        if n_lights > 0:
+            pick, lr1, lr2, _ = rng.uniform4(pix, samp, d, Draw.LIGHT_SAMPLE)
+            ls = emitters.sample_lights(scene, hi.p, pick, lr1, lr2)
+            do_nee = cont & ~mat_delta & (ls.pdf != 0.0)
+            # lanes without a shadow ray walk with -inf (see above)
+            shadow_max = torch.where(torch.isfinite(ls.dist),
+                                     ls.dist - SHADOW_EPS, infT)
+            shadow_max = torch.where(do_nee, shadow_max, -INF)
+            occl = tracer.occluded(scene, hi.p, ls.wi, minT, shadow_max)
+            n_shadow = n_shadow + do_nee.sum()
+            f, mpdf = bsdf.eval_pdf(scene, hi.mat_id, rd, ls.wi, hi,
+                                    s["non_spec"])
+            ok = do_nee & ~occl & (mpdf != 0.0) & ~torch.isnan(mpdf)
+            w = _balance(ls.pdf, mpdf * ls.G)
+            contrib = (tp * f * ls.radiance
+                       * (w * ls.G / torch.clamp_min(ls.pdf, 1e-20))[:, None])
+            contrib = torch.where(torch.isnan(contrib), 0.0, contrib)
+            result = result + torch.where(ok[:, None], contrib, 0.0)
+
+        # ---- 3. BSDF sampling -----------------------------------------
+        b1, b2, b3, b4 = rng.uniform4(pix, samp, d, Draw.BSDF_SAMPLE)
+        rands = {"lobe": b1, "u": b2, "v": b3, "fresnel": b4}
+        sc = bsdf.sample_mat(scene, hi.mat_id, rd, hi, rands, s["non_spec"])
+        absorbed = cont & ~sc.valid
+        terminated = terminated | absorbed
+        cont = cont & sc.valid
+        non_spec = s["non_spec"] | (cont & ~sc.is_specular)
+        eta_scale = torch.where(sc.eta != 0.0,
+                                s["eta_scale"] / (sc.eta * sc.eta),
+                                s["eta_scale"])
+        f2, pdf2 = bsdf.eval_pdf(scene, hi.mat_id, rd, sc.wo, hi, non_spec)
+        nan_pdf = torch.isnan(pdf2)
+        terminated = terminated | (cont & nan_pdf)
+        cont = cont & ~nan_pdf
+        # smooth dielectrics: eval/pdf == 1 analytically
+        ratio = torch.where(mat_delta[:, None], 1.0,
+                            f2 / torch.clamp_min(pdf2, 1e-20)[:, None])
+        ratio = torch.where(torch.isnan(ratio) | torch.isinf(ratio), 0.0,
+                            ratio)
+        tp = torch.where(cont[:, None], tp * ratio, tp)
+
+        m = cont[:, None]
+        s = dict(
+            s,
+            ro=torch.where(m, hi.p, ro),
+            rd=torch.where(m, sc.wo, rd),
+            fresh=fresh & ~alive,
+            throughput=tp, result=result,
+            non_spec=non_spec, eta_scale=eta_scale,
+            prev_pdf=torch.where(cont, pdf2, s["prev_pdf"]),
+            prev_delta=torch.where(cont, mat_delta, s["prev_delta"]),
+            d=torch.where(cont, d + 1, d),
+            n_segments=n_segments, n_shadow=n_shadow,
+        )
+        return refill(s, accum, terminated)
+
+    return superstep
+
+
+def render_wavefront(scene: ir.Scene, settings: ir.RenderSettings,
+                     tracer=None, progress=False, return_stats=False):
+    """Full-frame MIS render with the refill wavefront. Returns the linear
+    (H, W, 3) image on the scene's device, plus (with ``return_stats``) a
+    dict of supersteps, segments, shadow_rays and seconds."""
+    from vimg_tpu_torch.geometry.trace import make_tracer
+    tracer = tracer or make_tracer(scene)
+    W, H, spp = settings.width, settings.height, settings.spp
+    dev = scene.device
+    total = W * H * spp
+    cap = settings.batch_size if settings.batch_size is not None \
+        else MAX_LANES
+    B = min(cap, max(total // 2, 1024))
+    # safety valve far above any real superstep count
+    max_supersteps = 70 * (total // B + 1) + 8192
+
+    t0 = time.time()
+    morton_pix = torch.from_numpy(
+        morton_pixel_order(W, H).astype(np.int64)).to(dev)
+    superstep = make_superstep(scene, settings, tracer, total, morton_pix)
+    state = init_state(B, dev)
+    accum = torch.zeros((3, W * H), dtype=torch.float32, device=dev)
+    it = 0
+    while it < max_supersteps:
+        state, accum = superstep(state, accum)
+        it += 1
+        if int(state["n_done"]) >= total:
+            break
+    img = accum.T.reshape(H, W, 3) / spp
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    dt = time.time() - t0
+    segs, shadow = int(state["n_segments"]), int(state["n_shadow"])
+    global LAST_STATS
+    LAST_STATS = dict(supersteps=it, segments=segs, shadow_rays=shadow,
+                      seconds=dt)
+    if progress:
+        print(f"Render Completed: {it} supersteps, "
+              f"{total / max(dt, 1e-9) / 1e6:.2f} Mpaths/s, "
+              f"{(segs + shadow) / max(dt, 1e-9) / 1e6:.2f} Mrays/s "
+              f"({segs / 1e6:.1f}M segments + {shadow / 1e6:.1f}M shadow)")
+    return (img, dict(LAST_STATS)) if return_stats else img

@@ -1,0 +1,127 @@
+"""Build and load the CUDA kernel library.
+
+Every ``.cu`` source under ``vimg_tpu_torch/csrc/`` is compiled with
+``nvcc`` for ``sm_90a``; the sources compile in parallel (one ``nvcc`` per
+file, all started together) and link into one shared library with a plain
+C interface, loaded with ``ctypes``. The library lands in
+``vimg_tpu_torch/_build/`` under a name that hashes the sources and flags,
+so an edited source is rebuilt at its first use. Nothing here runs at
+import time. ``SIGNATURES`` holds the C signature of every exported
+function, for all kernels in one place.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# name -> (argtypes, restype); pointers and the stream are c_void_p
+SIGNATURES = {
+    # csrc/megakernel.cu: 10 tables, 9 ints, film, counts, stream
+    "vimg_mega_render": ([_P] * 10 + [_I] * 9 + [_P] * 3, _I),
+    # csrc/cluster_trace.cu: 4 tables, ro, rd, minT, maxT, n_rays,
+    # n_nodes (wide or binary), any_hit, t, slot, u, v, stream
+    "vimg_cluster_wide": ([_P] * 8 + [_I] * 3 + [_P] * 5, _I),
+    "vimg_cluster_skip": ([_P] * 8 + [_I] * 3 + [_P] * 5, _I),
+    "vimg_cuda_error_string": ([_I], ctypes.c_char_p),
+}
+
+_LIB = None
+BUILD_INFO = {}   # path, seconds (0.0 when cached), ptxas log of the build
+
+
+def _nvcc():
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(nvcc):
+        raise RuntimeError("nvcc not found: the CUDA kernels are built "
+                           "from source and need the CUDA toolkit")
+    return nvcc
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def library_path():
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libvimg_kernels_{h.hexdigest()[:16]}.so"
+
+
+def _run_all(cmds):
+    """Start every command at once, wait for all; raise on the first
+    failure with its output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    outs = []
+    for cmd, p in zip(cmds, procs):
+        out, err = p.communicate()
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n"
+                               f"{' '.join(cmd)}\n{out}\n{err}")
+        outs.append(out + err)
+    return outs
+
+
+def build():
+    """Compile the library if it is missing; returns its path."""
+    out = library_path()
+    log = out.with_suffix(".log")
+    if out.exists():
+        BUILD_INFO.update(path=str(out), seconds=0.0,
+                          log=log.read_text() if log.exists() else "")
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    tag = f"{out.stem}.{os.getpid()}"
+    srcs = [s for s in _sources() if s.suffix == ".cu"]
+    objs = [BUILD_DIR / f"{tag}.{s.stem}.o" for s in srcs]
+    t0 = time.time()
+    logs = _run_all([[nvcc, *NVCC_FLAGS, "-c", str(s), "-o", str(o)]
+                     for s, o in zip(srcs, objs)])
+    tmp = out.with_name(f"{tag}.tmp.so")
+    logs += _run_all([[nvcc, "-shared", "-o", str(tmp),
+                       *(str(o) for o in objs)]])
+    for o in objs:
+        o.unlink()
+    text = "".join(logs)
+    log.write_text(text)
+    os.replace(tmp, out)
+    BUILD_INFO.update(path=str(out), seconds=time.time() - t0, log=text)
+    return out
+
+
+def load_library():
+    """The built library with its C signatures set (built on first use)."""
+    global _LIB
+    if _LIB is not None:
+        return _LIB
+    lib = ctypes.CDLL(str(build()))
+    for name, (argtypes, restype) in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = restype
+    _LIB = lib
+    return lib
+
+
+def check(rc, what):
+    """Raise if a launcher returned a CUDA error code."""
+    if rc != 0:
+        raise RuntimeError(f"{what} launch failed: "
+                           + load_library().vimg_cuda_error_string(rc)
+                           .decode())

@@ -237,14 +237,14 @@ def scene_to_numpy(scene):
     return fields, meta
 
 
-def scene_from_numpy(fields: dict, meta: dict, device="cpu") -> Scene:
+def scene_from_numpy(fields: dict, meta: dict, device="cuda") -> Scene:
     """Scene from numpy arrays plus static flags.
 
     ``fields`` holds every name of TENSOR_FIELDS, ``env_mips`` (a sequence
     of arrays) and the camera's CAMERA_FIELDS; ``meta`` holds every name of
     META_FIELDS plus the camera's ``width`` and ``height``. Arrays are
     copied as they are (no recomputation), so both packages trace the same
-    bytes."""
+    bytes. A CUDA ``device`` (the default) raises without CUDA."""
     device = check_device(device)
     kw = {name: torch.as_tensor(np.array(fields[name]), dtype=dt,
                                 device=device)
@@ -269,11 +269,14 @@ def build_scene(
     mat_type, mat_base, mat_scalars, mat_tex=None,
     tex_type=None, tex_cols=None, tex_wh=None, tex_atlas=None,
     light_type=None, light_idx=None,
-    bg_color=(0.0, 0.0, 0.0), camera=None, device="cpu",
+    bg_color=(0.0, 0.0, 0.0), camera=None, device="cuda",
 ) -> Scene:
     """Assemble a Scene from host (numpy) buffers, filling defaults and
     deriving the static flags exactly as vimg_tpu.scene.ir.build_scene.
-    ``camera`` is a dict of Camera.make arguments (or a Camera)."""
+    ``camera`` is a dict of Camera.make arguments (or a Camera); a dict
+    builds its camera on ``device``. A CUDA ``device`` (the default)
+    raises without CUDA."""
+    device = check_device(device)
     verts = np.asarray(verts, np.float32).reshape(-1, 3)
     nv = verts.shape[0]
     tri_vidx = np.asarray(tri_vidx, np.int32).reshape(-1, 3)
@@ -321,7 +324,7 @@ def build_scene(
     if isinstance(camera, Camera):
         cam = camera
     else:
-        cam = Camera.make(**camera)
+        cam = Camera.make(**{"device": device, **camera})
     fields.update({k: getattr(cam, k).cpu().numpy() for k in CAMERA_FIELDS})
 
     meta = dict(

@@ -57,15 +57,15 @@ QUAD_VERTS = np.array([[-1, -1, 0], [-1, 1, 0], [1, 1, 0], [1, -1, 0]],
 QUAD_UVS = np.array([[0, 0], [0, 1], [1, 1], [1, 0]], np.float32)
 QUAD_IDX = np.array([[0, 2, 1], [2, 0, 3]], np.uint32)
 
-_MESH_TODO = ("mesh/OBJ surfaces are not ported yet (ROADMAP queue A, "
-              "slice 2 host table builders and A22 loaders)")
+_MESH_TODO = ("mesh/OBJ surfaces are not ported yet (the OBJ loader is "
+              "ROADMAP queue A item 22)")
 
 
 class SceneBuilder:
     """Accumulates host-side buffers, then emits an ir.Scene."""
 
     def __init__(self):
-        for name in ("verts", "vuv", "tri_vidx", "tri_mat", "tri_flags",
+        for name in ("verts", "vnormals", "vuv", "tri_vidx", "tri_mat", "tri_flags",
                      "sph_center", "sph_radius", "sph_mat", "mat_type",
                      "mat_base", "mat_scalars", "mat_tex", "tex_type",
                      "tex_cols", "tex_wh", "tex_atlas", "light_type",
@@ -103,19 +103,26 @@ class SceneBuilder:
         return self.mat_type[mat_id] == ir.MAT_DIFFUSE_LIGHT
 
     # -- geometry --------------------------------------------------------
-    def add_mesh(self, verts, tri_idx, mat_id, uvs):
-        """Triangles with UVs and without vertex normals (quads); the UVs
-        set TRI_HAS_UV like vimg_tpu."""
+    def add_mesh(self, verts, tri_idx, mat_id, normals=None, uvs=None):
+        """Triangles, optionally with per-vertex normals and UVs; each sets
+        its TRI_HAS_* flag like vimg_tpu (absent ones are stored as zeros).
+        Normal-map and metal-rough UV sets come with slice 3."""
         verts = np.asarray(verts, np.float32).reshape(-1, 3)
         tri_idx = np.asarray(tri_idx, np.int64).reshape(-1, 3)
         n = verts.shape[0]
         self.verts.append(verts)
-        self.vuv.append(np.asarray(uvs, np.float32).reshape(-1, 2))
+        self.vnormals.append(
+            np.zeros((n, 3), np.float32) if normals is None
+            else np.asarray(normals, np.float32).reshape(-1, 3))
+        self.vuv.append(np.zeros((n, 2), np.float32) if uvs is None
+                        else np.asarray(uvs, np.float32).reshape(-1, 2))
+        flags = ((ir.TRI_HAS_NORMALS if normals is not None else 0)
+                 | (ir.TRI_HAS_UV if uvs is not None else 0))
         t0 = len(self.tri_vidx)
         self.tri_vidx.extend(list((tri_idx + self._nv).astype(np.int32)))
         nt = tri_idx.shape[0]
         self.tri_mat.extend([mat_id] * nt)
-        self.tri_flags.extend([ir.TRI_HAS_UV] * nt)
+        self.tri_flags.extend([flags] * nt)
         self._nv += n
         if self._mat_is_emissive(mat_id):
             # the reference registers emissive tris in reverse order
@@ -136,14 +143,17 @@ class SceneBuilder:
             self.light_idx.append(len(self.sph_center) - 1)
 
     # -- emit ------------------------------------------------------------
-    def build(self, camera, bg_color=(0, 0, 0), device="cpu"):
-        """``camera``: a Camera or a dict of Camera.make arguments."""
+    def build(self, camera, bg_color=(0, 0, 0), device="cuda"):
+        """``camera``: a Camera or a dict of Camera.make arguments. A CUDA
+        ``device`` (the default) raises without CUDA."""
         def opt(xs, dtype):
             """Array of the list, or None (build_scene's default) if empty."""
             return np.asarray(np.stack(xs), dtype) if xs else None
         return ir.build_scene(
             verts=(np.concatenate(self.verts) if self.verts
                    else np.zeros((0, 3), np.float32)),
+            vnormals=(np.concatenate(self.vnormals) if self.vnormals
+                      else None),
             vuv=np.concatenate(self.vuv) if self.vuv else None,
             tri_vidx=(np.stack(self.tri_vidx) if self.tri_vidx
                       else np.zeros((0, 3), np.int32)),
@@ -178,8 +188,9 @@ def _texture_from_json(builder: SceneBuilder, mat_json):
     raise ValueError(f"unknown texture type {tex['type']}")
 
 
-def load_json_scene(path, device="cpu"):
-    """Parse a reference-format JSON scene onto ``device``.
+def load_json_scene(path, device="cuda"):
+    """Parse a reference-format JSON scene onto ``device`` (CUDA by
+    default; raises without CUDA unless ``device="cpu"`` is passed).
 
     Returns (scene: ir.Scene, settings: ir.RenderSettings)."""
     device = ir.check_device(device)

@@ -1,0 +1,115 @@
+"""Synthetic mesh scenes for benchmarks and tests (port of
+vimg_tpu.scene.synthetic): a displacement-mapped sphere ("bumpy sphere")
+and a fractal heightfield ("terrain"), each with an area light. The
+meshes are vimg_tpu's numpy code verbatim, so both packages build the same
+bytes from the same seed. The scenes land on ``device``, CUDA by default
+(raises without CUDA unless ``device="cpu"`` is passed). The textured,
+many-lights and multi-material scenes come with slice 3.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from vimg_tpu_torch.core.math import look_at
+from vimg_tpu_torch.render.camera import Camera
+from vimg_tpu_torch.scene import ir
+from vimg_tpu_torch.scene.json_loader import SceneBuilder
+
+
+def bumpy_sphere_mesh(n_tris=100_000, seed=0, bump=0.05):
+    """(verts, tris) of a displacement-mapped UV sphere with ~n_tris."""
+    rs = np.random.RandomState(seed)
+    n = int(np.sqrt(n_tris / 2)) + 1
+    th = np.linspace(1e-3, np.pi - 1e-3, n)
+    ph = np.linspace(0, 2 * np.pi, n)
+    tt, pp = np.meshgrid(th, ph, indexing="ij")
+    r = 1.0 + bump * rs.randn(n, n)
+    verts = np.stack([(r * np.sin(tt) * np.cos(pp)).ravel(),
+                      (r * np.cos(tt)).ravel(),
+                      (r * np.sin(tt) * np.sin(pp)).ravel()],
+                     -1).astype(np.float32)
+    idx = np.arange((n - 1) * n).reshape(n - 1, n)[:, :n - 1].ravel()
+    a = idx
+    tris = np.concatenate([
+        np.stack([a, a + 1, a + n], -1),
+        np.stack([a + 1, a + n + 1, a + n], -1)], axis=0)
+    # interleave the two halves to keep spatial locality in index order
+    tris = np.stack([tris[:len(a)], tris[len(a):]], axis=1).reshape(-1, 3)
+    return verts, np.ascontiguousarray(tris[:n_tris] if len(tris) > n_tris
+                                       else tris)
+
+
+def bumpy_sphere_scene(n_tris=100_000, width=512, height=256, seed=0,
+                       with_light=True, material=ir.MAT_LAMBERTIAN,
+                       smooth_normals=False, light_shape="quad",
+                       device="cuda"):
+    """Mesh benchmark scene: bumpy sphere + emissive quad (or sphere)
+    overhead."""
+    verts, tris = bumpy_sphere_mesh(n_tris, seed)
+    b = SceneBuilder()
+    m = b.add_material(material, base=(0.6, 0.55, 0.5))
+    normals = None
+    if smooth_normals:
+        # area-weighted vertex normals
+        p = verts[tris]
+        fn = np.cross(p[:, 1] - p[:, 0], p[:, 2] - p[:, 0])
+        normals = np.zeros_like(verts)
+        for k in range(3):
+            np.add.at(normals, tris[:, k], fn)
+        normals /= np.maximum(
+            np.linalg.norm(normals, axis=-1, keepdims=True), 1e-12)
+    b.add_mesh(verts, tris, m, normals=normals)
+    if with_light:
+        light = b.add_material(ir.MAT_DIFFUSE_LIGHT, base=(18.0, 17.0, 15.0))
+        if light_shape == "sphere":
+            b.add_sphere((0.0, 2.4, 0.0), 0.35, light)
+        else:
+            # 1.2x1.2 quad at y=2.4 facing down (emission is one-sided)
+            lv = np.array([[-0.6, 2.4, -0.6], [0.6, 2.4, -0.6],
+                           [0.6, 2.4, 0.6], [-0.6, 2.4, 0.6]], np.float32)
+            b.add_mesh(lv, np.array([[0, 1, 2], [0, 2, 3]]), light)
+    cam = Camera.make(look_at([0.0, 0.6, 3.2], [0.0, 0.0, 0.0],
+                              [0.0, 1.0, 0.0]), width, height, 40.0,
+                      device=device)
+    return b.build(camera=cam, bg_color=(0.05, 0.06, 0.08), device=device)
+
+
+def terrain_mesh(n_tris=100_000, seed=0, size=8.0, relief=0.8):
+    """(verts, tris) of a fractal-noise heightfield with ~n_tris."""
+    rs = np.random.RandomState(seed)
+    n = int(np.sqrt(n_tris / 2)) + 1
+    xs = np.linspace(-size / 2, size / 2, n)
+    xx, zz = np.meshgrid(xs, xs, indexing="ij")
+    h = np.zeros((n, n))
+    for octave in range(4):
+        f = 2.0 ** octave
+        h += (np.sin(xx * 1.7 * f + rs.rand() * 9)
+              * np.cos(zz * 1.3 * f + rs.rand() * 9)) / (1.6 ** octave)
+    h = (h / np.abs(h).max()) * relief
+    verts = np.stack([xx.ravel(), h.ravel(), zz.ravel()], -1).astype(
+        np.float32)
+    idx = np.arange((n - 1) * n).reshape(n - 1, n)[:, :n - 1].ravel()
+    a = idx
+    tris = np.concatenate([
+        np.stack([a, a + 1, a + n], -1),
+        np.stack([a + 1, a + n + 1, a + n], -1)], axis=0)
+    tris = np.stack([tris[:len(a)], tris[len(a):]], axis=1).reshape(-1, 3)
+    return verts, np.ascontiguousarray(tris[:n_tris] if len(tris) > n_tris
+                                       else tris)
+
+
+def terrain_scene(n_tris=100_000, width=512, height=256, seed=0,
+                  device="cuda"):
+    """Open-terrain mesh benchmark scene: heightfield + overhead light."""
+    verts, tris = terrain_mesh(n_tris, seed)
+    b = SceneBuilder()
+    m = b.add_material(ir.MAT_LAMBERTIAN, base=(0.55, 0.5, 0.42))
+    b.add_mesh(verts, tris, m)
+    light = b.add_material(ir.MAT_DIFFUSE_LIGHT, base=(14.0, 13.5, 12.0))
+    lv = np.array([[-1.2, 4.0, -1.2], [1.2, 4.0, -1.2],
+                   [1.2, 4.0, 1.2], [-1.2, 4.0, 1.2]], np.float32)
+    b.add_mesh(lv, np.array([[0, 1, 2], [0, 2, 3]]), light)
+    cam = Camera.make(look_at([0.0, 2.2, 4.6], [0.0, 0.0, 0.0],
+                              [0.0, 1.0, 0.0]), width, height, 45.0,
+                      device=device)
+    return b.build(camera=cam, bg_color=(0.25, 0.3, 0.38), device=device)
