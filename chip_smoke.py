@@ -25,7 +25,21 @@ Phases:
     batch 1<<17 -> render_frame -> finalize -> write_png through B3 (not
     B1), after the same frame at 1 spp through B3 and through the plain
     walk agree per pixel;
- 8. main path 3: the same at terrain 500k through B4.
+ 8. main path 3: the same at terrain 500k through B4 (64-spp MIS frames
+    still go to the wavefront: B2 is launched 0 times in 7 and 8);
+ 9. kernel B2 (mesh-mode megakernel) against its plain PyTorch version,
+    both on the card, at 512x256 @ 1 spp: terrain 100k MIS, the smooth-
+    shaded bumpy sphere 100k under the material integrator, terrain 500k
+    MIS (per-pixel parity, equal ray counts; the plain renders launch no
+    kernel); B2 timed at 4 spp on terrain 100k with CUDA events, its
+    bound from the kernel's own box and triangle test counters;
+10. main path 4: terrain 100k at 512x256 @ 4 spp MIS (a low-spp preview)
+    -> render_frame -> finalize -> write_png through B2 only, its mean
+    against the B3 wavefront's 4-spp frame (another estimator order, the
+    same expectation);
+11. main path 5: the smooth bumpy sphere 100k at 512x256 @ 64 spp under
+    the material integrator -> render_frame -> write_png through B2 only,
+    its mean against the plain version's 4-spp frame.
 Each main path is driven with every launch counter set to 0 just before
 and read just after. The line before the card's name is the kernels JSON;
 the last line is the JSON result {"ok": true, "device": {...}}; any
@@ -69,6 +83,23 @@ FP32_OPS_PER_S = 67e12
 # of the same primitives. Estimates to about +-30%.
 MEGA_OPS_PER_SEGMENT = 1800
 MEGA_OPS_PER_SHADOW = 830
+# kernel B2 per segment: B1's count without its trace of the flagship's
+# 18 primitives (12 x ~52 + 6 x ~32 = ~816), i.e. shading, light sample,
+# BSDF work and RNG; per shadow ray: the ray set-up of the walk (three
+# guarded reciprocals, ~15). The walk itself is counted by the kernel:
+# box tests x BOX_TEST_OPS + triangle tests x TRI_TEST_OPS.
+MESH_OPS_PER_SEGMENT = MEGA_OPS_PER_SEGMENT - 816
+MESH_OPS_PER_SHADOW = 15
+# phases 9-11: B2's frames (bench.py's mesh scenes at the bench's size)
+B2_FRAMES = (("terrain 100k mis", "terrain", 100_000, "mis"),
+             ("bumpy 100k smooth material", "bumpy", 100_000, "material"),
+             ("terrain 500k mis", "terrain", 500_000, "mis"))
+B2_TIMED_SPP = 4
+MAIN4_SPP, MAIN5_SPP, MAIN5_REF_SPP = 4, 64, 4
+# a frame's mean is compared within MAIN_MEAN_REL, widened to 4 standard
+# errors of the difference where the two frames' own pixel noise says 2%
+# is less (the material integrator's light hits are rare and bright)
+MEAN_SIGMAS = 4.0
 
 
 def log(*a):
@@ -150,6 +181,7 @@ def zero_counts():
     from vimg_tpu_torch.geometry import cluster_trace as ct
     from vimg_tpu_torch.render.mega import kernel
     kernel.LAUNCHES = 0
+    kernel.LAUNCHES_MESH = 0
     ct.LAUNCHES_WIDE = 0
     ct.LAUNCHES_SKIP = 0
 
@@ -158,7 +190,8 @@ def read_counts():
     from vimg_tpu_torch.geometry import cluster_trace as ct
     from vimg_tpu_torch.render.mega import kernel
     return dict(megakernel_analytic=kernel.LAUNCHES,
-                cluster_wide=ct.LAUNCHES_WIDE, cluster_skip=ct.LAUNCHES_SKIP)
+                cluster_wide=ct.LAUNCHES_WIDE, cluster_skip=ct.LAUNCHES_SKIP,
+                megakernel_mesh=kernel.LAUNCHES_MESH)
 
 
 def save_png(img, tonemap, name, png_dir):
@@ -371,7 +404,8 @@ def mesh_main_path(n_tris, walk, name, png_dir, card, dev):
     img_np = img.cpu().numpy()
     if img_np.shape != (MESH_H, MESH_W, 3) or not np.isfinite(img_np).all():
         fail(f"terrain {n_tris} image shape {img_np.shape} / non-finite")
-    if counts[name] < 1 or counts["megakernel_analytic"] != 0:
+    if (counts[name] < 1 or counts["megakernel_analytic"] != 0
+            or counts["megakernel_mesh"] != 0):
         fail(f"terrain {n_tris} main path launches {counts}")
     png = save_png(img, st.tonemap, f"terrain{n_tris // 1000}k.png", png_dir)
     mean = img_np.reshape(-1, 3).mean(0)
@@ -388,6 +422,199 @@ def mesh_main_path(n_tris, walk, name, png_dir, card, dev):
         f"{stats['shadow_rays']} shadow rays), {stats['supersteps']} "
         f"supersteps, launches {counts}, on {card}")
     return counts[name], r["max"]
+
+
+# ---------------------------------------------------------------------------
+# phases 9-11: kernel B2, the mesh-mode megakernel
+# ---------------------------------------------------------------------------
+
+def b2_scene(kind, n_tris, dev):
+    from vimg_tpu_torch.scene.synthetic import (bumpy_sphere_scene,
+                                                terrain_scene)
+    if kind == "terrain":
+        return terrain_scene(n_tris, MESH_W, MESH_H, device=dev)
+    return bumpy_sphere_scene(n_tris, MESH_W, MESH_H, smooth_normals=True,
+                              device=dev)
+
+
+def b2_settings(integrator, spp):
+    from vimg_tpu_torch.scene import ir
+    return ir.RenderSettings(MESH_W, MESH_H, spp=spp, max_depth=64,
+                             integrator=integrator, tonemap="agx")
+
+
+def mean_and_se(img):
+    """Per-channel image mean and its standard error over the pixels
+    (pixels are independent samples of the frame's mean)."""
+    import numpy as np
+    px = img.reshape(-1, 3).double().cpu().numpy()
+    return px.mean(0), px.std(0, ddof=1) / np.sqrt(px.shape[0])
+
+
+def check_mean(name, img, ref):
+    """The frame's mean within MAIN_MEAN_REL (or MEAN_SIGMAS standard
+    errors of the difference, if larger) of the reference frame's."""
+    import numpy as np
+    m, se = mean_and_se(img)
+    mr, ser = mean_and_se(ref)
+    rel = np.abs(m - mr) / np.maximum(mr, 1e-12)
+    se_rel = np.sqrt(se ** 2 + ser ** 2) / np.maximum(mr, 1e-12)
+    tol = np.maximum(MAIN_MEAN_REL, MEAN_SIGMAS * se_rel)
+    log(f"    mean {m.tolist()} vs reference {mr.tolist()}: rel "
+        f"{rel.tolist()}, standard error of the difference (rel) "
+        f"{se_rel.tolist()}, tolerance {tol.tolist()}")
+    if not (rel < tol).all():
+        fail(f"{name}: mean differs from the reference")
+    return rel
+
+
+def b2_vs_plain(label, kind, n_tris, integrator, dev):
+    """Phase 9 for one frame: B2 and its plain version at 1 spp."""
+    import torch
+    from vimg_tpu_torch.geometry import cluster_trace as ct
+    from vimg_tpu_torch.render.mega import kernel
+    scene = b2_scene(kind, n_tris, dev)
+    st = b2_settings(integrator, 1)
+    if not (kernel.is_mesh_mode(scene)
+            and kernel.supports_megakernel(scene, st)):
+        fail(f"{label}: not a mesh-mode megakernel frame")
+    t0 = time.time()
+    data = kernel.cluster_data(scene)
+    t1 = time.time()
+    kernel._tri_v(scene)
+    t2 = time.time()
+    tabs = kernel._device_tables(scene)
+    torch.cuda.synchronize(dev)
+    t3 = time.time()
+    nbytes = sum(tabs[k].numel() * tabs[k].element_size()
+                 for k in kernel._MESH_TABLE_ORDER)
+    log(f"  {label}: {data.n_clusters} clusters, {data.n_nodes} nodes; host "
+        f"build: ClusterData {t1 - t0:.2f}s, tri_v (vectorised) "
+        f"{t2 - t1:.3f}s, all tables packed and uploaded {t3 - t2:.2f}s "
+        f"({nbytes / 1e6:.1f} MB)")
+    kernel.render_megakernel(scene, st)                       # warm
+    (img, ks), k_s = timed(lambda: kernel.render_megakernel(
+        scene, st, return_stats=True))
+    walks = (ct.LAUNCHES_WIDE, ct.LAUNCHES_SKIP, kernel.LAUNCHES,
+             kernel.LAUNCHES_MESH)
+    (ref, ps), p_s = timed(lambda: kernel.render_megakernel_plain(
+        scene, st, return_stats=True))
+    if (ct.LAUNCHES_WIDE, ct.LAUNCHES_SKIP, kernel.LAUNCHES,
+            kernel.LAUNCHES_MESH) != walks:
+        fail(f"{label}: the plain version launched a kernel")
+    r = compare(f"{label} {MESH_W}x{MESH_H}@1 B2 vs plain", ref, img)
+    log(f"    B2 {1e3 * k_s:.2f} ms, plain {1e3 * p_s:.1f} ms; segments "
+        f"{ks['segments']} / {ps['segments']}, shadow rays "
+        f"{ks['shadow_rays']} / {ps['shadow_rays']}; B2 walk: "
+        f"{ks['box_tests']} box + {ks['tri_tests']} triangle tests")
+    if not (r["mean"] < UNIT_MEAN and r["frac"] < UNIT_FRAC
+            and r["corr"] > UNIT_CORR):
+        fail(f"{label}: B2 vs plain per-pixel parity")
+    for key in ("segments", "shadow_rays"):
+        if abs(ks[key] - ps[key]) > COUNT_REL * max(ps[key], 1):
+            fail(f"{label}: {key} count")
+    return scene, nbytes, r["max"], 1e3 * p_s
+
+
+def b2_timing(scene, nbytes):
+    """B2 at B2_TIMED_SPP on the scene: the wrapper's CUDA events around
+    one launch, after a warm one; the bound from this launch's
+    counters."""
+    from vimg_tpu_torch.geometry import cluster_trace as ct
+    from vimg_tpu_torch.render.mega import kernel
+    st = b2_settings("mis", B2_TIMED_SPP)
+    kernel.render_megakernel(scene, st)                       # warm
+    _, ks = kernel.render_megakernel(scene, st, return_stats=True)
+    ms = 1e3 * ks["seconds"]
+    ops = (ks["segments"] * MESH_OPS_PER_SEGMENT
+           + ks["shadow_rays"] * MESH_OPS_PER_SHADOW
+           + ks["box_tests"] * ct.BOX_TEST_OPS
+           + ks["tri_tests"] * ct.TRI_TEST_OPS)
+    t_ops = 1e3 * ops / FP32_OPS_PER_S
+    t_bytes = 1e3 * (nbytes + MESH_W * MESH_H * 3 * 4) / HBM_BYTES_PER_S
+    res = dict(ms=ms, bound_ms=max(t_ops, t_bytes),
+               bound_by="operations" if t_ops >= t_bytes else "bytes")
+    log(f"    B2 @ {B2_TIMED_SPP} spp: {ms:.3f} ms (CUDA events); "
+        f"{ks['segments']} segments, {ks['shadow_rays']} shadow rays, "
+        f"{ks['box_tests']} box + {ks['tri_tests']} triangle tests (kernel "
+        f"counters) -> bound {res['bound_ms']:.4f} ms ({res['bound_by']}: "
+        f"ops {t_ops:.4f} ms, bytes {t_bytes:.4f} ms)")
+    return res
+
+
+def b2_main_path(phase, label, scene, st, ref_img, png, png_dir, card):
+    """Phases 10/11: render_frame -> finalize -> write_png through B2
+    only; the mean against ``ref_img``."""
+    import numpy as np
+    from vimg_tpu_torch.render.mega import kernel
+    from vimg_tpu_torch.render.render import render_frame
+    zero_counts()
+    img, secs = timed(lambda: render_frame(scene, st))
+    counts = read_counts()
+    segs, shadow = (int(v) for v in kernel.LAST_COUNTS.cpu())
+    img_np = img.cpu().numpy()
+    if img_np.shape != (MESH_H, MESH_W, 3) or not np.isfinite(img_np).all():
+        fail(f"{label}: image shape {img_np.shape} / non-finite")
+    if (counts["megakernel_mesh"] < 1 or counts["megakernel_analytic"]
+            or counts["cluster_wide"] or counts["cluster_skip"]):
+        fail(f"{label}: main path launches {counts}")
+    size = save_png(img, st.tonemap, png, png_dir)
+    check_mean(label, img, ref_img)
+    paths = MESH_W * MESH_H * st.spp
+    log(f"    [{phase}] {MESH_W}x{MESH_H} @ {st.spp} spp {st.integrator}: "
+        f"{secs:.3f} s, {paths / secs / 1e6:.3f} Mpaths/s, "
+        f"{(segs + shadow) / secs / 1e6:.2f} Mrays/s ({segs} segments + "
+        f"{shadow} shadow rays), png {size} bytes, launches {counts}, on "
+        f"{card}")
+    return counts["megakernel_mesh"]
+
+
+def b2_phases(dev, png_dir, card):
+    """Phases 9-11; returns B2's row of the kernels JSON (launches over
+    main paths 4 and 5)."""
+    from vimg_tpu_torch.geometry import cluster_trace as ct
+    from vimg_tpu_torch.render import wavefront
+    from vimg_tpu_torch.render.mega import kernel
+    # ---- 9. kernel B2 vs its plain version ------------------------------
+    log(f"[9] B2 (mesh-mode megakernel) vs its plain PyTorch version (both "
+        f"on the card), {MESH_W}x{MESH_H} @ 1 spp")
+    b2_err, b2_scenes = 0.0, {}
+    for label, kind, n_tris, integ in B2_FRAMES:
+        sc, nbytes, err, plain_ms = b2_vs_plain(label, kind, n_tris, integ,
+                                                dev)
+        b2_err = max(b2_err, err)
+        b2_scenes[label] = (sc, nbytes, plain_ms)
+    t100 = b2_scenes["terrain 100k mis"]
+    b2 = b2_timing(t100[0], t100[1])
+    b2["plain_ms"] = t100[2]
+
+    # ---- 10. main path 4: terrain 100k low-spp MIS through B2 ----------
+    log(f"[10] main path 4: terrain 100k -> render_frame ({MESH_W}x{MESH_H} "
+        f"@ {MAIN4_SPP} spp MIS, max_depth 64) -> finalize -> write_png "
+        f"through B2")
+    sc = t100[0]
+    st4 = b2_settings("mis", MAIN4_SPP)
+    wf_ref, wf_s = timed(lambda: wavefront.render_wavefront(
+        sc, st4, tracer=ct.ClusterTracer(sc, data=kernel.cluster_data(sc))))
+    log(f"    reference: the wavefront through B3 at {MAIN4_SPP} spp, "
+        f"{wf_s:.3f} s")
+    b2_launches = b2_main_path(10, "terrain 100k mis", sc, st4, wf_ref,
+                               "terrain100k_b2.png", png_dir, card)
+
+    # ---- 11. main path 5: smooth bumpy 100k, material, through B2 -------
+    log(f"[11] main path 5: bumpy sphere 100k (vertex normals) -> "
+        f"render_frame ({MESH_W}x{MESH_H} @ {MAIN5_SPP} spp material) -> "
+        f"finalize -> write_png through B2")
+    sc = b2_scenes["bumpy 100k smooth material"][0]
+    ref5, ref5_s = timed(lambda: kernel.render_megakernel_plain(
+        sc, b2_settings("material", MAIN5_REF_SPP)))
+    log(f"    reference: the plain version at {MAIN5_REF_SPP} spp, "
+        f"{ref5_s:.1f} s")
+    b2_launches += b2_main_path(11, "bumpy 100k smooth material", sc,
+                                b2_settings("material", MAIN5_SPP), ref5,
+                                "bumpy100k_b2.png", png_dir, card)
+
+    return dict(b2, launches=b2_launches, max_abs_err=b2_err)
 
 
 def main():
@@ -527,6 +754,9 @@ def main():
         launches[name], wf_err[name] = mesh_main_path(n_tris, walk, name,
                                                       png_dir, card, dev)
 
+    # ---- 9-11. kernel B2 and main paths 4, 5 --------------------------
+    b2 = b2_phases(dev, png_dir, card)
+
     rows = [{
         "name": "megakernel_analytic",
         "route": "cuda",
@@ -556,6 +786,19 @@ def main():
             "bound_ms": c["bound_ms"],
             "bound_by": c["bound_by"],
             "library_ms": None})
+    rows.append({
+        "name": "megakernel_mesh",
+        "route": "cuda",
+        # the walk it runs is in vimg_tpu_torch/csrc/cluster_walk.cuh
+        "source": "vimg_tpu_torch/csrc/megakernel.cu",
+        "replaces": "vimg_tpu/render/mega/kernel.py:404 (mesh mode)",
+        "launches": b2["launches"],
+        "max_abs_err": b2["max_abs_err"],
+        "ms": b2["ms"],
+        "plain_ms": b2["plain_ms"],
+        "bound_ms": b2["bound_ms"],
+        "bound_by": b2["bound_by"],
+        "library_ms": None})
     log(json.dumps({"kernels": rows}))
     log(card)
     log(json.dumps({"ok": True, "device": {

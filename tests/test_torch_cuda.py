@@ -1,12 +1,14 @@
 """The CUDA kernels against their plain PyTorch versions, on the card:
-the megakernel (B1) and the cluster walks (B3 wide, B4 skip).
+the megakernel (B1 analytic mode, B2 mesh mode) and the cluster walks (B3
+wide, B4 skip).
 
 This file imports no JAX, so it also runs on the GPU machine, which has
 none: ``python3 -m pytest --noconftest tests/test_torch_cuda.py -q`` from
 the repository root (``--noconftest`` because tests/conftest.py imports
 JAX). Without CUDA the card tests skip and only the dispatch checks run.
-Criteria: for B1, tests/test_megakernel.py's per-pixel bound at unit
-scale (no epsilon races) and equal segment and shadow-ray counts; for B3
+Criteria: for B1 and B2, tests/test_megakernel.py's per-pixel bound at
+unit scale (mean|d| < 1e-4, < 1% of pixels with max|d| > 1e-5; the mesh
+scenes are unit scale too) and equal segment and shadow-ray counts; for B3
 and B4, bit-equality with their plain walks.
 """
 import numpy as np
@@ -57,6 +59,37 @@ def test_kernel_matches_plain_on_card(cuda, integrator):
     assert d.mean() < 1e-4 and (d.max(-1) > 1e-5).mean() < 0.01
     assert ks["segments"] == ps["segments"]
     assert ks["shadow_rays"] == ps["shadow_rays"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frame", ["terrain_mis", "bumpy_smooth_material"])
+def test_mesh_kernel_matches_plain_on_card(cuda, frame):
+    """B2 against its plain version (the loop integrator over the cluster
+    tracer's plain skip walk), which must launch no kernel."""
+    from vimg_tpu_torch.scene.synthetic import bumpy_sphere_scene, terrain_scene
+    if frame == "terrain_mis":
+        scene, integ = terrain_scene(2000, 64, 32, device=cuda), "mis"
+    else:
+        scene = bumpy_sphere_scene(2000, 64, 32, smooth_normals=True,
+                                   device=cuda)
+        integ = "material"
+    st = ir.RenderSettings(width=64, height=32, spp=2, max_depth=64,
+                           integrator=integ)
+    assert kernel.is_mesh_mode(scene) and kernel.supports_megakernel(scene, st)
+    before = (kernel.LAUNCHES, kernel.LAUNCHES_MESH)
+    img, ks = kernel.render_megakernel(scene, st, return_stats=True)
+    assert (kernel.LAUNCHES, kernel.LAUNCHES_MESH) == (before[0],
+                                                      before[1] + 1)
+    walks = (ct.LAUNCHES_WIDE, ct.LAUNCHES_SKIP, kernel.LAUNCHES_MESH)
+    ref, ps = kernel.render_megakernel_plain(scene, st, return_stats=True)
+    assert (ct.LAUNCHES_WIDE, ct.LAUNCHES_SKIP, kernel.LAUNCHES_MESH) == walks
+    img, ref = img.cpu().numpy(), ref.cpu().numpy()
+    assert np.isfinite(img).all() and img.mean() > 0
+    d = np.abs(ref - img)
+    assert d.mean() < 1e-4 and (d.max(-1) > 1e-5).mean() < 0.01
+    assert ks["segments"] == ps["segments"]
+    assert ks["shadow_rays"] == ps["shadow_rays"]
+    assert ks["box_tests"] > 0 and ks["tri_tests"] > 0
 
 
 def test_wrapper_dispatch_on_cpu():

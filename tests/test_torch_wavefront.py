@@ -132,14 +132,17 @@ def test_hit_info_smooth_normals():
 
 
 def test_render_frame_mesh_dispatch():
-    """A CPU mesh MIS frame goes to the wavefront and launches nothing."""
+    """A CPU mesh MIS frame at production spp (>= 8; lower spp goes to
+    the mesh-mode megakernel's plain version) goes to the wavefront and
+    launches nothing."""
     from vimg_tpu_torch.render.mega import kernel
     from vimg_tpu_torch.render.render import render_frame
     ts = tsyn.terrain_scene(300, 8, 6, device="cpu")
-    st = _settings(8, 6, 2)
-    before = (kernel.LAUNCHES, tct.LAUNCHES_WIDE, tct.LAUNCHES_SKIP)
+    st = _settings(8, 6, 8)
+    before = (kernel.LAUNCHES, kernel.LAUNCHES_MESH, tct.LAUNCHES_WIDE,
+              tct.LAUNCHES_SKIP)
     img = render_frame(ts, st)
-    assert (kernel.LAUNCHES, tct.LAUNCHES_WIDE,
+    assert (kernel.LAUNCHES, kernel.LAUNCHES_MESH, tct.LAUNCHES_WIDE,
             tct.LAUNCHES_SKIP) == before
     assert img.shape == (6, 8, 3) and img.device.type == "cpu"
     assert torch.equal(img, twf.render_wavefront(ts, st))

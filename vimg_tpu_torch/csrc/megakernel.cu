@@ -1,19 +1,36 @@
-// Persistent-path megakernel for Hopper (sm_90a): the analytic-scene MIS
-// and material integrators of vimg_tpu_torch as one CUDA kernel.
+// Persistent-path megakernel for Hopper (sm_90a): the MIS and material
+// integrators of vimg_tpu_torch as one CUDA kernel, in two modes.
 //
-// Replaces: vimg_tpu/render/mega/kernel.py::_make_kernel in analytic mode
-// (launched by _build_renderer through pl.pallas_call), together with the
+// Replaces: vimg_tpu/render/mega/kernel.py::_make_kernel (kernel.py:404,
+// launched by _build_renderer through pl.pallas_call), together with the
 // shading helpers of vimg_tpu/render/mega/shade.py and v3.py, which become
 // the device functions below.
+// - B1, analytic mode (Analytic below, vimg_mega_render): <= 64 triangles
+//   without vertex normals and <= 256 spheres, all tested densely.
+// - B2, mesh mode (Mesh below, vimg_mega_render_mesh): more than 64
+//   triangles, or any with vertex normals. The TPU kernel walks the binary
+//   skip-link cluster tree in-kernel (trace_mesh kernel.py:641,
+//   trace_mesh_stack :885, trace_mesh_defer :1148; the three give the
+//   same hits); here every thread runs the skip walk of cluster_walk.cuh
+//   (kernel B4's device code) over the same tables, tests the spheres
+//   densely beside it and merges them as the tracer does. The TPU kernel's
+//   VMEM residency and per-leaf DMA streaming have no counterpart: every
+//   table lives in global memory.
 //
 // Design: one thread per pixel. Each thread runs its pixel's spp paths back
 // to back, each path to termination, and sums them in sample order into a
-// register accumulator (the TPU lane's `acc`). Every step follows the plain
-// PyTorch version (vimg_tpu_torch/render/integrators.py, a port of
-// vimg_tpu/render/integrators.py) operation for operation: the same counter
-// RNG keys (pixel, sample, bounce, draw), the Russian-roulette key d drawn
-// after the bounce, barycentric triangle hit points, host-packed triangle
-// normals/areas, and the same NaN/overflow guards. JAX's maximum/minimum
+// register accumulator (the TPU lane's `acc`). One integrator body serves
+// both modes, templated on the geometry policy. Every step follows the
+// plain PyTorch version (vimg_tpu_torch/render/integrators.py, a port of
+// vimg_tpu/render/integrators.py, over the SoA tracer in analytic mode and
+// the cluster tracer's skip walk in mesh mode) operation for operation: the
+// same counter RNG keys (pixel, sample, bounce, draw), the Russian-roulette
+// key d drawn after the bounce (the loop integrator's order, not the
+// wavefront's), host-packed triangle normals/areas, the same NaN/overflow
+// guards, and barycentric triangle hit points u*p0 + v*p1 + w*p2. The TPU
+// kernel's mesh mode takes ro + t*rd instead (kernel.py:627-634); this
+// kernel keeps the loop integrator's rule in both modes, which is what
+// lets it agree with its plain version per sample. JAX's maximum/minimum
 // propagate NaN, so jmax/jmin below do too (fmaxf would drop it). The file
 // is built with -fmad=false and without fast math, so + - * / and sqrt
 // round like the eager PyTorch version; transcendentals (sin, cos, tan,
@@ -21,19 +38,29 @@
 // bsdf/disney's jnp.power as powf (shade.py's v3.powf exp/log form is not
 // used).
 //
-// What bounds it on this card: the scene tables are a few KB (<= 64 tris,
-// <= 256 spheres/materials/lights) and stay in L1/L2, so memory traffic is
-// negligible. The limits are registers (a Disney sample plus two
-// evaluations per segment in one thread; spills go to local memory) and
-// divergence (paths in a warp terminate at different depths and pick
-// different lobes). This first version does nothing about either beyond
-// keeping only the picked lobe's sampling code live; speed is later work.
+// What bounds it on this card. Analytic mode: the scene tables are a few
+// KB (<= 64 tris, <= 256 spheres/materials/lights) and stay in L1/L2, so
+// memory traffic is negligible. The limits are registers (a Disney sample
+// plus two evaluations per segment in one thread; spills go to local
+// memory) and divergence (paths in a warp terminate at different depths
+// and pick different lobes). Mesh mode adds the walk: each node step loads
+// a node that depends on the previous one (latency), and the rays of a
+// warp visit different nodes (divergence), as in B3/B4; the walk state
+// adds registers to B1's. The 100k and 500k terrains' tables (about 16 and
+// 78 MB with the per-triangle shading rows) meet the 50 MB L2. The mesh
+// mode shades 16 x 8 pixel tiles per block so a warp's rays start
+// coherent; nothing else is done about latency, divergence or the tail of
+// long paths (one launch of W*H threads, about 1.5 waves at 512 x 256):
+// speed is later work.
 //
-// Launch contract: vimg_mega_render() launches on the given stream, does
-// not synchronise and allocates nothing; it returns cudaGetLastError().
+// Launch contract: vimg_mega_render() and vimg_mega_render_mesh() launch
+// on the given stream, do not synchronise and allocate nothing; they return
+// cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "cluster_walk.cuh"
 
 #define F_MIS 1
 #define F_DOF 2
@@ -48,6 +75,7 @@
 #define MAT_PRINCIPLED 3
 #define LIGHT_TRI 0
 #define LIGHT_SPHERE 1
+#define TRI_HAS_NORMALS 1
 
 #define MS_IOR 0
 #define MS_SPEC_TRANS 1
@@ -83,7 +111,7 @@
 #define ROULETTE_CLAMP 0.95f
 
 struct Tables {
-  const float* tri_c;       // nt x 12: plane n, d0, m1, c1, m2, c2
+  const float* tri_c;       // nt x 12: plane n, d0, m1, c1, m2, c2 (analytic)
   const float* tri_v;       // nt x 16: p0, p1, p2, unit n_g, area, pad
   const float* sph;         // ns x 8: center, r^2, |c|^2, radius, pad
   const int* prim_mat;      // nt + ns material ids (tris first)
@@ -94,7 +122,16 @@ struct Tables {
                             //          sphere: center radius emit)
   const int* light_type;    // nl
   const float* cam;         // 24: see kernel.py::_cam_table
-  int nt, ns, nl, W, H, spp, max_depth, sample_offset, flags;
+  // mesh mode only (cluster_walk.cuh tables, ClusterData's packing)
+  const float* node_aabb;   // n_nodes x 8 (padded)
+  const int* node_cid;      // n_nodes (padded)
+  const int* node_skip;     // n_nodes (padded)
+  const float* ctri;        // clusters x 64 x 16 triangle rows
+  const int* perm;          // clusters x 64: hit slot -> triangle id
+  const float* vnormals;    // nv x 3 vertex normals
+  const int* tri_vidx;      // nt x 3 vertex ids
+  const int* tri_flags;     // nt (TRI_HAS_NORMALS: smooth shading)
+  int nt, ns, nl, W, H, spp, max_depth, sample_offset, flags, n_nodes;
 };
 
 // ---------------------------------------------------------------------------
@@ -218,13 +255,54 @@ struct Hit {
   float bu, bv;
 };
 
-__device__ Hit trace(const Tables& S, V3 ro, V3 rd, float minT, float maxT,
-                     bool any_hit) {
+// No hit yet, searching up to t
+__device__ __forceinline__ Hit no_hit(float t) {
   Hit h;
-  h.t = maxT;
+  h.t = t;
   h.id = -1;
   h.bu = 0.0f;
   h.bv = 0.0f;
+  return h;
+}
+
+// The dense sphere loop of the SoA tracer, continuing from the best hit h
+// (its t bounds the test). Returns true on an any-hit.
+__device__ __forceinline__ bool sphere_loop(const Tables& S, V3 ro, V3 rd,
+                                            float minT, Hit& h, bool any_hit) {
+  float ro_rd = ro.x * rd.x + ro.y * rd.y + ro.z * rd.z;
+  float ro2 = ro.x * ro.x + ro.y * ro.y + ro.z * ro.z;
+  float rd2 = rd.x * rd.x + rd.y * rd.y + rd.z * rd.z;
+  bool rd2_bad = rd2 < 1e-30f;
+  for (int j = 0; j < S.ns; ++j) {
+    const float* s = S.sph + 8 * j;
+    float ro_c = ro.x * s[0] + ro.y * s[1] + ro.z * s[2];
+    float rd_c = rd.x * s[0] + rd.y * s[1] + rd.z * s[2];
+    float b_prime = rd_c - ro_rd;
+    float cc = ro2 - 2.0f * ro_c + s[4] - s[3];
+    float disc4 = b_prime * b_prime - rd2 * cc;
+    bool has = disc4 >= 0.0f;
+    float sq = sqrtf(has ? jmax(disc4, 1e-30f) : 1.0f);
+    float q = b_prime + (b_prime > 0.0f ? 1.0f : -1.0f) * sq;
+    bool q_bad = fabsf(q) < 1e-30f;
+    float x0 = q_bad ? -1.0f : cc / q;
+    float x1 = rd2_bad ? -1.0f : q / rd2;
+    float t0 = jmin(x0, x1);
+    float t1 = jmax(x0, x1);
+    bool t0_ok = t0 >= minT && t0 < h.t;
+    bool t1_ok = t1 >= minT && t1 < h.t;
+    float t = t0_ok ? t0 : t1;
+    if (has && !rd2_bad && (t0_ok || t1_ok)) {
+      h.id = S.nt + j;
+      h.t = t;
+      if (any_hit) return true;
+    }
+  }
+  return false;
+}
+
+__device__ Hit trace(const Tables& S, V3 ro, V3 rd, float minT, float maxT,
+                     bool any_hit) {
+  Hit h = no_hit(maxT);
   for (int i = 0; i < S.nt; ++i) {
     const float* c = S.tri_c + 12 * i;
     float ro_n = ro.x * c[0] + ro.y * c[1] + ro.z * c[2];
@@ -244,47 +322,22 @@ __device__ Hit trace(const Tables& S, V3 ro, V3 rd, float minT, float maxT,
       if (any_hit) return h;
     }
   }
-  if (S.ns > 0) {
-    float ro_rd = ro.x * rd.x + ro.y * rd.y + ro.z * rd.z;
-    float ro2 = ro.x * ro.x + ro.y * ro.y + ro.z * ro.z;
-    float rd2 = rd.x * rd.x + rd.y * rd.y + rd.z * rd.z;
-    bool rd2_bad = rd2 < 1e-30f;
-    for (int j = 0; j < S.ns; ++j) {
-      const float* s = S.sph + 8 * j;
-      float ro_c = ro.x * s[0] + ro.y * s[1] + ro.z * s[2];
-      float rd_c = rd.x * s[0] + rd.y * s[1] + rd.z * s[2];
-      float b_prime = rd_c - ro_rd;
-      float cc = ro2 - 2.0f * ro_c + s[4] - s[3];
-      float disc4 = b_prime * b_prime - rd2 * cc;
-      bool has = disc4 >= 0.0f;
-      float sq = sqrtf(has ? jmax(disc4, 1e-30f) : 1.0f);
-      float q = b_prime + (b_prime > 0.0f ? 1.0f : -1.0f) * sq;
-      bool q_bad = fabsf(q) < 1e-30f;
-      float x0 = q_bad ? -1.0f : cc / q;
-      float x1 = rd2_bad ? -1.0f : q / rd2;
-      float t0 = jmin(x0, x1);
-      float t1 = jmax(x0, x1);
-      bool t0_ok = t0 >= minT && t0 < h.t;
-      bool t1_ok = t1 >= minT && t1 < h.t;
-      float t = t0_ok ? t0 : t1;
-      if (has && !rd2_bad && (t0_ok || t1_ok)) {
-        h.id = S.nt + j;
-        h.t = t;
-        if (any_hit) return h;
-      }
-    }
-  }
+  if (S.ns > 0 && sphere_loop(S, ro, rd, minT, h, any_hit)) return h;
   if (h.id < 0) h.t = __int_as_float(0x7f800000);
   return h;
 }
 
 // shading data of the surviving hit (intersect.hit_info, constant-colour
-// path: n_s == n_g, ONB frame)
+// path: ONB frame of the shading normal n_s; n_g the geometric normal)
 struct HitInfo {
   int mat;
-  V3 p, n, tangent, bitangent;
+  V3 p, ns, ng, tangent, bitangent;
 };
 
+// triangle and sphere shading (intersect._tri_hit_info / _sphere_hit_info):
+// barycentric hit point, host-packed n_g, n_s interpolated from the vertex
+// normals on TRI_HAS_NORMALS triangles (mesh mode only)
+template <bool kSmooth>
 __device__ HitInfo hit_info(const Tables& S, V3 ro, V3 rd, const Hit& h) {
   HitInfo hi;
   hi.mat = S.prim_mat[h.id];
@@ -296,15 +349,97 @@ __device__ HitInfo hit_info(const Tables& S, V3 ro, V3 rd, const Hit& h) {
     float w = 1.0f - u - v;
     V3 p0 = ld3(tv), p1 = ld3(tv + 3), p2 = ld3(tv + 6);
     hi.p = u * p0 + v * p1 + w * p2;
-    hi.n = ld3(tv + 9);
+    hi.ng = ld3(tv + 9);
+    hi.ns = hi.ng;
+    if (kSmooth && (S.tri_flags[h.id] & TRI_HAS_NORMALS)) {
+      const int* vi = S.tri_vidx + 3 * h.id;
+      hi.ns = normalize(u * ld3(S.vnormals + 3 * vi[0]) +
+                        v * ld3(S.vnormals + 3 * vi[1]) +
+                        w * ld3(S.vnormals + 3 * vi[2]));
+    }
   } else {
     const float* s = S.sph + 8 * (h.id - S.nt);
     hi.p = ro + rd * h.t;
-    hi.n = normalize(hi.p - ld3(s));
+    hi.ng = normalize(hi.p - ld3(s));
+    hi.ns = hi.ng;
   }
-  onb_from_normal(hi.n, hi.tangent, hi.bitangent);
+  onb_from_normal(hi.ns, hi.tangent, hi.bitangent);
   return hi;
 }
+
+// ---------------------------------------------------------------------------
+// geometry policies: what the integrator body traces against
+// ---------------------------------------------------------------------------
+
+// analytic mode (B1): every triangle and sphere tested densely in one loop
+struct Analytic {
+  static constexpr int kStats = 2;  // segments, shadow rays
+  static constexpr bool kTiled = false;  // thread i shades pixel i
+  __device__ static Hit closest(const Tables& S, V3 ro, V3 rd, float minT,
+                                float maxT, cwalk::Tests&) {
+    return trace(S, ro, rd, minT, maxT, false);
+  }
+  __device__ static bool occluded(const Tables& S, V3 ro, V3 rd, float minT,
+                                  float maxT, cwalk::Tests&) {
+    return trace(S, ro, rd, minT, maxT, true).id >= 0;
+  }
+  __device__ static HitInfo info(const Tables& S, V3 ro, V3 rd,
+                                 const Hit& h) {
+    return hit_info<false>(S, ro, rd, h);
+  }
+};
+
+// mesh mode (B2): the triangles through the skip walk of the binary
+// cluster tree (cluster_walk.cuh, kernel B4's device code), the spheres
+// densely beside it, merged as ClusterTracer._merge_spheres merges them: a
+// sphere wins only on a strictly smaller t
+struct Mesh {
+  static constexpr int kStats = 4;  // + box tests, triangle tests
+  static constexpr bool kTiled = true;   // 2D pixel tiles (thread_pixel)
+  __device__ static cwalk::Hit walk(const Tables& S, V3 ro, V3 rd,
+                                    float minT, float maxT, bool any_hit,
+                                    cwalk::Tests& n) {
+    cwalk::Ray r = cwalk::make_ray(ro.x, ro.y, ro.z, rd.x, rd.y, rd.z, minT);
+    cwalk::Hit w;
+    w.t = maxT;
+    w.u = 0.0f;
+    w.v = 0.0f;
+    w.slot = -1;
+    if (cwalk::walks(r, maxT, any_hit))
+      cwalk::skip_walk<true>(S.node_aabb, S.node_cid, S.node_skip, S.ctri,
+                             S.n_nodes, r, w, any_hit, n);
+    return w;
+  }
+  __device__ static Hit closest(const Tables& S, V3 ro, V3 rd, float minT,
+                                float maxT, cwalk::Tests& n) {
+    cwalk::Hit w = walk(S, ro, rd, minT, maxT, false, n);
+    Hit h = no_hit(__int_as_float(0x7f800000));
+    if (w.slot >= 0) {
+      h.t = w.t;
+      h.id = S.perm[w.slot];
+      h.bu = w.u;
+      h.bv = w.v;
+    }
+    if (S.ns > 0) {
+      Hit s = no_hit(maxT);
+      sphere_loop(S, ro, rd, minT, s, false);
+      if (s.id >= 0 && s.t < h.t) h = s;
+    }
+    return h;
+  }
+  __device__ static bool occluded(const Tables& S, V3 ro, V3 rd, float minT,
+                                  float maxT, cwalk::Tests& n) {
+    if (S.ns > 0) {
+      Hit s = no_hit(maxT);
+      if (sphere_loop(S, ro, rd, minT, s, true)) return true;
+    }
+    return walk(S, ro, rd, minT, maxT, true, n).t == -INFINITY;
+  }
+  __device__ static HitInfo info(const Tables& S, V3 ro, V3 rd,
+                                 const Hit& h) {
+    return hit_info<true>(S, ro, rd, h);
+  }
+};
 
 // ---------------------------------------------------------------------------
 // lights: port of vimg_tpu_torch.lights.emitters
@@ -497,13 +632,15 @@ __device__ __forceinline__ V3 mirror(V3 dir_in, V3 h) {
 // materials: port of vimg_tpu_torch.materials.bsdf
 // ---------------------------------------------------------------------------
 
-// bsdf._principled_frame flips the frame when n_s and n_g disagree about
-// the side of dir_in; here n_s == n_g, so the frame is the hit's own
+// bsdf._principled_frame: the frame flips when n_s and n_g disagree about
+// the side of dir_in (never where n_s == n_g; negation is exact, as the
+// reference's multiply by -1 is)
 __device__ __forceinline__ void principled_frame(const HitInfo& hi, V3 dir_in,
                                                  V3& fu, V3& fv, V3& fw) {
-  fu = hi.tangent;
-  fv = hi.bitangent;
-  fw = hi.n;
+  bool flip = (dot(hi.ns, dir_in) * dot(hi.ng, dir_in)) < 0.0f;
+  fu = flip ? -hi.tangent : hi.tangent;
+  fv = flip ? -hi.bitangent : hi.bitangent;
+  fw = flip ? -hi.ns : hi.ns;
 }
 
 __device__ __forceinline__ void lobe_weights(const Mat& p, float& wd, float& wc,
@@ -526,7 +663,7 @@ __device__ void principled_eval_pdf(const Mat& p, int flags, V3 wi, V3 wo,
   V3 dir_in = -wi;
   V3 fu, fv, fw;
   principled_frame(hi, dir_in, fu, fv, fw);
-  V3 n_g = hi.n;
+  V3 n_g = hi.ng;
   V3 base = p.base;
   V3 half_vec = normalize(dir_in + wo);
   V3 zero3 = v3(0.0f, 0.0f, 0.0f);
@@ -661,16 +798,16 @@ __device__ Scatter sample_mat(const Mat& p, int flags, V3 wi, const HitInfo& hi,
   s.is_spec = false;
   s.valid = false;
   if (p.type == MAT_LAMBERTIAN) {
-    bool front = dot(wi, hi.n) < 0.0f;
-    V3 n = front ? hi.n : -hi.n;
+    bool front = dot(wi, hi.ns) < 0.0f;
+    V3 n = front ? hi.ns : -hi.ns;
     V3 u, v;
     onb_from_normal(n, u, v);
     s.wo = onb_to_world(u, v, n, sample_hemisphere_cosine(r.b, r.c));
     s.valid = front;
   } else if (p.type == MAT_DIELECTRIC) {
     float ior = p.eta;
-    bool front = dot(wi, hi.n) < 0.0f;
-    V3 n = front ? hi.n : -hi.n;
+    bool front = dot(wi, hi.ns) < 0.0f;
+    V3 n = front ? hi.ns : -hi.ns;
     float cos_i = -dot(wi, n);
     float eta_in = front ? ior : 1.0f / ior;
     float ratio = front ? 1.0f / ior : ior;
@@ -699,7 +836,7 @@ __device__ Scatter sample_mat(const Mat& p, int flags, V3 wi, const HitInfo& hi,
     V3 dir_in = -wi;
     V3 fu, fv, fw;
     principled_frame(hi, dir_in, fu, fv, fw);
-    V3 n_g = hi.n;
+    V3 n_g = hi.ng;
     float in_geo = dot(n_g, dir_in);
     bool above = in_geo >= 0.0f;
     bool under = in_geo < 0.0f;
@@ -788,7 +925,7 @@ __device__ void eval_pdf(const Mat& p, int flags, V3 wi, V3 wo,
   f = v3(0.0f, 0.0f, 0.0f);
   pdf = 0.0f;
   if (p.type == MAT_LAMBERTIAN) {
-    float cospi = jmax(dot(wo, hi.n), 0.0f) * K_INV_PI;
+    float cospi = jmax(dot(wo, hi.ns), 0.0f) * K_INV_PI;
     f = p.base * cospi;
     pdf = cospi;
   } else if (p.type == MAT_PRINCIPLED) {
@@ -874,19 +1011,26 @@ __device__ __forceinline__ float scrub_naninf(float a) {
   return (isnanf_(a) || isinf(a)) ? 0.0f : a;
 }
 
+// Per-thread counters: closest-hit segments and shadow rays (both modes),
+// walk box and triangle tests (mesh mode)
+struct Counts {
+  unsigned long long seg, shadow;
+  cwalk::Tests walk;
+};
+
 // One MIS path (integrators.mis_integrator_loop)
-__device__ V3 mis_path(const Tables& S, int pix, uint32_t samp,
-                       unsigned long long& nseg, unsigned long long& nshadow) {
+template <class G>
+__device__ V3 mis_path(const Tables& S, int pix, uint32_t samp, Counts& c) {
   const float inf = __int_as_float(0x7f800000);
   V3 bg = ld3(S.cam + 17);
   V3 ro, rd;
   primary_ray(S, pix, samp, ro, rd);
-  nseg += 1;
-  Hit h = trace(S, ro, rd, MIN_T, inf, false);
+  c.seg += 1;
+  Hit h = G::closest(S, ro, rd, MIN_T, inf, c.walk);
   if (h.id < 0) return bg;
-  HitInfo hi = hit_info(S, ro, rd, h);
+  HitInfo hi = G::info(S, ro, rd, h);
   Mat mat = load_mat(S, hi.mat);
-  if (mat.type == MAT_DIFFUSE_LIGHT) return emitted(mat, rd, hi.n);
+  if (mat.type == MAT_DIFFUSE_LIGHT) return emitted(mat, rd, hi.ns);
 
   V3 result = v3(0.0f, 0.0f, 0.0f);
   V3 tp = v3(1.0f, 1.0f, 1.0f);
@@ -900,10 +1044,9 @@ __device__ V3 mis_path(const Tables& S, int pix, uint32_t samp,
       U4 l = uniform4((uint32_t)pix, samp, (uint32_t)d, DRAW_LIGHT_SAMPLE);
       LightSample ls = sample_lights(S, hi.p, l.a, l.b, l.c);
       if (!mat_delta && ls.pdf != 0.0f) {
-        nshadow += 1;
+        c.shadow += 1;
         float shadow_max = isfinite(ls.dist) ? ls.dist - SHADOW_EPS : inf;
-        Hit occ = trace(S, hi.p, ls.wi, MIN_T, shadow_max, true);
-        if (occ.id < 0) {
+        if (!G::occluded(S, hi.p, ls.wi, MIN_T, shadow_max, c.walk)) {
           V3 f;
           float mpdf;
           eval_pdf(mat, S.flags, rd, ls.wi, hi, non_spec, f, mpdf);
@@ -938,8 +1081,8 @@ __device__ V3 mis_path(const Tables& S, int pix, uint32_t samp,
 
     // ---- next bounce ----
     V3 nro = hi.p, nrd = sc.wo;
-    nseg += 1;
-    Hit h2 = trace(S, nro, nrd, MIN_T, inf, false);
+    c.seg += 1;
+    Hit h2 = G::closest(S, nro, nrd, MIN_T, inf, c.walk);
     bool w_one = mat_delta || pdf2 == 0.0f;
     if (h2.id < 0) {
       if (S.flags & F_BG_EMISSIVE) {
@@ -948,14 +1091,14 @@ __device__ V3 mis_path(const Tables& S, int pix, uint32_t samp,
       }
       break;
     }
-    HitInfo hi2 = hit_info(S, nro, nrd, h2);
+    HitInfo hi2 = G::info(S, nro, nrd, h2);
     Mat mat2 = load_mat(S, hi2.mat);
     if (mat2.type == MAT_DIFFUSE_LIGHT) {
-      V3 em = emitted(mat2, nrd, hi2.n);
+      V3 em = emitted(mat2, nrd, hi2.ns);
       float light_pdf = surf_pdf(S, h2.id, nro, hi2.p, nrd) / nl;
       V3 gd = nro - hi2.p;
       float dist2 = jmax(dot(gd, gd), 1e-20f);
-      float G2 = fabsf(dot(hi2.n, normalize(gd))) / dist2;
+      float G2 = fabsf(dot(hi2.ng, normalize(gd))) / dist2;
       // pdf2*G2 can overflow to inf; the clamp keeps the weight -> 1
       float w_hit = w_one ? 1.0f : balance(jmin(pdf2 * G2, 1e30f), light_pdf);
       result = result + tp * w_hit * em;
@@ -974,8 +1117,9 @@ __device__ V3 mis_path(const Tables& S, int pix, uint32_t samp,
 }
 
 // One material-integrator path (integrators.material_integrator_loop)
+template <class G>
 __device__ V3 material_path(const Tables& S, int pix, uint32_t samp,
-                            unsigned long long& nseg) {
+                            Counts& c) {
   const float inf = __int_as_float(0x7f800000);
   V3 bg = ld3(S.cam + 17);
   V3 ro, rd;
@@ -985,15 +1129,15 @@ __device__ V3 material_path(const Tables& S, int pix, uint32_t samp,
   bool non_spec = false;
   float eta_scale = 1.0f;
   for (int d = 0; d < S.max_depth; ++d) {
-    nseg += 1;
-    Hit h = trace(S, ro, rd, MIN_T, inf, false);
+    c.seg += 1;
+    Hit h = G::closest(S, ro, rd, MIN_T, inf, c.walk);
     if (h.id < 0) {
       result = result + tp * bg;
       break;
     }
-    HitInfo hi = hit_info(S, ro, rd, h);
+    HitInfo hi = G::info(S, ro, rd, h);
     Mat mat = load_mat(S, hi.mat);
-    V3 em = emitted(mat, rd, hi.n);
+    V3 em = emitted(mat, rd, hi.ns);
     U4 b = uniform4((uint32_t)pix, samp, (uint32_t)d, DRAW_BSDF_SAMPLE);
     Scatter sc = sample_mat(mat, S.flags, rd, hi, b, non_spec);
     if (!sc.valid) {
@@ -1019,25 +1163,47 @@ __device__ V3 material_path(const Tables& S, int pix, uint32_t samp,
 // ---------------------------------------------------------------------------
 
 #define BLOCK 128
+// mesh mode: a block shades a 16 x 8 pixel tile, each warp an 8 x 4 part
+// of it, so that the rays of a warp start close together and walk similar
+// nodes (the TPU kernel's TILE_W pixel tiles serve the same end)
+#define TILE_W 16
+#define TILE_H 8
 
+// The pixel of this thread, or -1 outside the image
+template <class G>
+__device__ __forceinline__ int thread_pixel(const Tables& S) {
+  if constexpr (!G::kTiled) {
+    int pix = blockIdx.x * BLOCK + threadIdx.x;
+    return pix < S.W * S.H ? pix : -1;
+  }
+  int tiles_x = (S.W + TILE_W - 1) / TILE_W;
+  int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  int x = (blockIdx.x % tiles_x) * TILE_W + (warp & 1) * 8 + (lane & 7);
+  int row = (blockIdx.x / tiles_x) * TILE_H + (warp >> 1) * 4 + (lane >> 3);
+  return (x < S.W && row < S.H) ? row * S.W + x : -1;
+}
+
+template <class G>
 __global__ void __launch_bounds__(BLOCK)
 mega_kernel(Tables S, float* __restrict__ film,
             unsigned long long* __restrict__ stats) {
-  __shared__ unsigned long long s_stats[2];
-  if (threadIdx.x == 0) {
-    s_stats[0] = 0ull;
-    s_stats[1] = 0ull;
-  }
+  constexpr int NS = G::kStats;
+  __shared__ unsigned long long s_stats[NS];
+  if (threadIdx.x < NS) s_stats[threadIdx.x] = 0ull;
   __syncthreads();
-  int pix = blockIdx.x * BLOCK + threadIdx.x;
-  unsigned long long nseg = 0ull, nshadow = 0ull;
-  if (pix < S.W * S.H) {
+  int pix = thread_pixel<G>(S);
+  Counts c;
+  c.seg = 0ull;
+  c.shadow = 0ull;
+  c.walk.box = 0u;
+  c.walk.tri = 0u;
+  if (pix >= 0) {
     V3 acc = v3(0.0f, 0.0f, 0.0f);
     bool mis = (S.flags & F_MIS) != 0;
     for (int m = 0; m < S.spp; ++m) {
       uint32_t samp = (uint32_t)(m + S.sample_offset);
-      V3 res = mis ? mis_path(S, pix, samp, nseg, nshadow)
-                   : material_path(S, pix, samp, nseg);
+      V3 res = mis ? mis_path<G>(S, pix, samp, c)
+                   : material_path<G>(S, pix, samp, c);
       acc = acc + res;
     }
     film[3 * pix + 0] = acc.x;
@@ -1046,21 +1212,26 @@ mega_kernel(Tables S, float* __restrict__ film,
   }
   // per-block counter reduction: warp shuffle, shared atomics, one global
   // atomic per counter per block
-  for (int off = 16; off > 0; off >>= 1) {
-    nseg += __shfl_down_sync(0xffffffffu, nseg, off);
-    nshadow += __shfl_down_sync(0xffffffffu, nshadow, off);
+  unsigned long long v[NS];
+  v[0] = c.seg;
+  v[1] = c.shadow;
+  if constexpr (NS > 2) {
+    v[2] = c.walk.box;
+    v[3] = c.walk.tri;
   }
+#pragma unroll
+  for (int k = 0; k < NS; ++k)
+    for (int off = 16; off > 0; off >>= 1)
+      v[k] += __shfl_down_sync(0xffffffffu, v[k], off);
   if ((threadIdx.x & 31) == 0) {
-    atomicAdd(&s_stats[0], nseg);
-    atomicAdd(&s_stats[1], nshadow);
+#pragma unroll
+    for (int k = 0; k < NS; ++k) atomicAdd(&s_stats[k], v[k]);
   }
   __syncthreads();
-  if (threadIdx.x == 0) {
-    atomicAdd(&stats[0], s_stats[0]);
-    atomicAdd(&stats[1], s_stats[1]);
-  }
+  if (threadIdx.x < NS) atomicAdd(&stats[threadIdx.x], s_stats[threadIdx.x]);
 }
 
+// B1: analytic scenes (<= 64 triangles without vertex normals)
 extern "C" int vimg_mega_render(
     const float* tri_c, const float* tri_v, const float* sph,
     const int* prim_mat, const int* mat_type, const float* mat_base,
@@ -1068,7 +1239,7 @@ extern "C" int vimg_mega_render(
     const float* cam, int nt, int ns, int nl, int W, int H, int spp,
     int max_depth, int sample_offset, int flags, float* film,
     unsigned long long* stats, void* stream) {
-  Tables S;
+  Tables S = {};
   S.tri_c = tri_c;
   S.tri_v = tri_v;
   S.sph = sph;
@@ -1090,7 +1261,53 @@ extern "C" int vimg_mega_render(
   S.flags = flags;
   int n_pix = W * H;
   int blocks = (n_pix + BLOCK - 1) / BLOCK;
-  mega_kernel<<<blocks, BLOCK, 0, (cudaStream_t)stream>>>(S, film, stats);
+  mega_kernel<Analytic><<<blocks, BLOCK, 0, (cudaStream_t)stream>>>(
+      S, film, stats);
+  return (int)cudaGetLastError();
+}
+
+// B2: mesh scenes (more than 64 triangles, or vertex normals); stats gets
+// segments, shadow rays, box tests, triangle tests
+extern "C" int vimg_mega_render_mesh(
+    const float* tri_v, const float* sph, const int* prim_mat,
+    const int* mat_type, const float* mat_base, const float* mat_sc,
+    const float* light_rows, const int* light_type, const float* cam,
+    const float* node_aabb, const int* node_cid, const int* node_skip,
+    const float* ctri, const int* perm, const float* vnormals,
+    const int* tri_vidx, const int* tri_flags, int nt, int ns, int nl,
+    int n_nodes, int W, int H, int spp, int max_depth, int sample_offset,
+    int flags, float* film, unsigned long long* stats, void* stream) {
+  Tables S = {};
+  S.tri_v = tri_v;
+  S.sph = sph;
+  S.prim_mat = prim_mat;
+  S.mat_type = mat_type;
+  S.mat_base = mat_base;
+  S.mat_sc = mat_sc;
+  S.light_rows = light_rows;
+  S.light_type = light_type;
+  S.cam = cam;
+  S.node_aabb = node_aabb;
+  S.node_cid = node_cid;
+  S.node_skip = node_skip;
+  S.ctri = ctri;
+  S.perm = perm;
+  S.vnormals = vnormals;
+  S.tri_vidx = tri_vidx;
+  S.tri_flags = tri_flags;
+  S.nt = nt;
+  S.ns = ns;
+  S.nl = nl;
+  S.n_nodes = n_nodes;
+  S.W = W;
+  S.H = H;
+  S.spp = spp;
+  S.max_depth = max_depth;
+  S.sample_offset = sample_offset;
+  S.flags = flags;
+  int blocks = ((W + TILE_W - 1) / TILE_W) * ((H + TILE_H - 1) / TILE_H);
+  mega_kernel<Mesh><<<blocks, BLOCK, 0, (cudaStream_t)stream>>>(S, film,
+                                                                stats);
   return (int)cudaGetLastError();
 }
 

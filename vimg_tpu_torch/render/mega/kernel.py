@@ -1,20 +1,32 @@
 """Persistent-path megakernel: the MIS / material integrator as one CUDA
-kernel (port of vimg_tpu.render.mega.kernel, analytic mode).
+kernel (port of vimg_tpu.render.mega.kernel), in two modes:
+
+- analytic mode (kernel B1): <= 64 triangles without vertex normals, every
+  primitive tested densely;
+- mesh mode (kernel B2): more than 64 triangles, or any triangle with
+  vertex normals; the triangles are traced by the skip walk of the binary
+  cluster tree over ClusterData's tables, the spheres densely beside it.
 
 - ``render_megakernel`` is the wrapper. A CUDA scene launches the
-  hand-written kernel of ``csrc/megakernel.cu`` (one thread per pixel, all
-  spp paths back to back); a CPU scene takes the plain PyTorch version.
-  Any other device raises.
+  hand-written kernel of ``csrc/megakernel.cu`` for its mode (one thread
+  per pixel, all spp paths back to back); a CPU scene takes the plain
+  PyTorch version. Any other device raises.
 - ``render_megakernel_plain`` is the plain version: the chunked loop
-  renderer over the loop integrators, with the same segment and shadow-ray
-  counts the kernel keeps.
-- ``LAUNCHES`` counts kernel launches (plain renders do not count);
-  ``LAST_COUNTS`` is the (segments, shadow rays) int64 device tensor of
-  the latest launch.
+  renderer over the loop integrators, traced by the SoA tracer (analytic
+  mode) or the cluster tracer's plain skip walk (mesh mode), so it never
+  launches a kernel, with the same segment and shadow-ray counts the
+  kernel keeps.
+- ``LAUNCHES`` counts analytic-mode launches, ``LAUNCHES_MESH`` mesh-mode
+  launches (plain renders count neither); ``LAST_COUNTS`` is the
+  (segments, shadow rays) int64 device tensor of the latest launch.
 
-Scene tables are small numpy arrays packed on the host exactly as
-vimg_tpu's ``_pack_scene`` packs them (triangle normals and areas in
-float32 with XLA's operation order), uploaded once per scene.
+Scene tables are numpy arrays packed on the host as vimg_tpu's
+``_pack_scene`` packs them (triangle normals and areas in float32 with
+XLA's operation order), uploaded once per scene. Mesh mode reads the
+vertex normals through ``tri_vidx`` by index, as
+``geometry/intersect.py::_tri_hit_info`` does, instead of vimg_tpu's
+per-cluster attribute rows (``ClusterData(with_attrs=True)``), which exist
+because a TPU lane cannot gather.
 """
 from __future__ import annotations
 
@@ -28,9 +40,11 @@ from vimg_tpu_torch.core import rng
 from vimg_tpu_torch.scene import ir
 
 LAUNCHES = 0
+LAUNCHES_MESH = 0
 LAST_COUNTS = None
 
-MEGA_MAX_TRIS = 64           # analytic mode; larger meshes are slice 4
+MEGA_MAX_TRIS = 64           # analytic mode; larger meshes take mesh mode
+MESH_MEGA_MAX_TRIS = 2_000_000
 MEGA_MAX_MATERIALS = 256
 MEGA_MAX_LIGHTS = 256
 MEGA_MAX_SPHERES = 256
@@ -40,14 +54,24 @@ F_MIS, F_DOF, F_BG_EMISSIVE = 1, 2, 4
 F_SHEEN, F_CLEAR, F_SPEC_TRANS = 8, 16, 32
 
 
+def is_mesh_mode(scene: ir.Scene) -> bool:
+    """vimg_tpu's switch (``_pack_scene``): more than 64 triangles, or any
+    triangle with vertex normals."""
+    nt = scene.n_tris()
+    return nt > MEGA_MAX_TRIS or (
+        nt > 0 and bool((scene.tri_flags & ir.TRI_HAS_NORMALS).any()))
+
+
 def supports_megakernel(scene: ir.Scene, settings: ir.RenderSettings) -> bool:
-    """True for the scenes the analytic megakernel covers: mis/material
-    integrator, 1..64 triangles without vertex normals, constant-colour
-    materials, triangle/sphere lights and a constant background."""
+    """True for the scenes the megakernel covers, as vimg_tpu decides it:
+    mis/material integrator, up to MESH_MEGA_MAX_TRIS triangles and 256
+    spheres, materials and lights, constant-colour materials (no
+    anisotropic triangles), triangle/sphere lights and a constant
+    background. Normal maps are refused too (not ported)."""
     if settings.integrator not in ("mis", "material"):
         return False
     nt, ns = scene.n_tris(), scene.n_spheres()
-    if not 0 < nt + ns or nt > MEGA_MAX_TRIS or ns > MEGA_MAX_SPHERES:
+    if not 0 < nt + ns or nt > MESH_MEGA_MAX_TRIS or ns > MEGA_MAX_SPHERES:
         return False
     if scene.n_mats() > MEGA_MAX_MATERIALS or scene.n_lights() > MEGA_MAX_LIGHTS:
         return False
@@ -55,8 +79,6 @@ def supports_megakernel(scene: ir.Scene, settings: ir.RenderSettings) -> bool:
         return False
     if scene.lights_have_bg or scene.has_normal_maps:
         return False
-    if nt and bool((scene.tri_flags & ir.TRI_HAS_NORMALS).any()):
-        return False          # smooth shading is mesh mode (slice 4)
     if nt and scene.has_aniso:
         aniso = scene.mat_scalars[:, ir.MS_ANISO] != 0.0
         if bool(aniso[scene.tri_mat].any()):
@@ -71,10 +93,11 @@ def supports_megakernel(scene: ir.Scene, settings: ir.RenderSettings) -> bool:
 
 
 # ---------------------------------------------------------------------------
-# host-side packing (vimg_tpu.render.mega.kernel._pack_scene, analytic mode)
+# host-side packing (vimg_tpu.render.mega.kernel._pack_scene)
 # ---------------------------------------------------------------------------
 
 def _f32_cross(a, b):
+    """Cross product of (3, ...) float32 arrays, component by component."""
     a = a.astype(np.float32)
     b = b.astype(np.float32)
     return np.stack([a[1] * b[2] - a[2] * b[1],
@@ -108,14 +131,16 @@ def _resolved_mat_base(scene):
 
 def _light_rows32(scene, mat_base):
     """32-wide light rows: tri -> p0, p1, p2, unit normal, area, emit, then
-    the three vertex normals (the face normal x3); sphere -> center,
-    radius, emit."""
+    the three vertex normals (the face normal x3 on a triangle without
+    TRI_HAS_NORMALS); sphere -> center, radius, emit."""
     lt = scene.light_type.cpu().numpy()
     li = scene.light_idx.cpu().numpy()
     rows = np.zeros((max(len(lt), 1), 32), np.float32)
     verts = scene.verts.cpu().numpy()
+    vnormals = scene.vnormals.cpu().numpy()
     tvidx = scene.tri_vidx.cpu().numpy()
     tri_mat = scene.tri_mat.cpu().numpy()
+    tri_flags = scene.tri_flags.cpu().numpy()
     sph_mat = scene.sph_mat.cpu().numpy()
     centers = scene.sph_center.cpu().numpy()
     radii = scene.sph_radius.cpu().numpy()
@@ -124,31 +149,40 @@ def _light_rows32(scene, mat_base):
             p0, p1, p2 = verts[tvidx[idx]]
             nrm = _unit(_f32_cross(p1 - p0, p2 - p0))
             area = _half_area(_f32_cross(p2 - p0, p1 - p0))
+            vn = (vnormals[tvidx[idx]].reshape(-1)
+                  if tri_flags[idx] & ir.TRI_HAS_NORMALS else
+                  np.concatenate([nrm, nrm, nrm]))
             rows[l, :25] = np.concatenate(
-                [p0, p1, p2, nrm, [area], mat_base[tri_mat[idx]],
-                 nrm, nrm, nrm])
+                [p0, p1, p2, nrm, [area], mat_base[tri_mat[idx]], vn])
         elif t == ir.LIGHT_SPHERE:
             rows[l, :7] = np.concatenate(
                 [centers[idx], [radii[idx]], mat_base[sph_mat[idx]]])
     return rows
 
 
-def _pack_scene(scene: ir.Scene):
-    """Numpy tables of the kernel (see the Tables struct in the source)."""
-    from vimg_tpu_torch.geometry.soa_intersect import build_constants
-    tri_c, _ = build_constants(scene)
-    nt, ns = scene.n_tris(), scene.n_spheres()
+def _tri_v(scene: ir.Scene):
+    """(nt, 16) per-triangle shading rows: p0, p1, p2, unit n_g (as
+    intersect._tri_hit_info computes it) and the area (as emitters.surf_pdf
+    computes it), in float32 with the same operation order, whole arrays at
+    once."""
+    nt = scene.n_tris()
     tri_v = np.zeros((max(nt, 1), 16), np.float32)
     if nt:
         verts = scene.verts.cpu().numpy()
         tv = scene.tri_vidx.cpu().numpy()
-        for i in range(nt):
-            p0, p1, p2 = verts[tv[i, 0]], verts[tv[i, 1]], verts[tv[i, 2]]
-            # intersect._tri_hit_info's n_g and emitters.surf_pdf's area in
-            # float32 with the same operation order
-            tri_v[i, :13] = np.concatenate(
-                [p0, p1, p2, _unit(_f32_cross(p1 - p0, p2 - p0)),
-                 [_half_area(_f32_cross(p2 - p0, p1 - p0))]])
+        p0, p1, p2 = (verts[tv[:, k]] for k in range(3))
+        tri_v[:nt, 0:3] = p0
+        tri_v[:nt, 3:6] = p1
+        tri_v[:nt, 6:9] = p2
+        a0, a1, a2 = p0.T, p1.T, p2.T
+        tri_v[:nt, 9:12] = _unit(_f32_cross(a1 - a0, a2 - a0)).T
+        tri_v[:nt, 12] = _half_area(_f32_cross(a2 - a0, a1 - a0))
+    return tri_v
+
+
+def _pack_common(scene: ir.Scene):
+    """The tables both modes read (see the Tables struct in the source)."""
+    ns = scene.n_spheres()
     sph = np.zeros((max(ns, 1), 8), np.float32)
     if ns:
         c = scene.sph_center.cpu().numpy()
@@ -164,8 +198,7 @@ def _pack_scene(scene: ir.Scene):
         sph[:ns, 5] = r
     mat_base = _resolved_mat_base(scene)
     return dict(
-        tri_c=(tri_c if nt else np.zeros((1, 12), np.float32)),
-        tri_v=tri_v, sph=sph,
+        tri_v=_tri_v(scene), sph=sph,
         prim_mat=np.concatenate([scene.tri_mat.cpu().numpy(),
                                  scene.sph_mat.cpu().numpy(), [0]]
                                 ).astype(np.int32),
@@ -175,6 +208,33 @@ def _pack_scene(scene: ir.Scene):
         light_rows=_light_rows32(scene, mat_base),
         light_type=np.concatenate([scene.light_type.cpu().numpy(), [0]]
                                   ).astype(np.int32))
+
+
+def _pack_scene(scene: ir.Scene):
+    """Numpy tables of analytic mode (see the Tables struct in the
+    source)."""
+    from vimg_tpu_torch.geometry.soa_intersect import build_constants
+    tri_c, _ = build_constants(scene)
+    return dict(_pack_common(scene),
+                tri_c=(tri_c if scene.n_tris() else
+                       np.zeros((1, 12), np.float32)))
+
+
+def _pack_scene_mesh(scene: ir.Scene, data):
+    """Numpy tables of mesh mode: the common tables (``tri_v`` covers every
+    triangle, indexed by the triangle id that ``perm`` maps a hit slot to),
+    ClusterData ``data``'s binary tree and triangle rows as flat views, and
+    the vertex normals with the per-triangle vertex ids and flags."""
+    return dict(
+        _pack_common(scene),
+        node_aabbs=data.node_aabbs.reshape(-1),
+        node_cid=data.node_cid.reshape(-1),
+        node_skip=data.node_skip.reshape(-1),
+        tri_rows=data.tri_rows.reshape(-1),
+        perm=data.perm.astype(np.int32),
+        vnormals=scene.vnormals.cpu().numpy().astype(np.float32),
+        tri_vidx=scene.tri_vidx.cpu().numpy().astype(np.int32),
+        tri_flags=scene.tri_flags.cpu().numpy().astype(np.int32))
 
 
 def _cam_table(scene: ir.Scene):
@@ -208,34 +268,68 @@ def _flags(scene: ir.Scene, settings):
 
 _TABLE_ORDER = ("tri_c", "tri_v", "sph", "prim_mat", "mat_type", "mat_base",
                 "mat_sc", "light_rows", "light_type", "cam")
+_MESH_TABLE_ORDER = ("tri_v", "sph", "prim_mat", "mat_type", "mat_base",
+                     "mat_sc", "light_rows", "light_type", "cam",
+                     "node_aabbs", "node_cid", "node_skip", "tri_rows",
+                     "perm", "vnormals", "tri_vidx", "tri_flags")
+_INT_TABLES = ("prim_mat", "mat_type", "light_type", "node_cid", "node_skip",
+               "perm", "tri_vidx", "tri_flags")
+_DATA_CACHE = {}
 _TABLE_CACHE = {}
 
 
-def _device_tables(scene: ir.Scene):
-    """Packed tables as contiguous device tensors, cached per Scene (the
-    cache holds the scene itself, so its id cannot be reused)."""
-    hit = _TABLE_CACHE.get(id(scene))
+def _cached(cache, scene, build):
+    """``build(scene)`` cached per Scene (the cache holds the scene itself,
+    so its id cannot be reused)."""
+    hit = cache.get(id(scene))
     if hit is not None and hit[0] is scene:
         return hit[1]
-    tabs = _pack_scene(scene)
+    val = build(scene)
+    if len(cache) > 16:
+        cache.clear()
+    cache[id(scene)] = (scene, val)
+    return val
+
+
+def cluster_data(scene: ir.Scene):
+    """The scene's ClusterData (native builder), built once and shared by
+    the mesh-mode kernel and its plain version."""
+    from vimg_tpu_torch.geometry.cluster_trace import ClusterData
+    return _cached(_DATA_CACHE, scene, ClusterData)
+
+
+def _build_device_tables(scene: ir.Scene):
+    tabs = (_pack_scene_mesh(scene, cluster_data(scene))
+            if is_mesh_mode(scene) else _pack_scene(scene))
     tabs["cam"] = _cam_table(scene)
-    dev = {k: torch.from_numpy(np.ascontiguousarray(v)).to(scene.device)
-           for k, v in tabs.items()}
-    if len(_TABLE_CACHE) > 16:
-        _TABLE_CACHE.clear()
-    _TABLE_CACHE[id(scene)] = (scene, dev)
-    return dev
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(scene.device)
+            for k, v in tabs.items()}
+
+
+def _device_tables(scene: ir.Scene):
+    """Packed tables of the scene's mode as contiguous device tensors,
+    cached per Scene."""
+    return _cached(_TABLE_CACHE, scene, _build_device_tables)
 
 
 def _table_shapes(scene: ir.Scene):
     """Shape of each table as the kernel indexes it."""
     nt, ns = scene.n_tris(), scene.n_spheres()
     nm, nl = scene.n_mats(), scene.n_lights()
-    return dict(tri_c=(max(nt, 1), 12), tri_v=(max(nt, 1), 16),
-                sph=(max(ns, 1), 8), prim_mat=(nt + ns + 1,),
-                mat_type=(nm,), mat_base=(nm, 3), mat_sc=(nm, 12),
-                light_rows=(max(nl, 1), 32), light_type=(nl + 1,),
-                cam=(24,))
+    shapes = dict(tri_v=(max(nt, 1), 16), sph=(max(ns, 1), 8),
+                  prim_mat=(nt + ns + 1,), mat_type=(nm,), mat_base=(nm, 3),
+                  mat_sc=(nm, 12), light_rows=(max(nl, 1), 32),
+                  light_type=(nl + 1,), cam=(24,))
+    if not is_mesh_mode(scene):
+        return dict(shapes, tri_c=(max(nt, 1), 12))
+    data = cluster_data(scene)
+    m, c = data.n_nodes, data.n_clusters
+    return dict(shapes, node_aabbs=(-(-m // 16) * 16 * 8,),
+                node_cid=(-(-m // 128) * 128,),
+                node_skip=(-(-m // 128) * 128,),
+                tri_rows=(c * data.max_k * 16,), perm=(c * data.max_k,),
+                vnormals=(scene.verts.shape[0], 3), tri_vidx=(nt, 3),
+                tri_flags=(nt,))
 
 
 def _check(t: torch.Tensor, name, dtype, shape, device):
@@ -250,16 +344,30 @@ def _check(t: torch.Tensor, name, dtype, shape, device):
 # wrapper + plain version
 # ---------------------------------------------------------------------------
 
+def plain_tracer(scene: ir.Scene):
+    """The plain version's tracer: the SoA tracer (B1's dense loop) in
+    analytic mode, the cluster tracer's plain skip walk (B2's walk) in mesh
+    mode. Neither launches a kernel on any device."""
+    if is_mesh_mode(scene):
+        from vimg_tpu_torch.geometry.cluster_trace import ClusterTracer
+        return ClusterTracer(scene, walk="skip", plain=True,
+                             data=cluster_data(scene))
+    from vimg_tpu_torch.geometry.soa_intersect import SoATracer
+    return SoATracer(scene)
+
+
 def render_megakernel_plain(scene: ir.Scene, settings: ir.RenderSettings,
                             sample_offset=0, return_stats=False,
                             progress=False):
-    """Plain PyTorch version: the loop renderer over trace_radiance, on any
-    device, counting segments and shadow rays like the kernel."""
+    """Plain PyTorch version: the loop renderer over trace_radiance with
+    ``plain_tracer``, on any device, counting segments and shadow rays
+    like the kernel."""
     from vimg_tpu_torch.render.render import render
     stats = {"segments": 0, "shadow_rays": 0}
     t0 = time.time()
     img = render(scene, settings, progress=progress,
-                 sample_offset=sample_offset, stats=stats)
+                 sample_offset=sample_offset, stats=stats,
+                 tracer=plain_tracer(scene))
     if scene.device.type == "cuda":
         torch.cuda.synchronize(scene.device)
     stats["seconds"] = time.time() - t0
@@ -268,11 +376,12 @@ def render_megakernel_plain(scene: ir.Scene, settings: ir.RenderSettings,
 
 def render_megakernel(scene: ir.Scene, settings: ir.RenderSettings,
                       sample_offset=0, return_stats=False, progress=False):
-    """Full-frame render through the CUDA megakernel (CUDA scenes) or its
-    plain version (CPU scenes). Returns the linear (H, W, 3) image on the
-    scene's device, plus a stats dict (segments, shadow_rays, seconds)
-    with ``return_stats``."""
-    global LAUNCHES, LAST_COUNTS
+    """Full-frame render through the CUDA megakernel of the scene's mode
+    (CUDA scenes) or its plain version (CPU scenes). Returns the linear
+    (H, W, 3) image on the scene's device, plus a stats dict (segments,
+    shadow_rays, seconds; in mesh mode also the walk's box_tests and
+    tri_tests) with ``return_stats``."""
+    global LAUNCHES, LAUNCHES_MESH, LAST_COUNTS
     dev = scene.device
     if dev.type == "cpu":
         return render_megakernel_plain(scene, settings, sample_offset,
@@ -284,41 +393,54 @@ def render_megakernel(scene: ir.Scene, settings: ir.RenderSettings,
                          "set (see supports_megakernel)")
     from vimg_tpu_torch.runtime.cuda import check, load_library
     lib = load_library()
+    mesh = is_mesh_mode(scene)
+    order = _MESH_TABLE_ORDER if mesh else _TABLE_ORDER
     tabs = _device_tables(scene)
     shapes = _table_shapes(scene)
-    for k in _TABLE_ORDER:
-        _check(tabs[k], k, torch.int32 if k in ("prim_mat", "mat_type",
-                                                "light_type")
-               else torch.float32, shapes[k], dev)
+    for k in order:
+        _check(tabs[k], k, torch.int32 if k in _INT_TABLES else torch.float32,
+               shapes[k], dev)
     W, H, spp = settings.width, settings.height, settings.spp
+    nt, ns, nl = scene.n_tris(), scene.n_spheres(), scene.n_lights()
+    run = (W, H, spp, min(settings.max_depth, 2 ** 31 - 1),
+           int(sample_offset), _flags(scene, settings))
     film = torch.empty((H * W, 3), dtype=torch.float32, device=dev)
-    counts = torch.zeros((2,), dtype=torch.int64, device=dev)
+    counts = torch.zeros((4 if mesh else 2,), dtype=torch.int64, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record(stream)
-        rc = lib.vimg_mega_render(
-            *(tabs[k].data_ptr() for k in _TABLE_ORDER),
-            scene.n_tris(), scene.n_spheres(), scene.n_lights(), W, H, spp,
-            min(settings.max_depth, 2 ** 31 - 1), int(sample_offset),
-            _flags(scene, settings),
-            film.data_ptr(), counts.data_ptr(), stream.cuda_stream)
-        check(rc, "megakernel")
-        LAUNCHES += 1
-        LAST_COUNTS = counts
+        ptrs = [tabs[k].data_ptr() for k in order]
+        if mesh:
+            rc = lib.vimg_mega_render_mesh(
+                *ptrs, nt, ns, nl, cluster_data(scene).n_nodes, *run,
+                film.data_ptr(), counts.data_ptr(), stream.cuda_stream)
+            check(rc, "megakernel (mesh mode)")
+            LAUNCHES_MESH += 1
+        else:
+            rc = lib.vimg_mega_render(
+                *ptrs, nt, ns, nl, *run,
+                film.data_ptr(), counts.data_ptr(), stream.cuda_stream)
+            check(rc, "megakernel")
+            LAUNCHES += 1
+        LAST_COUNTS = counts[:2]
         end.record(stream)
     img = film.view(H, W, 3) / spp
     if not (return_stats or progress):
         return img
     end.synchronize()
     seconds = start.elapsed_time(end) / 1e3
-    segs, shadow = (int(v) for v in counts.cpu())
+    vals = [int(v) for v in counts.cpu()]
+    segs, shadow = vals[:2]
     if progress:
         print(f"Megakernel: {W * H * spp / max(seconds, 1e-9) / 1e6:.2f} "
               f"Mpaths/s, {(segs + shadow) / max(seconds, 1e-9) / 1e6:.2f} "
               f"Mrays/s ({segs / 1e6:.1f}M segments + {shadow / 1e6:.1f}M "
               f"shadow)")
-    if return_stats:
-        return img, dict(segments=segs, shadow_rays=shadow, seconds=seconds)
-    return img
+    if not return_stats:
+        return img
+    stats = dict(segments=segs, shadow_rays=shadow, seconds=seconds)
+    if mesh:
+        stats.update(box_tests=vals[2], tri_tests=vals[3])
+    return img, stats

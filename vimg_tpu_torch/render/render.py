@@ -3,10 +3,12 @@
 ``render`` is the chunked loop over (pixel, sample) work: every chunk
 holds whole pixels with all their samples, and each pixel's samples are
 summed in sample order, as vimg_tpu's film accumulates them.
-``render_frame`` sends scenes that the megakernel supports to the
-hand-written CUDA kernel (CUDA) or the loop integrator (CPU), and other
-MIS frames to the refill wavefront. Anything else raises on CUDA: nothing
-moves silently between devices.
+``render_frame`` sends the frames that the megakernel covers to the
+hand-written CUDA kernel of the scene's mode (B1 analytic, B2 mesh) on
+CUDA, or to its plain version (the loop integrator) on the CPU, except
+mesh MIS frames at production sample counts, which go to the refill
+wavefront like every other MIS frame. Anything else raises on CUDA:
+nothing moves silently between devices.
 """
 from __future__ import annotations
 
@@ -21,13 +23,14 @@ from vimg_tpu_torch.scene import ir
 
 
 def render(scene: ir.Scene, settings: ir.RenderSettings, progress=False,
-           sample_offset=0, stats=None):
+           sample_offset=0, stats=None, tracer=None):
     """Render a full frame with the loop integrator. Returns the linear
     (H, W, 3) float32 image on the scene's device. ``sample_offset`` shifts
-    every sample id (and so every RNG stream)."""
+    every sample id (and so every RNG stream); ``tracer`` defaults to
+    ``make_tracer(scene)``."""
     W, H, spp = settings.width, settings.height, settings.spp
     dev = scene.device
-    tracer = make_tracer(scene)
+    tracer = tracer or make_tracer(scene)
     n_pix = W * H
     pix_per_chunk = max((settings.batch_size or (1 << 20)) // spp, 1)
     accum = torch.zeros((n_pix, 3), dtype=torch.float32, device=dev)
@@ -56,10 +59,10 @@ MESH_WAVEFRONT_MIN_SPP = 8
 
 def prefer_wavefront_for_mesh(scene, settings):
     """vimg_tpu's dispatch rule: mesh MIS frames at production sample
-    counts go to the refill wavefront even where a megakernel covers them
-    (on the TPU the wavefront measured faster there). With only the
-    analytic megakernel ported (<= 64 triangles) it decides nothing yet;
-    it matters once the mesh-mode megakernel (B2) lands."""
+    counts (spp >= MESH_WAVEFRONT_MIN_SPP) go to the refill wavefront even
+    though the mesh-mode megakernel B2 covers them (on the TPU the
+    wavefront measured faster there). Low-spp MIS previews, material
+    frames and smooth-shaded scenes of <= 64 triangles stay on B2."""
     return (scene.n_tris() > 64
             and settings.spp >= MESH_WAVEFRONT_MIN_SPP
             and settings.integrator == "mis")
@@ -68,8 +71,10 @@ def prefer_wavefront_for_mesh(scene, settings):
 def render_frame(scene, settings, progress=False):
     """Render dispatch, the same choice on both devices:
 
-    - a scene and integrator the megakernel covers: the CUDA megakernel on
-      CUDA, its plain version (the loop integrator) on the CPU;
+    - a scene and integrator the megakernel covers, unless
+      ``prefer_wavefront_for_mesh``: the CUDA megakernel of the scene's
+      mode (B1 or B2) on CUDA, its plain version (the loop integrator) on
+      the CPU;
     - else an MIS frame: the refill wavefront (cluster kernels B3/B4 on
       CUDA, their plain walks on the CPU);
     - else: the loop integrator on the CPU; on CUDA it raises (nothing
@@ -83,15 +88,14 @@ def render_frame(scene, settings, progress=False):
         raise NotImplementedError(f"no render path for device {dev}")
     mega = (supports_megakernel(scene, settings)
             and not prefer_wavefront_for_mesh(scene, settings))
-    if mega and dev.type == "cuda":
+    if mega:
         return render_megakernel(scene, settings, progress=progress)
-    if not mega and settings.integrator == "mis":
+    if settings.integrator == "mis":
         return render_wavefront(scene, settings, progress=progress)
     if dev.type == "cuda":
         raise NotImplementedError(
             f"on CUDA the {settings.integrator} integrator is ported only "
-            f"through the megakernel (analytic scenes of <= 64 triangles); "
-            f"the mesh-mode megakernel is ROADMAP queue B item B2")
+            f"through the megakernel (see supports_megakernel)")
     return render(scene, settings, progress=progress)
 
 

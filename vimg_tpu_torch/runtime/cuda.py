@@ -30,6 +30,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     # csrc/megakernel.cu: 10 tables, 9 ints, film, counts, stream
     "vimg_mega_render": ([_P] * 10 + [_I] * 9 + [_P] * 3, _I),
+    # mesh mode: 17 tables, 10 ints, film, counts, stream
+    "vimg_mega_render_mesh": ([_P] * 17 + [_I] * 10 + [_P] * 3, _I),
     # csrc/cluster_trace.cu: 4 tables, ro, rd, minT, maxT, n_rays,
     # n_nodes (wide or binary), any_hit, t, slot, u, v, stream
     "vimg_cluster_wide": ([_P] * 8 + [_I] * 3 + [_P] * 5, _I),
