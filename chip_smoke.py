@@ -39,7 +39,20 @@ Phases:
     same expectation);
 11. main path 5: the smooth bumpy sphere 100k at 512x256 @ 64 spp under
     the material integrator -> render_frame -> write_png through B2 only,
-    its mean against the plain version's 4-spp frame.
+    its mean against the plain version's 4-spp frame;
+12. kernel B5 (packet walk) against its plain walk on the card, on phase
+    6's terrain-100k camera, bounce and shadow rays in PacketTracer's own
+    order, variants slist and f2b: zero (t, code) mismatches; kernel and
+    cull times with CUDA events; the bound of each; closest() and
+    occluded() against B3's on the same rays (prim ids may differ only
+    where t ties exactly: counted and printed);
+13. main path 6: terrain 100k at 512x256 @ 64 spp -> render_frame(...,
+    tracer_force="packet") -> finalize -> write_png through B5 only, after
+    the same frame at 1 spp through B5 and through the plain packet walk
+    agree per pixel; its mean against phase 7's B3 frame;
+14. kernel B6 (table-row gather) on a 24x256 table and 1,048,576 ids:
+    bit for bit against its plain version and the table; timed beside
+    torch.index_select on the float32 table.
 Each main path is driven with every launch counter set to 0 just before
 and read just after. The line before the card's name is the kernels JSON;
 the last line is the JSON result {"ok": true, "device": {...}}; any
@@ -96,6 +109,8 @@ B2_FRAMES = (("terrain 100k mis", "terrain", 100_000, "mis"),
              ("terrain 500k mis", "terrain", 500_000, "mis"))
 B2_TIMED_SPP = 4
 MAIN4_SPP, MAIN5_SPP, MAIN5_REF_SPP = 4, 64, 4
+# phase 14: kernel B6's table (24 parameters x 256 rows) and lookups
+GATHER_P, GATHER_ROWS, GATHER_IDS = 24, 256, 1 << 20
 # a frame's mean is compared within MAIN_MEAN_REL, widened to 4 standard
 # errors of the difference where the two frames' own pixel noise says 2%
 # is less (the material integrator's light hits are rare and bright)
@@ -179,19 +194,26 @@ def event_ms(fn, reps):
 
 def zero_counts():
     from vimg_tpu_torch.geometry import cluster_trace as ct
+    from vimg_tpu_torch.geometry import packet_trace as pt
+    from vimg_tpu_torch.ops import mxu_gather
     from vimg_tpu_torch.render.mega import kernel
     kernel.LAUNCHES = 0
     kernel.LAUNCHES_MESH = 0
     ct.LAUNCHES_WIDE = 0
     ct.LAUNCHES_SKIP = 0
+    pt.LAUNCHES = 0
+    mxu_gather.LAUNCHES = 0
 
 
 def read_counts():
     from vimg_tpu_torch.geometry import cluster_trace as ct
+    from vimg_tpu_torch.geometry import packet_trace as pt
+    from vimg_tpu_torch.ops import mxu_gather
     from vimg_tpu_torch.render.mega import kernel
     return dict(megakernel_analytic=kernel.LAUNCHES,
                 cluster_wide=ct.LAUNCHES_WIDE, cluster_skip=ct.LAUNCHES_SKIP,
-                megakernel_mesh=kernel.LAUNCHES_MESH)
+                megakernel_mesh=kernel.LAUNCHES_MESH,
+                packet_trace=pt.LAUNCHES, gather_row=mxu_gather.LAUNCHES)
 
 
 def save_png(img, tonemap, name, png_dir):
@@ -356,7 +378,7 @@ def kernel_vs_plain(n_tris, scene):
                 fail(f"terrain {n_tris}: closest().{f} wide vs {name}")
     log("  closest() (t, prim type, prim id, u, v): wide kernel == skip "
         "kernel == plain walk on the bounce rays")
-    return res
+    return res, rays
 
 
 # ---------------------------------------------------------------------------
@@ -404,8 +426,7 @@ def mesh_main_path(n_tris, walk, name, png_dir, card, dev):
     img_np = img.cpu().numpy()
     if img_np.shape != (MESH_H, MESH_W, 3) or not np.isfinite(img_np).all():
         fail(f"terrain {n_tris} image shape {img_np.shape} / non-finite")
-    if (counts[name] < 1 or counts["megakernel_analytic"] != 0
-            or counts["megakernel_mesh"] != 0):
+    if counts[name] < 1 or any(v for k, v in counts.items() if k != name):
         fail(f"terrain {n_tris} main path launches {counts}")
     png = save_png(img, st.tonemap, f"terrain{n_tris // 1000}k.png", png_dir)
     mean = img_np.reshape(-1, 3).mean(0)
@@ -421,7 +442,7 @@ def mesh_main_path(n_tris, walk, name, png_dir, card, dev):
         f"{rays / secs / 1e6:.2f} Mrays/s ({stats['segments']} segments + "
         f"{stats['shadow_rays']} shadow rays), {stats['supersteps']} "
         f"supersteps, launches {counts}, on {card}")
-    return counts[name], r["max"]
+    return counts[name], r["max"], img
 
 
 # ---------------------------------------------------------------------------
@@ -555,8 +576,8 @@ def b2_main_path(phase, label, scene, st, ref_img, png, png_dir, card):
     img_np = img.cpu().numpy()
     if img_np.shape != (MESH_H, MESH_W, 3) or not np.isfinite(img_np).all():
         fail(f"{label}: image shape {img_np.shape} / non-finite")
-    if (counts["megakernel_mesh"] < 1 or counts["megakernel_analytic"]
-            or counts["cluster_wide"] or counts["cluster_skip"]):
+    if counts["megakernel_mesh"] < 1 or any(
+            v for k, v in counts.items() if k != "megakernel_mesh"):
         fail(f"{label}: main path launches {counts}")
     size = save_png(img, st.tonemap, png, png_dir)
     check_mean(label, img, ref_img)
@@ -615,6 +636,227 @@ def b2_phases(dev, png_dir, card):
                                 "bumpy100k_b2.png", png_dir, card)
 
     return dict(b2, launches=b2_launches, max_abs_err=b2_err)
+
+
+# ---------------------------------------------------------------------------
+# phases 12-14: kernel B5 (packet walk), main path 6, kernel B6
+# ---------------------------------------------------------------------------
+
+def packet_vs_plain(scene, rays):
+    """Phase 12: B5 and its plain walk on the same packed rays and meta,
+    both variants, three ray kinds; then closest()/occluded() against
+    B3's."""
+    import torch
+    from vimg_tpu_torch.geometry import cluster_trace as ct
+    from vimg_tpu_torch.geometry import packet_trace as pt
+    t0 = time.time()
+    tracers = {"slist": pt.PacketTracer(scene)}
+    tracers["f2b"] = pt.PacketTracer(scene, variant="f2b",
+                                     data=tracers["slist"].data)
+    data = tracers["slist"].data
+    log(f"  terrain 100k: {data.n_clusters} clusters of <= {pt.PACK_K} "
+        f"triangles, packed table {data.tri_rows_t.nbytes / 2 ** 20:.2f} MiB "
+        f"(budget {pt.PacketTracer.VMEM_BUDGET_BYTES >> 20} MiB), cp "
+        f"{tracers['slist'].cp}; host build {time.time() - t0:.2f}s")
+    res = {}
+    for kind, r in rays.items():
+        any_hit = kind == "shadow"
+        for variant, tr in tracers.items():
+            _, packed = tr.pack(*r)
+            meta = tr.cull(packed)
+            args = (tr.tri_t, meta, *packed, *tr.walk_args(any_hit))
+            got = pt.trace_packet(*args)
+            torch.cuda.synchronize()
+            for _ in range(2):                              # warm-up
+                pt.trace_packet(*args)
+            _, ms = event_ms(lambda: pt.trace_packet(*args), TIMED_LAUNCHES)
+            _, cull_ms = event_ms(lambda: tr.cull(packed), TIMED_LAUNCHES)
+            _, trace_ms = event_ms(lambda: tr._run(*r, any_hit),
+                                   TIMED_LAUNCHES // 4)
+            st = {}
+            ref, plain_ms = event_ms(
+                lambda: pt.packet_walk_plain(*args, stats=st,
+                                             cl_len=data.cl_len), 1)
+            bad, err = mismatches(got, ref)
+            cands = meta.view(-1, pt.META_ROWS, tr.cp)[:, 2, 0].float()
+            nbytes = (meta.numel() * 4 + tr.tri_t.numel() * 4
+                      + packed[0].shape[0] * (32 + 8))
+            t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+            t_ops = 1e3 * st["tri_tests"] * ct.TRI_TEST_OPS / FP32_OPS_PER_S
+            hits = int((got[0] == -float("inf")).sum() if any_hit
+                       else (got[1] >= 0).sum())
+            res[(variant, kind)] = dict(
+                mismatches=bad, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                cull_ms=cull_ms, trace_ms=trace_ms)
+            log(f"  {variant:5s} {kind:6s}: {'occluded' if any_hit else 'hits'}"
+                f" {hits}/{r[0].shape[0]}, kernel vs plain (t, code) "
+                f"mismatches {bad}; B5 {ms:.3f} ms, cull {cull_ms:.3f} ms, "
+                f"whole trace {trace_ms:.3f} ms (cull share "
+                f"{cull_ms / trace_ms:.1%}), plain walk {plain_ms:.1f} ms; "
+                f"candidates per workgroup mean {float(cands.mean()):.1f} max "
+                f"{int(cands.max())}; {st['packet_tests']} live packet tests "
+                f"walked, {st['tri_tests']} triangle tests needed (valid "
+                f"lanes of open rays) -> bound "
+                f"{res[(variant, kind)]['bound_ms']:.4f} ms "
+                f"({res[(variant, kind)]['bound_by']}: bytes {t_bytes:.4f} "
+                f"ms, ops {t_ops:.4f} ms)")
+            if bad:
+                fail(f"B5 {variant} {kind}: {bad} mismatches")
+    # the facade against B3 on the same rays: the same t; another triangle
+    # only where t ties exactly (the walks break ties in other orders)
+    wide = ct.ClusterTracer(scene, walk="wide")
+    for kind, r in rays.items():
+        for variant, tr in tracers.items():
+            if kind == "shadow":
+                a, b = tr.occluded(scene, *r), wide.occluded(scene, *r)
+                n_bad = int((a != b).sum())
+                log(f"  {variant:5s} occluded() vs B3 on {kind} rays: "
+                    f"{n_bad} differ ({int(a.sum())} occluded)")
+                if n_bad:
+                    fail(f"B5 {variant}: occluded() differs from B3")
+                continue
+            hp, hb = tr.closest(scene, *r), wide.closest(scene, *r)
+            t_bad = int((hp.t.view(torch.int32)
+                         != hb.t.view(torch.int32)).sum())
+            other = hp.prim_id != hb.prim_id
+            ties = int((other & (hp.t == hb.t)).sum())
+            same = hb.hit & ~other
+            du = float((hp.u - hb.u)[same].abs().max()) if same.any() else 0.
+            dv = float((hp.v - hb.v)[same].abs().max()) if same.any() else 0.
+            log(f"  {variant:5s} closest() vs B3 on {kind} rays: t differs "
+                f"on {t_bad}, prim id on {int(other.sum())} (exact ties in "
+                f"t: {ties}); on the same triangle max|du| {du:g}, max|dv| "
+                f"{dv:g} (u, v solved in the plane, ROADMAP C10)")
+            if t_bad or int(other.sum()) != ties:
+                fail(f"B5 {variant} {kind}: closest() differs from B3 "
+                     f"beyond exact ties")
+    return res
+
+
+def packet_main_path(scene, b3_img, png_dir, card, dev):
+    """Phase 13: main path 6 through B5."""
+    import numpy as np
+    from vimg_tpu_torch.geometry import packet_trace as pt
+    from vimg_tpu_torch.render import wavefront
+    from vimg_tpu_torch.render.render import render_frame
+    from vimg_tpu_torch.scene import ir
+    st = ir.RenderSettings(MESH_W, MESH_H, spp=MESH_SPP, max_depth=64,
+                           integrator="mis", tonemap="agx",
+                           batch_size=MESH_BATCH)
+    st1 = dataclasses.replace(st, spp=1)
+    kt = pt.PacketTracer(scene)
+    ptr = pt.PacketTracer(scene, plain=True, data=kt.data)
+    (img_k, sk), _ = timed(lambda: wavefront.render_wavefront(
+        scene, st1, tracer=kt, return_stats=True))
+    (img_p, sp), _ = timed(lambda: wavefront.render_wavefront(
+        scene, st1, tracer=ptr, return_stats=True))
+    r = compare(f"terrain 100k {MESH_W}x{MESH_H}@1 B5 vs plain packet walk",
+                img_p, img_k)
+    log(f"    B5 {sk['seconds']:.2f}s, plain walk {sp['seconds']:.2f}s; "
+        f"segments {sk['segments']} / {sp['segments']}, shadow rays "
+        f"{sk['shadow_rays']} / {sp['shadow_rays']}, supersteps "
+        f"{sk['supersteps']} / {sp['supersteps']}")
+    if not (r["mean"] < WF_MEAN and r["corr"] > WF_CORR):
+        fail("main path 6: 1-spp B5 vs plain packet walk per pixel")
+    if (sk["segments"], sk["shadow_rays"]) != (sp["segments"],
+                                               sp["shadow_rays"]):
+        fail("main path 6: 1-spp ray counts differ")
+
+    zero_counts()
+    img, secs = timed(lambda: render_frame(scene, st, tracer_force="packet"))
+    counts = read_counts()
+    stats = wavefront.LAST_STATS
+    img_np = img.cpu().numpy()
+    if img_np.shape != (MESH_H, MESH_W, 3) or not np.isfinite(img_np).all():
+        fail(f"main path 6 image shape {img_np.shape} / non-finite")
+    if counts["packet_trace"] < 1 or any(
+            v for k, v in counts.items() if k != "packet_trace"):
+        fail(f"main path 6 launches {counts}")
+    png = save_png(img, st.tonemap, "terrain100k_packet.png", png_dir)
+    mean = img_np.reshape(-1, 3).mean(0)
+    ref = b3_img.reshape(-1, 3).mean(0).cpu().numpy()
+    rel = np.abs(mean - ref) / np.maximum(ref, 1e-12)
+    log(f"    {MESH_SPP}-spp mean {mean.tolist()} vs the B3 frame of phase 7 "
+        f"{ref.tolist()} (rel {rel.tolist()}); png {png} bytes")
+    if not (rel < MAIN_MEAN_REL).all():
+        fail("main path 6 mean differs from the B3 frame's")
+    paths = MESH_W * MESH_H * MESH_SPP
+    rays = stats["segments"] + stats["shadow_rays"]
+    log(f"    [13] {MESH_W}x{MESH_H} @ {MESH_SPP} spp: {secs:.3f} s (render "
+        f"loop {stats['seconds']:.3f} s), {paths / secs / 1e6:.3f} Mpaths/s, "
+        f"{rays / secs / 1e6:.2f} Mrays/s ({stats['segments']} segments + "
+        f"{stats['shadow_rays']} shadow rays), {stats['supersteps']} "
+        f"supersteps, launches {counts}, on {card}")
+    return counts["packet_trace"], r["max"]
+
+
+def packet_phases(scene, rays, b3_img, png_dir, card, dev):
+    """Phases 12 and 13; returns B5's row of the kernels JSON (the slist
+    bounce launch, as the B3/B4 rows; launches over main path 6)."""
+    log(f"[12] B5 (packet walk) vs its plain walk, terrain 100k, phase 6's "
+        f"{N_RAYS} rays per kind, PacketTracer's order")
+    res = packet_vs_plain(scene, rays)
+    log(f"[13] main path 6: terrain 100k -> render_frame ({MESH_W}x{MESH_H} "
+        f"@ {MESH_SPP} spp, batch {MESH_BATCH}, tracer_force='packet') -> "
+        f"finalize -> write_png through B5")
+    launches, _ = packet_main_path(scene, b3_img, png_dir, card, dev)
+    c = res[("slist", "bounce")]
+    return dict(launches=launches,
+                max_abs_err=max(v["max_abs_err"] for v in res.values()),
+                ms=c["ms"], plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
+                bound_by=c["bound_by"])
+
+
+def gather_phase(dev, card):
+    """Phase 14: B6 through gather_row (counted), bit for bit against its
+    plain version and the table; timed beside torch.index_select."""
+    import numpy as np
+    import torch
+    from vimg_tpu_torch.ops import mxu_gather as g
+    log(f"[14] B6 (gather_row) on a {GATHER_P}x{GATHER_ROWS} table, "
+        f"{GATHER_IDS} ids")
+    rs = np.random.RandomState(7)
+    table = (rs.randn(GATHER_P, GATHER_ROWS)
+             * np.exp(rs.randn(GATHER_P, GATHER_ROWS) * 4)).astype(np.float32)
+    hi, mid, lo = (x.to(dev) for x in g.split3(table))
+    ids = torch.from_numpy(rs.randint(0, GATHER_ROWS, (1, GATHER_IDS))
+                           .astype(np.int32)).to(dev)
+    zero_counts()
+    out = g.gather_row(hi, mid, lo, ids, GATHER_ROWS)
+    torch.cuda.synchronize()
+    launches = read_counts()["gather_row"]
+    ref = g.gather_row_plain(hi, mid, lo, ids, GATHER_ROWS)
+    bad = int((out.view(torch.int32) != ref.view(torch.int32)).sum())
+    err = float((out - ref).abs().max())
+    exact = np.array_equal(out.cpu().numpy(),
+                           table[:, ids[0].cpu().numpy()])
+    tab = torch.from_numpy(table).to(dev)
+    for _ in range(2):
+        g.gather_row(hi, mid, lo, ids, GATHER_ROWS)
+        torch.index_select(tab, 1, ids[0])
+    _, ms = event_ms(lambda: g.gather_row(hi, mid, lo, ids, GATHER_ROWS),
+                     TIMED_LAUNCHES)
+    _, plain_ms = event_ms(lambda: g.gather_row_plain(hi, mid, lo, ids,
+                                                      GATHER_ROWS), 5)
+    _, lib_ms = event_ms(lambda: torch.index_select(tab, 1, ids[0]),
+                         TIMED_LAUNCHES)
+    nbytes = (ids.numel() * 4 + out.numel() * 4
+              + 3 * hi.numel() * hi.element_size())
+    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    t_ops = 1e3 * 2 * out.numel() / FP32_OPS_PER_S
+    log(f"    launches {launches}; vs plain: {bad} elements differ in bits; "
+        f"equal to table[:, ids]: {exact}; B6 {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, torch.index_select on the float32 table "
+        f"{lib_ms:.4f} ms; bound {max(t_bytes, t_ops):.4f} ms (bytes "
+        f"{t_bytes:.4f} ms, ops {t_ops:.5f} ms), on {card}")
+    if launches != 1 or bad or not exact:
+        fail("B6 gather_row")
+    return dict(launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                library_ms=lib_ms)
 
 
 def main():
@@ -711,8 +953,9 @@ def main():
     img_np = img.cpu().numpy()
     if img_np.shape != (st.height, st.width, 3) or not np.isfinite(img_np).all():
         fail(f"main path image shape {img_np.shape} / non-finite values")
-    if mega_launches < 1:
-        fail("main path did not launch the CUDA kernel")
+    if mega_launches < 1 or any(
+            v for k, v in counts.items() if k != "megakernel_analytic"):
+        fail(f"main path 1 launches {counts}")
     mean = img_np.reshape(-1, 3).mean(0)
     rel = np.abs(mean - plain_mean) / np.maximum(plain_mean, 1e-12)
     log(f"    image mean {mean.tolist()} vs plain@4spp {plain_mean.tolist()} "
@@ -739,23 +982,30 @@ def main():
 
     # ---- 6. B3 / B4 vs their plain walks --------------------------------
     log(f"[6] B3 and B4 vs their plain walks, {N_RAYS} rays per kind")
-    cmp = {}
+    cmp, phase6 = {}, {}
     for n_tris, _, _ in TERRAINS:
         scene = terrain_scene(n_tris, MESH_W, MESH_H, device=dev)
-        for key, v in kernel_vs_plain(n_tris, scene).items():
+        res, rays = kernel_vs_plain(n_tris, scene)
+        for key, v in res.items():
             cmp[(n_tris,) + key] = v
+        phase6[n_tris] = (scene, rays)
 
     # ---- 7/8. main paths 2 and 3: the mesh wavefront ---------------------
-    launches, wf_err = {}, {}
+    launches, wf_err, wf_img = {}, {}, {}
     for phase, (n_tris, walk, name) in zip((7, 8), TERRAINS):
         log(f"[{phase}] main path {phase - 5}: terrain {n_tris} -> "
             f"render_frame ({MESH_W}x{MESH_H} @ {MESH_SPP} spp, batch "
             f"{MESH_BATCH}) -> finalize -> write_png through {name}")
-        launches[name], wf_err[name] = mesh_main_path(n_tris, walk, name,
-                                                      png_dir, card, dev)
+        launches[name], wf_err[name], wf_img[name] = mesh_main_path(
+            n_tris, walk, name, png_dir, card, dev)
 
     # ---- 9-11. kernel B2 and main paths 4, 5 --------------------------
     b2 = b2_phases(dev, png_dir, card)
+
+    # ---- 12-14. kernels B5, B6 and main path 6 -------------------------
+    b5 = packet_phases(*phase6[TERRAINS[0][0]], wf_img["cluster_wide"],
+                       png_dir, card, dev)
+    b6 = gather_phase(dev, card)
 
     rows = [{
         "name": "megakernel_analytic",
@@ -799,6 +1049,14 @@ def main():
         "bound_ms": b2["bound_ms"],
         "bound_by": b2["bound_by"],
         "library_ms": None})
+    rows.append(dict(b5, name="packet_trace", route="cuda",
+                     source="vimg_tpu_torch/csrc/packet_trace.cu",
+                     replaces="vimg_tpu/geometry/packet_trace.py:267",
+                     library_ms=None))
+    # the launcher of the device helper vimg_tpu_torch/csrc/gather_row.cuh
+    rows.append(dict(b6, name="gather_row", route="cuda",
+                     source="vimg_tpu_torch/csrc/gather_row.cu",
+                     replaces="vimg_tpu/ops/mxu_gather.py:57"))
     log(json.dumps({"kernels": rows}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
 """The CUDA kernels against their plain PyTorch versions, on the card:
-the megakernel (B1 analytic mode, B2 mesh mode) and the cluster walks (B3
-wide, B4 skip).
+the megakernel (B1 analytic mode, B2 mesh mode), the cluster walks (B3
+wide, B4 skip), the packet walk (B5) and the table-row gather (B6).
 
 This file imports no JAX, so it also runs on the GPU machine, which has
 none: ``python3 -m pytest --noconftest tests/test_torch_cuda.py -q`` from
@@ -8,8 +8,9 @@ the repository root (``--noconftest`` because tests/conftest.py imports
 JAX). Without CUDA the card tests skip and only the dispatch checks run.
 Criteria: for B1 and B2, tests/test_megakernel.py's per-pixel bound at
 unit scale (mean|d| < 1e-4, < 1% of pixels with max|d| > 1e-5; the mesh
-scenes are unit scale too) and equal segment and shadow-ray counts; for B3
-and B4, bit-equality with their plain walks.
+scenes are unit scale too) and equal segment and shadow-ray counts; for
+B3, B4 and B5, bit-equality with their plain walks; for B6, bit-equality
+with its plain version.
 """
 import numpy as np
 import pytest
@@ -148,3 +149,67 @@ def test_cluster_kernels_match_plain_walks(cuda, walk):
         for a, b in zip(got, ref):
             assert torch.equal(a, b)
         assert bool((got[1] >= 0).any()) or any_hit
+
+
+def _bits(x):
+    return x.view(torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["slist", "f2b"])
+def test_packet_kernel_matches_plain_walk(cuda, variant):
+    """B5 against packet_walk_plain on the same meta, closest and any hit,
+    on rays from above (idle lanes included) and on camera rays (coherent
+    workgroups, where f2b's early exit fires); then the tracer facade."""
+    from vimg_tpu_torch.geometry import packet_trace as pt
+    from vimg_tpu_torch.render.integrators import _primary_rays
+    from vimg_tpu_torch.scene.synthetic import terrain_scene
+    scene = terrain_scene(20_000, 128, 64, device=cuda)
+    tr = pt.PacketTracer(scene, variant=variant)
+    n = 128 * 64
+    ro, rd = _primary_rays(scene, ir.RenderSettings(width=128, height=64),
+                           torch.arange(n, device=cuda),
+                           torch.zeros(n, dtype=torch.int64, device=cuda))
+    camera = (ro, rd, torch.full((n,), 1e-4, device=cuda),
+              torch.full((n,), float("inf"), device=cuda))
+    for rays in (_terrain_rays(cuda), camera):
+        _, packed = tr.pack(*rays)
+        meta = tr.cull(packed)
+        for any_hit in (False, True):
+            before = pt.LAUNCHES
+            got = pt.trace_packet(tr.tri_t, meta, *packed,
+                                  *tr.walk_args(any_hit))
+            torch.cuda.synchronize()
+            assert pt.LAUNCHES == before + 1
+            ref = pt.packet_walk_plain(tr.tri_t, meta, *packed,
+                                       *tr.walk_args(any_hit))
+            assert pt.LAUNCHES == before + 1
+            for a, b in zip(got, ref):
+                assert torch.equal(_bits(a), _bits(b))
+            assert bool((got[1] >= 0).any()) or any_hit
+    plain = pt.PacketTracer(scene, variant=variant, plain=True, data=tr.data)
+    before = pt.LAUNCHES
+    h = tr.closest(scene, *camera)
+    assert pt.LAUNCHES == before + 1
+    hp = plain.closest(scene, *camera)
+    for f in ("t", "prim_type", "prim_id", "u", "v"):
+        assert torch.equal(getattr(h, f), getattr(hp, f)), f
+
+
+@pytest.mark.cuda
+def test_gather_kernel_matches_plain(cuda):
+    from vimg_tpu_torch.ops import mxu_gather as g
+    rs = np.random.RandomState(1)
+    table = (rs.randn(24, 256) * np.exp(rs.randn(24, 256) * 4)
+             ).astype(np.float32)
+    hi, mid, lo = (x.to(cuda) for x in g.split3(table))
+    ids = torch.from_numpy(rs.randint(-2, 258, (1, 4096)).astype(np.int32))
+    before = g.LAUNCHES
+    got = g.gather_row(hi, mid, lo, ids.to(cuda), 256)
+    torch.cuda.synchronize()
+    assert g.LAUNCHES == before + 1
+    ref = g.gather_row_plain(hi, mid, lo, ids.to(cuda), 256)
+    assert torch.equal(_bits(got), _bits(ref))
+    ok = ((ids >= 0) & (ids < 256))[0]
+    assert np.array_equal(got.cpu().numpy()[:, ok.numpy()],
+                          table[:, ids[0][ok].numpy()])

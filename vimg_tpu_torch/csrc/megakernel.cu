@@ -391,7 +391,7 @@ struct Analytic {
 
 // mesh mode (B2): the triangles through the skip walk of the binary
 // cluster tree (cluster_walk.cuh, kernel B4's device code), the spheres
-// densely beside it, merged as ClusterTracer._merge_spheres merges them: a
+// densely beside it, merged as cluster_trace.merge_spheres merges them: a
 // sphere wins only on a strictly smaller t
 struct Mesh {
   static constexpr int kStats = 4;  // + box tests, triangle tests

@@ -600,7 +600,7 @@ def _launch(fn_name, tables, tab_specs, n_nodes, ro, rd, minT, maxT,
 def _device_of(ro):
     dev = ro.device
     if dev.type not in ("cpu", "cuda"):
-        raise NotImplementedError(f"no cluster walk for device {dev}")
+        raise NotImplementedError(f"no mesh walk for device {dev}")
     return dev
 
 
@@ -805,7 +805,7 @@ class ClusterTracer:
             u=torch.where(found, 1.0 - bu - bv, zero),
             v=torch.where(found, bu, zero))
         if self.sph_c is not None:
-            hr = self._merge_spheres(hr, ro, rd, minT, maxT)
+            hr = merge_spheres(self.sph_c, hr, ro, rd, minT, maxT)
         return hr
 
     def occluded(self, scene, ro, rd, minT, maxT):
@@ -817,14 +817,16 @@ class ClusterTracer:
                                     maxT.detach().expand(occ.shape), True)
         return occ
 
-    def _merge_spheres(self, hr, ro, rd, minT, maxT):
-        sh = _trace_impl(None, self.sph_c, ro.detach(), rd.detach(),
-                         minT.detach(), maxT.detach().expand(hr.t.shape),
-                         False)
-        better = sh.t < hr.t
-        return HitResult(
-            t=torch.where(better, sh.t, hr.t),
-            prim_type=torch.where(better, ir.PRIM_SPHERE, hr.prim_type),
-            prim_id=torch.where(better, sh.prim_id, hr.prim_id),
-            u=torch.where(better, sh.u, hr.u),
-            v=torch.where(better, sh.v, hr.v))
+
+def merge_spheres(sph_c, hr, ro, rd, minT, maxT):
+    """A dense test of the spheres ``sph_c`` merged into the triangle hits
+    ``hr``: a sphere wins only on a strictly smaller t."""
+    sh = _trace_impl(None, sph_c, ro.detach(), rd.detach(), minT.detach(),
+                     maxT.detach().expand(hr.t.shape), False)
+    better = sh.t < hr.t
+    return HitResult(
+        t=torch.where(better, sh.t, hr.t),
+        prim_type=torch.where(better, ir.PRIM_SPHERE, hr.prim_type),
+        prim_id=torch.where(better, sh.prim_id, hr.prim_id),
+        u=torch.where(better, sh.u, hr.u),
+        v=torch.where(better, sh.v, hr.v))

@@ -6,7 +6,10 @@ backend for a scene.
 - ``brute``: the brute-force tracer;
 - ``cluster``: the cluster tracer (kernels B3/B4 on CUDA, their plain
   walks on the CPU), the default for larger scenes with triangles and at
-  most 64 spheres.
+  most 64 spheres;
+- ``packet``: the packet tracer (kernel B5 on CUDA, its plain walk on the
+  CPU), only when asked for, as in vimg_tpu: the same hits as the cluster
+  walk, for scenes whose packed triangle table fits its 10 MiB budget.
 
 vimg_tpu picks its BVH tracer on the CPU; that per-ray BVH walk is not
 ported (ROADMAP queue A item 21), so here the CPU takes the cluster tracer
@@ -35,14 +38,18 @@ class BruteForceTracer:
 
 
 def make_tracer(scene: ir.Scene, force=None):
-    """Pick the intersection backend: ``soa``, ``brute`` or ``cluster``
-    (``force`` names one; None picks as the module docstring says)."""
+    """Pick the intersection backend: ``soa``, ``brute``, ``cluster`` or
+    ``packet`` (``force`` names one; None picks as the module docstring
+    says)."""
     n_prims = scene.n_tris() + scene.n_spheres()
     if force == "brute":
         return BruteForceTracer(scene)
     if force == "soa" or (force is None and n_prims <= BRUTE_FORCE_MAX_PRIMS):
         from vimg_tpu_torch.geometry.soa_intersect import SoATracer
         return SoATracer(scene)
+    if force == "packet":
+        from vimg_tpu_torch.geometry.packet_trace import PacketTracer
+        return PacketTracer(scene)
     if force == "cluster" or (force is None and scene.n_tris() > 0
                               and scene.n_spheres() <= CLUSTER_MAX_SPHERES):
         from vimg_tpu_torch.geometry.cluster_trace import ClusterTracer

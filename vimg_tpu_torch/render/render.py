@@ -68,18 +68,21 @@ def prefer_wavefront_for_mesh(scene, settings):
             and settings.integrator == "mis")
 
 
-def render_frame(scene, settings, progress=False):
+def render_frame(scene, settings, progress=False, tracer=None,
+                 tracer_force=None):
     """Render dispatch, the same choice on both devices:
 
     - a scene and integrator the megakernel covers, unless
       ``prefer_wavefront_for_mesh``: the CUDA megakernel of the scene's
       mode (B1 or B2) on CUDA, its plain version (the loop integrator) on
       the CPU;
-    - else an MIS frame: the refill wavefront (cluster kernels B3/B4 on
-      CUDA, their plain walks on the CPU);
+    - else an MIS frame: the refill wavefront (by default over the cluster
+      kernels B3/B4 on CUDA, their plain walks on the CPU);
     - else: the loop integrator on the CPU; on CUDA it raises (nothing
       falls back to the CPU).
-    Any other device raises."""
+    ``tracer`` (or ``make_tracer(scene, force=tracer_force)``, built only
+    when needed) is the wavefront's and the loop's tracer, as in vimg_tpu;
+    it does not change the megakernel dispatch. Any other device raises."""
     from vimg_tpu_torch.render.mega import (render_megakernel,
                                             supports_megakernel)
     from vimg_tpu_torch.render.wavefront import render_wavefront
@@ -90,13 +93,15 @@ def render_frame(scene, settings, progress=False):
             and not prefer_wavefront_for_mesh(scene, settings))
     if mega:
         return render_megakernel(scene, settings, progress=progress)
-    if settings.integrator == "mis":
-        return render_wavefront(scene, settings, progress=progress)
-    if dev.type == "cuda":
+    if settings.integrator != "mis" and dev.type == "cuda":
         raise NotImplementedError(
             f"on CUDA the {settings.integrator} integrator is ported only "
             f"through the megakernel (see supports_megakernel)")
-    return render(scene, settings, progress=progress)
+    tracer = tracer or make_tracer(scene, force=tracer_force)
+    if settings.integrator == "mis":
+        return render_wavefront(scene, settings, tracer=tracer,
+                                progress=progress)
+    return render(scene, settings, progress=progress, tracer=tracer)
 
 
 def render_to_png(scene, settings, path, **kw):

@@ -25,7 +25,7 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # name -> (argtypes, restype); pointers and the stream are c_void_p
 SIGNATURES = {
     # csrc/megakernel.cu: 10 tables, 9 ints, film, counts, stream
@@ -36,6 +36,12 @@ SIGNATURES = {
     # n_nodes (wide or binary), any_hit, t, slot, u, v, stream
     "vimg_cluster_wide": ([_P] * 8 + [_I] * 3 + [_P] * 5, _I),
     "vimg_cluster_skip": ([_P] * 8 + [_I] * 3 + [_P] * 5, _I),
+    # csrc/packet_trace.cu: tri_t, meta, ro, rd, minT, maxT, n_rays, cp,
+    # n_clusters, any_hit, f2b, unroll, entry_scale, scene box lo/hi (6),
+    # t, code, stream
+    "vimg_packet_trace": ([_P] * 6 + [_I] * 6 + [_F] * 7 + [_P] * 3, _I),
+    # csrc/gather_row.cu: hi, mid, lo, ids, p, n_rows, n_ids, out, stream
+    "vimg_gather_rows": ([_P] * 4 + [_I] * 3 + [_P] * 2, _I),
     "vimg_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 
