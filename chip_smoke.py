@@ -52,7 +52,22 @@ Phases:
     agree per pixel; its mean against phase 7's B3 frame;
 14. kernel B6 (table-row gather) on a 24x256 table and 1,048,576 ids:
     bit for bit against its plain version and the table; timed beside
-    torch.index_select on the float32 table.
+    torch.index_select on the float32 table;
+15. kernel P1 (the walk ablation of tools/probe_walkablate.py) through
+    its probe on phase 6's terrain 100k: 131,072 bounce rays in origin-
+    Morton order, five variants at groups 32 (a warp in lockstep) and 1;
+    bt and visits bit for bit against the plain walk at the same group;
+    the full walk's bt against B4's closest t on the same rays;
+16. kernels P2-P4 (tools/probe_r3b.py microbench_sync, probe_r3c.py
+    smem_read_cost, probe_regen.py probe_smem_dynamic_write) through their
+    probes at N = 20,000, bit for bit against their plain versions;
+17. kernels P5-P10 (tools/probe_r4a.py) through their probes at reps 512
+    (ffs 64 with 16 and 4 live lanes), bit for bit against plain;
+18. kernel P11 (tools/probe_r4c.py) through run_stage, stages 0-3 and
+    stage 4 at 1, 4 and 16 packets, bit for bit against plain.
+The probe kernels lie on no render path: their rows report 0 launches,
+and each probe phase prints the launches its entry points made. Every
+probe record carries the card's name and power limit.
 Each main path is driven with every launch counter set to 0 just before
 and read just after. The line before the card's name is the kernels JSON;
 the last line is the JSON result {"ok": true, "device": {...}}; any
@@ -111,6 +126,15 @@ B2_TIMED_SPP = 4
 MAIN4_SPP, MAIN5_SPP, MAIN5_REF_SPP = 4, 64, 4
 # phase 14: kernel B6's table (24 parameters x 256 rows) and lookups
 GATHER_P, GATHER_ROWS, GATHER_IDS = 24, 256, 1 << 20
+# phases 15-18: the probe kernels' sources
+PROBE_SOURCES = dict(
+    probe_walkablate="vimg_tpu_torch/csrc/probe_walk.cu",
+    **dict.fromkeys(("probe_sync", "probe_smem_read", "probe_smem_write"),
+                    "vimg_tpu_torch/csrc/probe_scalar.cu"),
+    **dict.fromkeys(("probe_setup", "probe_dynrow", "probe_ffs",
+                     "probe_epilogue", "probe_dynblock", "probe_dynrow_par"),
+                    "vimg_tpu_torch/csrc/probe_packet.cu"),
+    probe_packet_stages="vimg_tpu_torch/csrc/probe_packet_stages.cu")
 # a frame's mean is compared within MAIN_MEAN_REL, widened to 4 standard
 # errors of the difference where the two frames' own pixel noise says 2%
 # is less (the material integrator's light hits are rare and bright)
@@ -196,6 +220,7 @@ def zero_counts():
     from vimg_tpu_torch.geometry import cluster_trace as ct
     from vimg_tpu_torch.geometry import packet_trace as pt
     from vimg_tpu_torch.ops import mxu_gather
+    from vimg_tpu_torch.probes import common
     from vimg_tpu_torch.render.mega import kernel
     kernel.LAUNCHES = 0
     kernel.LAUNCHES_MESH = 0
@@ -203,17 +228,21 @@ def zero_counts():
     ct.LAUNCHES_SKIP = 0
     pt.LAUNCHES = 0
     mxu_gather.LAUNCHES = 0
+    for k in common.LAUNCHES:
+        common.LAUNCHES[k] = 0
 
 
 def read_counts():
     from vimg_tpu_torch.geometry import cluster_trace as ct
     from vimg_tpu_torch.geometry import packet_trace as pt
     from vimg_tpu_torch.ops import mxu_gather
+    from vimg_tpu_torch.probes import common
     from vimg_tpu_torch.render.mega import kernel
     return dict(megakernel_analytic=kernel.LAUNCHES,
                 cluster_wide=ct.LAUNCHES_WIDE, cluster_skip=ct.LAUNCHES_SKIP,
                 megakernel_mesh=kernel.LAUNCHES_MESH,
-                packet_trace=pt.LAUNCHES, gather_row=mxu_gather.LAUNCHES)
+                packet_trace=pt.LAUNCHES, gather_row=mxu_gather.LAUNCHES,
+                **common.LAUNCHES)
 
 
 def save_png(img, tonemap, name, png_dir):
@@ -859,6 +888,235 @@ def gather_phase(dev, card):
                 library_ms=lib_ms)
 
 
+# ---------------------------------------------------------------------------
+# phases 15-18: the probe kernels P1-P11 (vimg_tpu_torch/probes), each
+# through its probe's own entry point at the probe's size, then against its
+# plain version on the same inputs
+# ---------------------------------------------------------------------------
+
+def bits_differ(a, b):
+    """Elements whose bits differ (float32 compared as int32)."""
+    import torch
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return int((a != b).sum())
+
+
+def probe_row(name, replaces, ms, plain_ms, ops, nbytes, err=0.0,
+              note=None):
+    """A kernels-JSON row of a probe kernel: no render path launches it."""
+    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    t_ops = 1e3 * ops / FP32_OPS_PER_S
+    row = {"name": name, "route": "cuda", "source": PROBE_SOURCES[name],
+           "replaces": replaces, "launches": 0, "max_abs_err": err,
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "library_ms": None}
+    if note:
+        row["note"] = note
+    log(f"    {name}: kernel {ms:.6f} ms, plain {plain_ms:.3f} ms, bound "
+        f"{row['bound_ms']:.6f} ms ({row['bound_by']}: {ops:.4g} ops, "
+        f"{nbytes:.4g} bytes){'; ' + note if note else ''}")
+    return row
+
+
+def probe_counts():
+    from vimg_tpu_torch.probes import common
+    return {k: v for k, v in common.LAUNCHES.items() if v}
+
+
+def walk_probe_phase(scene):
+    """Phase 15: P1 through probe_walkablate.walk_ablation on terrain 100k
+    (5 variants x groups 32 and 1), each bit for bit against
+    walkablate_plain at the same group; the full walk's bt against B4's
+    closest t on the same rays."""
+    import torch
+    from vimg_tpu_torch.geometry import cluster_trace as ct
+    from vimg_tpu_torch.probes import common
+    from vimg_tpu_torch.probes import probe_walkablate as pw
+    log(f"[15] P1 (walk ablation) on terrain 100k, {N_RAYS} bounce rays in "
+        f"origin-Morton order, variants {', '.join(pw.VARIANTS)} at groups "
+        f"{pw.KERNEL_GROUPS}; records:")
+    zero_counts()
+    tables, rays, res = pw.walk_ablation(scene, N_RAYS,
+                                         log=common.Log(scene.verts.device))
+    log(f"    probe launches {probe_counts()}")
+    plain = {}
+    for (variant, group), (bt, nv, ms) in res.items():
+        (rbt, rnv), plain_ms = event_ms(lambda: pw.walkablate_plain(
+            *tables, *rays, variant, group), 1)
+        bad_bt, bad_nv = bits_differ(bt, rbt), bits_differ(nv, rnv)
+        visits = int(nv.sum())
+        plain[(variant, group)] = plain_ms
+        log(f"    {variant:10s} group {group:2d}: kernel {ms:.4f} ms, "
+            f"{visits} visits ({visits / nv.numel():.1f} per group), "
+            f"{1e3 * ms / max(visits, 1):.6f} us/visit; plain "
+            f"{plain_ms:.1f} ms; bt differs on {bad_bt}, visits on {bad_nv}")
+        if bad_bt or bad_nv:
+            fail(f"P1 {variant} group {group}: kernel differs from plain")
+    aabbs, cid, skip, tri, n_nodes = tables
+    bt = res[("full", 32)][0]
+    t4 = ct.trace_skip(aabbs, cid, skip, tri, n_nodes, *rays, False)[0]
+    _, b4_ms = event_ms(lambda: ct.trace_skip(aabbs, cid, skip, tri, n_nodes,
+                                              *rays, False), TIMED_LAUNCHES)
+    log(f"    B4 (trace_skip) on the same rays: {b4_ms:.4f} ms per launch")
+    fin = torch.isfinite(bt) & torch.isfinite(t4)
+    err = float((bt - t4)[fin].abs().max()) if bool(fin.any()) else 0.0
+    log(f"    full bt vs B4's closest t on the same rays: "
+        f"{bits_differ(bt, t4)} of {N_RAYS} differ in bits, max|d| {err:g}; hits "
+        f"{int(torch.isfinite(bt).sum())} / {int(torch.isfinite(t4).sum())}")
+    st = {}
+    ct.skip_walk_plain(aabbs, cid, skip, tri, n_nodes, *rays, False, stats=st)
+    ops = st["box_tests"] * ct.BOX_TEST_OPS + st["tri_tests"] * ct.TRI_TEST_OPS
+    nbytes = (sum(x.numel() * x.element_size() for x in tables[:4])
+              + N_RAYS * (32 + 4) + N_RAYS // 32 * 4)
+    log(f"    bound of the full walk from B4's plain walk on these rays: "
+        f"{st['box_tests']} box + {st['tri_tests']} triangle tests")
+    return probe_row("probe_walkablate", "tools/probe_walkablate.py:204",
+                     res[("full", 32)][2], plain[("full", 32)], ops, nbytes)
+
+
+def scalar_probe_phase(dev):
+    """Phase 16: P2-P4 through their probes at N = 20,000, each against
+    its plain version at the same N."""
+    from vimg_tpu_torch.probes import common, probe_r3b, probe_r3c, probe_regen
+    log(f"[16] P2 (sync), P3 (smem_read), P4 (stack) at N = "
+        f"{probe_r3b.N_ITER}; records:")
+    plog = common.Log(dev)
+    zero_counts()
+    x, sync_res = probe_r3b.microbench_sync(dev, log=plog)
+    x8, tab, read_res = probe_r3c.smem_read_cost(dev, log=plog)
+    x0, stack_out, stack_ms = probe_regen.probe_smem_dynamic_write(dev,
+                                                                  log=plog)
+    log(f"    probe launches {probe_counts()}")
+    plain_ms = {}
+    for mode, (out, _) in sync_res.items():
+        ref, plain_ms[mode] = event_ms(lambda: probe_r3b.sync_plain(x, mode),
+                                       1)
+        bad = bits_differ(out, ref)
+        log(f"    sync {mode}: {bad} elements differ from plain")
+        if bad:
+            fail(f"P2 {mode}: kernel differs from plain")
+    for cfg, (out, _) in read_res.items():
+        ref, plain_ms[cfg] = event_ms(lambda: probe_r3c.smem_read_plain(
+            x8, tab, cfg[1], cfg[0]), 1)
+        bad = bits_differ(out, ref)
+        log(f"    smem_read packed={cfg[0]} n_reads={cfg[1]}: {bad} elements "
+            f"differ from plain")
+        if bad:
+            fail(f"P3 {cfg}: kernel differs from plain")
+    ref, plain_stack = event_ms(lambda: probe_regen.stack_sum_plain(x0), 1)
+    bad = bits_differ(stack_out, ref)
+    log(f"    stack: value {float(stack_out[0, 0])}, {bad} elements differ "
+        f"from plain")
+    if bad or float(stack_out[0, 0]) != 423.0:
+        fail("P4: kernel differs from plain or from 423")
+    n = probe_r3b.N_ITER
+    note = "latency probe: a serial chain, far above its bound by design"
+    return [
+        probe_row("probe_sync", "tools/probe_r3b.py:68", sync_res["scalar"][1],
+                  plain_ms["scalar"], n * 4096 * 3, 2 * 4096 * 4, note=note),
+        probe_row("probe_smem_read", "tools/probe_r3c.py:64",
+                  read_res[(False, 4)][1], plain_ms[(False, 4)],
+                  n * (1024 + 3 * 4), 2 * 1024 * 4 + 4096 * 4, note=note),
+        probe_row("probe_smem_write", "tools/probe_regen.py:56", stack_ms,
+                  plain_stack, 1024 + 64, 2 * 1024 * 4, note=note)]
+
+
+def packet_probe_phase(dev):
+    """Phase 17: P5-P10 through probe_r4a's probes at their sizes (reps
+    512; ffs 64 with 16 and 4 live lanes), each against its plain version
+    on the same inputs."""
+    from vimg_tpu_torch.probes import common, probe_r4a as r
+    log("[17] P5-P10 (packet primitives) at the probe's sizes; records:")
+    plog = common.Log(dev)
+    zero_counts()
+    runs = {name: fn(device=dev, log=plog) for name, fn in r.PROBES}
+    log(f"    probe launches {probe_counts()}")
+    plains = {
+        "setup_static": lambda a: r.setup_plain(a[0], a[2]),
+        "setup_dynamic": lambda a: r.setup_plain(a[0], a[2]),
+        "dynrow": lambda a: r.rows_plain(a[0], a[1], a[2], False),
+        "ffs16": lambda a: r.ffs_plain(*a),
+        "ffs4": lambda a: r.ffs_plain(*a),
+        "epilogue": lambda a: r.epilogue_plain(*a),
+        "dynblock_par": lambda a: r.rows_plain(*a),
+        "dynblock_chain": lambda a: r.rows_plain(*a),
+        "dynrow_par": lambda a: r.rows_plain(a[0], a[1], a[2], True)}
+    plain_ms = {}
+    for name, (args, out, _) in runs.items():
+        ref, plain_ms[name] = event_ms(lambda: plains[name](args), 1)
+        bad = bits_differ(out, ref)
+        log(f"    {name}: {bad} elements differ from plain")
+        if bad:
+            fail(f"{name}: kernel differs from plain")
+    reps = 512
+
+    def rows_bytes(args):
+        return (len(set(args[1].tolist())) * r.NROWS * 128 * 4 + 64 * 4
+                + 1024 * 4)
+
+    def ms(name):
+        return runs[name][2]
+
+    ffs_args = runs["ffs16"][0]
+    n_live = int((ffs_args[0] > 0.5).sum())
+    return [
+        probe_row("probe_setup", "tools/probe_r4a.py:86", ms("setup_dynamic"),
+                  plain_ms["setup_dynamic"], reps * 8 * 11, 2 * 1024 * 4),
+        probe_row("probe_dynrow", "tools/probe_r4a.py:117", ms("dynrow"),
+                  plain_ms["dynrow"], reps * 128 * 23,
+                  rows_bytes(runs["dynrow"][0])),
+        probe_row("probe_ffs", "tools/probe_r4a.py:160", ms("ffs16"),
+                  plain_ms["ffs16"], 64 * n_live * 128,
+                  128 * 4 + n_live * 128 * 4 + 1024 * 4),
+        probe_row("probe_epilogue", "tools/probe_r4a.py:198", ms("epilogue"),
+                  plain_ms["epilogue"], reps * 1024 * 3, 1024 * 4 + 8 * 4),
+        probe_row("probe_dynblock", "tools/probe_r4a.py:257",
+                  ms("dynblock_par"), plain_ms["dynblock_par"],
+                  reps * 128 * 12, rows_bytes(runs["dynblock_par"][0])),
+        probe_row("probe_dynrow_par", "tools/probe_r4a.py:287",
+                  ms("dynrow_par"), plain_ms["dynrow_par"], reps * 128 * 12,
+                  rows_bytes(runs["dynrow_par"][0]))]
+
+
+def stage_probe_phase(dev):
+    """Phase 18: P11 through probe_r4c.run_stage, stages 0-3 at 16 packets
+    and stage 4 at 1, 4 and 16, each against its plain version."""
+    from vimg_tpu_torch.geometry import cluster_trace as ct
+    from vimg_tpu_torch.probes import common, probe_r4c
+    log("[18] P11 (packet kernel stages) on the probe's inputs (8 "
+        "workgroups, 40 chain entries); records:")
+    plog = common.Log(dev)
+    zero_counts()
+    runs = {run: probe_r4c.run_stage(*run, dev, plog)
+            for run in probe_r4c.RUNS}
+    log(f"    probe launches {probe_counts()}")
+    plain_ms = {}
+    for (stage, n_packets), (args, out, ms) in runs.items():
+        ref, plain_ms[(stage, n_packets)] = event_ms(
+            lambda: probe_r4c.packet_stage_plain(*args, stage, n_packets), 1)
+        bad = bits_differ(out, ref)
+        log(f"    stage {stage} at {n_packets:2d} packets: {ms:.6f} ms per "
+            f"launch, mean {float(out.mean()):.6g}; {bad} elements differ "
+            f"from plain")
+        if bad:
+            fail(f"P11 stage {stage} n_packets {n_packets}: kernel differs")
+    xt, meta, tri = runs[(4, 16)][0]
+    m = meta.view(-1, 8, probe_r4c.CP).long()
+    live = 0
+    for w in range(m.shape[0]):
+        pm = m[w, 1, :int(m[w, 2, 0])] & 0xFFFF
+        live += sum(bin(int(v)).count("1") for v in pm)
+    ops = live * 8 * 128 * ct.TRI_TEST_OPS
+    clusters = len(set(m[:, 0, :40].reshape(-1).tolist()))
+    nbytes = 3 * xt.numel() * 4 + clusters * 12 * 128 * 4
+    log(f"    stage 4 at 16 packets: {live} live (packet, entry) pairs, "
+        f"{live * 8 * 128} triangle tests")
+    return probe_row("probe_packet_stages", "tools/probe_r4c.py:158",
+                     runs[(4, 16)][2], plain_ms[(4, 16)], ops, nbytes)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1007,6 +1265,12 @@ def main():
                        png_dir, card, dev)
     b6 = gather_phase(dev, card)
 
+    # ---- 15-18. the probe kernels P1-P11 -------------------------------
+    probes = [walk_probe_phase(phase6[TERRAINS[0][0]][0])]
+    probes += scalar_probe_phase(dev)
+    probes += packet_probe_phase(dev)
+    probes.append(stage_probe_phase(dev))
+
     rows = [{
         "name": "megakernel_analytic",
         "route": "cuda",
@@ -1057,6 +1321,7 @@ def main():
     rows.append(dict(b6, name="gather_row", route="cuda",
                      source="vimg_tpu_torch/csrc/gather_row.cu",
                      replaces="vimg_tpu/ops/mxu_gather.py:57"))
+    rows += probes
     log(json.dumps({"kernels": rows}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
 """The CUDA kernels against their plain PyTorch versions, on the card:
 the megakernel (B1 analytic mode, B2 mesh mode), the cluster walks (B3
-wide, B4 skip), the packet walk (B5) and the table-row gather (B6).
+wide, B4 skip), the packet walk (B5), the table-row gather (B6) and the
+probe kernels P1-P11 (vimg_tpu_torch/probes).
 
 This file imports no JAX, so it also runs on the GPU machine, which has
 none: ``python3 -m pytest --noconftest tests/test_torch_cuda.py -q`` from
@@ -9,8 +10,8 @@ JAX). Without CUDA the card tests skip and only the dispatch checks run.
 Criteria: for B1 and B2, tests/test_megakernel.py's per-pixel bound at
 unit scale (mean|d| < 1e-4, < 1% of pixels with max|d| > 1e-5; the mesh
 scenes are unit scale too) and equal segment and shadow-ray counts; for
-B3, B4 and B5, bit-equality with their plain walks; for B6, bit-equality
-with its plain version.
+B3, B4 and B5, bit-equality with their plain walks; for B6 and P1-P11,
+bit-equality with their plain versions.
 """
 import numpy as np
 import pytest
@@ -213,3 +214,115 @@ def test_gather_kernel_matches_plain(cuda):
     ok = ((ids >= 0) & (ids < 256))[0]
     assert np.array_equal(got.cpu().numpy()[:, ok.numpy()],
                           table[:, ids[0][ok].numpy()])
+
+
+# ---------------------------------------------------------------------------
+# the probe kernels P1-P11 (vimg_tpu_torch/probes) against their plain
+# versions, bit for bit, at small sizes
+# ---------------------------------------------------------------------------
+
+def _probe_launches(name, fn):
+    from vimg_tpu_torch.probes import common
+    before = common.LAUNCHES[name]
+    out = fn()
+    torch.cuda.synchronize()
+    assert common.LAUNCHES[name] == before + 1, name
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", [32, 1])
+def test_probe_walk_kernel_matches_plain(cuda, group):
+    from vimg_tpu_torch.probes import probe_walkablate as pw
+    from vimg_tpu_torch.scene.synthetic import terrain_scene
+    scene = terrain_scene(20_000, 64, 32, device=cuda)
+    data = ct.ClusterData(scene)
+    tables = pw.probe_tables(data, cuda)
+    rays = pw.sorted_bounce_rays(scene, data, 8192)
+    for variant in pw.VARIANTS:
+        bt, nv = _probe_launches("probe_walkablate", lambda: pw.walkablate(
+            *tables, *rays, variant, group))
+        rbt, rnv = pw.walkablate_plain(*tables, *rays, variant, group)
+        assert torch.equal(_bits(bt), _bits(rbt)), variant
+        assert torch.equal(nv, rnv), variant
+        assert nv.shape == (8192 // group,)
+        if variant == "full":
+            assert bool(torch.isfinite(bt).any())
+
+
+@pytest.mark.cuda
+def test_probe_scalar_kernels_match_plain(cuda):
+    from vimg_tpu_torch.probes import probe_r3b, probe_r3c, probe_regen
+    x = torch.full((32, 128), 0.1, device=cuda)
+    x[3, 7] = 0.499999                       # crosses the thresholds
+    for mode in probe_r3b.MODES:
+        got = _probe_launches("probe_sync",
+                              lambda: probe_r3b.sync(x, mode, 3000))
+        ref = probe_r3b.sync_plain(x, mode, 3000)
+        assert torch.equal(_bits(got), _bits(ref)), mode
+    x8 = torch.rand((8, 128), device=cuda)
+    tab = probe_r3c.probe_table(cuda)
+    for packed, n_reads in probe_r3c.CONFIGS:
+        got = _probe_launches("probe_smem_read", lambda: probe_r3c.smem_read(
+            x8, tab, n_reads, packed, 500))
+        ref = probe_r3c.smem_read_plain(x8, tab, n_reads, packed, 500)
+        assert torch.equal(_bits(got), _bits(ref)), (packed, n_reads)
+    with pytest.raises(ValueError, match="tab"):
+        probe_r3c.smem_read(x8, tab - 1, 4, False, 10)
+    got = _probe_launches("probe_smem_write",
+                          lambda: probe_regen.stack_sum(x8))
+    assert torch.equal(_bits(got), _bits(probe_regen.stack_sum_plain(x8)))
+    assert torch.equal(got, x8 + 423.0)
+
+
+@pytest.mark.cuda
+def test_probe_packet_kernels_match_plain(cuda):
+    from vimg_tpu_torch.probes import probe_r4a as r
+    rs = np.random.RandomState(3)
+    x = torch.from_numpy(rs.rand(8, 128).astype(np.float32)).to(cuda)
+    tbl = torch.from_numpy(rs.rand(40 * 12, 128).astype(np.float32)).to(cuda)
+    idx = torch.from_numpy(rs.randint(-3, 45, 64).astype(np.int32)).to(cuda)
+    m = torch.from_numpy((rs.rand(1, 128) < 0.1).astype(np.float32)).to(cuda)
+    t128 = torch.from_numpy(rs.rand(128, 128).astype(np.float32)).to(cuda)
+    cases = (
+        ("probe_setup", lambda: r.setup(x, True, 37),
+         lambda: r.setup_plain(x, 37)),
+        ("probe_setup", lambda: r.setup(x, False, 37),
+         lambda: r.setup_plain(x, 37)),
+        ("probe_dynrow", lambda: r.dynrow(tbl, idx, 70),
+         lambda: r.rows_plain(tbl, idx, 70, False)),
+        ("probe_dynblock", lambda: r.dynblock(tbl, idx, 70, True),
+         lambda: r.rows_plain(tbl, idx, 70, True)),
+        ("probe_dynblock", lambda: r.dynblock(tbl, idx, 70, False),
+         lambda: r.rows_plain(tbl, idx, 70, False)),
+        ("probe_dynrow_par", lambda: r.dynrow_par(tbl, idx, 70),
+         lambda: r.rows_plain(tbl, idx, 70, True)),
+        ("probe_ffs", lambda: r.ffs(m, t128, 5),
+         lambda: r.ffs_plain(m, t128, 5)),
+        ("probe_epilogue", lambda: r.epilogue(x, 300),
+         lambda: r.epilogue_plain(x, 300)))
+    for name, kern, plain in cases:
+        got = _probe_launches(name, kern)
+        assert torch.equal(_bits(got), _bits(plain())), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage,n_packets",
+                         [(0, 16), (1, 16), (2, 16), (3, 16), (4, 1), (4, 4),
+                          (4, 16)])
+def test_probe_packet_stage_kernel_matches_plain(cuda, stage, n_packets):
+    from vimg_tpu_torch.probes import probe_r4c
+    args = probe_r4c.stage_inputs(cuda)
+    got = _probe_launches("probe_packet_stages",
+                          lambda: probe_r4c.packet_stage(*args, stage,
+                                                         n_packets))
+    ref = probe_r4c.packet_stage_plain(*args, stage, n_packets)
+    assert torch.equal(_bits(got), _bits(ref))
+    # exact ties: a lane repeated and clusters repeated along the chain
+    xt, meta, tri = (a.clone() for a in args)
+    c = tri.view(-1, 12, 128)
+    c[:, :, 77] = c[:, :, 5]
+    meta.view(-1, 8, 128)[:, 0, :40] = torch.arange(40, device=cuda) % 9
+    got = probe_r4c.packet_stage(xt, meta, tri, stage, n_packets)
+    ref = probe_r4c.packet_stage_plain(xt, meta, tri, stage, n_packets)
+    assert torch.equal(_bits(got), _bits(ref))

@@ -42,6 +42,24 @@ SIGNATURES = {
     "vimg_packet_trace": ([_P] * 6 + [_I] * 6 + [_F] * 7 + [_P] * 3, _I),
     # csrc/gather_row.cu: hi, mid, lo, ids, p, n_rows, n_ids, out, stream
     "vimg_gather_rows": ([_P] * 4 + [_I] * 3 + [_P] * 2, _I),
+    # csrc/probe_walk.cu (P1): aabb, cid, skip, tri, n_nodes, ro, rd, tmin,
+    # tmax, n_rays, variant, group, bt, nv, stream
+    "vimg_probe_walk": ([_P] * 4 + [_I] + [_P] * 4 + [_I] * 3 + [_P] * 3, _I),
+    # csrc/probe_scalar.cu: P2 x, mode, n_iter, out, stream; P3 x, tab,
+    # n_reads, packed, n_iter, out, stream; P4 x, out, stream
+    "vimg_probe_sync": ([_P] + [_I] * 2 + [_P] * 2, _I),
+    "vimg_probe_smem_read": ([_P] * 2 + [_I] * 3 + [_P] * 2, _I),
+    "vimg_probe_stack": ([_P] * 3, _I),
+    # csrc/probe_packet.cu: P5 x, static, reps, out, stream; P6/P9/P10
+    # tbl, idx, n_blocks, reps, block_load, parallel, out, stream; P7 mask,
+    # tbl, reps, out, stream; P8 x, reps, out, stream
+    "vimg_probe_setup": ([_P] + [_I] * 2 + [_P] * 2, _I),
+    "vimg_probe_rows": ([_P] * 2 + [_I] * 4 + [_P] * 2, _I),
+    "vimg_probe_ffs": ([_P] * 2 + [_I] + [_P] * 2, _I),
+    "vimg_probe_epilogue": ([_P] + [_I] + [_P] * 2, _I),
+    # csrc/probe_packet_stages.cu (P11): xt, meta, tri, n_work, n_clusters,
+    # stage, n_packets, out, stream
+    "vimg_probe_packet_stage": ([_P] * 3 + [_I] * 4 + [_P] * 2, _I),
     "vimg_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 
