@@ -64,10 +64,31 @@ Phases:
 17. kernels P5-P10 (tools/probe_r4a.py) through their probes at reps 512
     (ffs 64 with 16 and 4 live lanes), bit for bit against plain;
 18. kernel P11 (tools/probe_r4c.py) through run_stage, stages 0-3 and
-    stage 4 at 1, 4 and 16 packets, bit for bit against plain.
+    stage 4 at 1, 4 and 16 packets, bit for bit against plain;
+19. main paths 7 and 8: the flagship JSON at 1800x800 and terrain 100k at
+    512x256, both under s_normal at 4 spp -> render_frame -> render() on
+    the card (the flagship's SoA tracer is tensor code, terrain's walk is
+    B3), each first compared per pixel with the same call on the CPU at a
+    reduced size; then a g_normal frame and three material frames the
+    megakernel refuses, card vs CPU per pixel, launching only B3 or B4;
+20. B-1: kernels P12-P15 and P20 (tools/probe_prims.py, probe_vpu2.py,
+    probe_vpu3.py, probe_r2c.py vpu_rate) through their probes at the
+    probes' sizes (probe_prims at ITERS = 200,000), one block and the full
+    card, separate and fused multiply-adds; each against its plain version
+    (probe_prims at 2,000 steps, the most its plain version can run);
+21. B-2: kernels P16-P19, P21, P22 (tools/probe_r2c.py gathers and
+    mxu_precision, probe_r4j.py) through their probes, against their plain
+    versions; P19 and P22 beside torch.matmul (TF32 on and off) and
+    torch.index_select;
+22. B-3: kernels P23-P31 (tools/probe_pallas.py, probe_constructs.py)
+    through their probes (every check's verdict must hold), against their
+    plain versions.
 The probe kernels lie on no render path: their rows report 0 launches,
 and each probe phase prints the launches its entry points made. Every
-probe record carries the card's name and power limit.
+probe record carries the card's name and power limit. Each kernel is
+held to its plain version bit for bit, except P19 (within 2 K 2^-24
+(|A~||B~|) of its form's plain product, TF32 inputs for "default") and P27 (rtol 1e-4 of float64, the probe's gate); the count
+of differing outputs is printed for each.
 Each main path is driven with every launch counter set to 0 just before
 and read just after. The line before the card's name is the kernels JSON;
 the last line is the JSON result {"ok": true, "device": {...}}; any
@@ -134,7 +155,25 @@ PROBE_SOURCES = dict(
     **dict.fromkeys(("probe_setup", "probe_dynrow", "probe_ffs",
                      "probe_epilogue", "probe_dynblock", "probe_dynrow_par"),
                     "vimg_tpu_torch/csrc/probe_packet.cu"),
-    probe_packet_stages="vimg_tpu_torch/csrc/probe_packet_stages.cu")
+    probe_packet_stages="vimg_tpu_torch/csrc/probe_packet_stages.cu",
+    **dict.fromkeys(("probe_prims", "probe_fma", "probe_mix", "probe_vpu3",
+                     "probe_vpu_rate"), "vimg_tpu_torch/csrc/probe_vpu.cu"),
+    **dict.fromkeys(("probe_take", "probe_onehot", "probe_selchain",
+                     "probe_mxu_precision", "probe_lookup",
+                     "probe_lookup_check"),
+                    "vimg_tpu_torch/csrc/probe_gather.cu"),
+    **dict.fromkeys(("probe_grid", "probe_while", "probe_pcg",
+                     "probe_scalars", "probe_transcendental",
+                     "probe_throughput", "probe_k1", "probe_k2", "probe_k3"),
+                    "vimg_tpu_torch/csrc/probe_lowering.cu"))
+# the card's tensor-core peaks (H100 SXM data sheet, dense, at 700 W)
+BF16_TC_OPS_PER_S = 989e12
+TF32_TC_OPS_PER_S = 495e12
+# phase 19: the s_normal frames at reduced size (card vs CPU)
+NORMAL_SMALL = {"flagship": (180, 80), "terrain": (64, 32)}
+NORMAL_SPP = 4            # the CLI's (and the reference's) normal-view spp
+# phase 20: probe_prims' iterations where the plain version is held
+PRIMS_PLAIN_ITERS = 2000
 # a frame's mean is compared within MAIN_MEAN_REL, widened to 4 standard
 # errors of the difference where the two frames' own pixel noise says 2%
 # is less (the material integrator's light hits are rare and bright)
@@ -157,9 +196,11 @@ def nvidia_smi_line():
     return out.splitlines()[0]
 
 
-def unit_scene(device, spp, integrator):
+def unit_scene(device, spp, integrator, n_extra=0, floor_tris=0):
     """tests/test_megakernel.py::_simple_scene at 64x48: red Lambertian,
-    glass and an emissive sphere (unit scale: no epsilon races)."""
+    glass and an emissive sphere (unit scale: no epsilon races), plus
+    ``n_extra`` small spheres (257 make the megakernel refuse it) and a
+    terrain floor of ``floor_tris`` triangles below them."""
     from vimg_tpu_torch.core.math import look_at
     from vimg_tpu_torch.scene import ir
     from vimg_tpu_torch.scene.json_loader import SceneBuilder
@@ -171,6 +212,13 @@ def unit_scene(device, spp, integrator):
     b.add_sphere((0, 0, 0), 1.0, red)
     b.add_sphere((2.2, 0, 0), 1.0, glass)
     b.add_sphere((0, 3.0, 0), 1.0, light)
+    for k in range(n_extra):
+        b.add_sphere((-3.0 + 0.02 * k, -2.0, 0), 0.01, red)
+    if floor_tris:
+        import numpy as np
+        from vimg_tpu_torch.scene.synthetic import terrain_mesh
+        verts, tris = terrain_mesh(floor_tris)
+        b.add_mesh(verts - np.float32([0, 2.5, 0]), tris, red)
     cam = dict(cam2world=look_at([0, 0, 6], [0.7, 0, 0], [0, 1, 0]),
                width=64, height=48, vfov_deg=45.0)
     scene = b.build(camera=cam, device=device)
@@ -903,20 +951,24 @@ def bits_differ(a, b):
 
 
 def probe_row(name, replaces, ms, plain_ms, ops, nbytes, err=0.0,
-              note=None):
-    """A kernels-JSON row of a probe kernel: no render path launches it."""
+              note=None, peak=FP32_OPS_PER_S, library_ms=None):
+    """A kernels-JSON row of a probe kernel: no render path launches it.
+    ``peak`` is the card's rate for the operations' type (FP32 by
+    default)."""
     t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
-    t_ops = 1e3 * ops / FP32_OPS_PER_S
+    t_ops = 1e3 * ops / peak
     row = {"name": name, "route": "cuda", "source": PROBE_SOURCES[name],
            "replaces": replaces, "launches": 0, "max_abs_err": err,
            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-           "library_ms": None}
+           "library_ms": library_ms}
     if note:
         row["note"] = note
-    log(f"    {name}: kernel {ms:.6f} ms, plain {plain_ms:.3f} ms, bound "
-        f"{row['bound_ms']:.6f} ms ({row['bound_by']}: {ops:.4g} ops, "
-        f"{nbytes:.4g} bytes){'; ' + note if note else ''}")
+    lib = "" if library_ms is None else f", library {library_ms:.6f} ms"
+    log(f"    {name}: kernel {ms:.6f} ms, plain {plain_ms:.3f} ms{lib}, "
+        f"bound {row['bound_ms']:.6f} ms ({row['bound_by']}: {ops:.4g} ops "
+        f"at {peak / 1e12:g} T/s, {nbytes:.4g} bytes)"
+        f"{'; ' + note if note else ''}")
     return row
 
 
@@ -1117,6 +1169,428 @@ def stage_probe_phase(dev):
                      runs[(4, 16)][2], plain_ms[(4, 16)], ops, nbytes)
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the s_normal frames (render_frame -> render() on the card)
+# ---------------------------------------------------------------------------
+
+def normal_scene(kind, device, size=None):
+    """The flagship JSON or terrain 100k under s_normal at the CLI's 4 spp,
+    at its own size or at ``size`` (width, height)."""
+    from vimg_tpu_torch.scene import ir
+    from vimg_tpu_torch.scene.json_loader import load_json_scene
+    from vimg_tpu_torch.scene.synthetic import terrain_scene
+    if kind == "flagship":
+        scene, st = load_json_scene(FLAGSHIP, device=device)
+        w, h = size or (st.width, st.height)
+        scene = scene.replace(camera=dataclasses.replace(
+            scene.camera, width=w, height=h))
+        st = dataclasses.replace(st, width=w, height=h)
+    else:
+        w, h = size or (MESH_W, MESH_H)
+        scene = terrain_scene(TERRAINS[0][0], w, h, device=device)
+        st = ir.RenderSettings(w, h, batch_size=MESH_BATCH)
+    return scene, dataclasses.replace(st, spp=NORMAL_SPP,
+                                      integrator="s_normal", tonemap="clamp")
+
+
+def normal_phase(dev, card, png_dir):
+    """Phase 19 (main paths 7 and 8): s_normal frames through
+    render_frame on the card (ROADMAP C12: before this, they raised). Each
+    is first compared with the same call on the CPU at a reduced size
+    (per-pixel, at the unit-scale bound), then driven at full size with the
+    counts set to 0 just before and read just after: the flagship's SoA
+    tracer is tensor code (no kernel), terrain 100k's is B3."""
+    import torch
+    from vimg_tpu_torch.render.render import render_frame
+    log("[19] main paths 7, 8: s_normal frames -> render_frame -> render() "
+        "on the card")
+    launches = {}
+    for kind, kernel_name in (("flagship", None), ("terrain", "cluster_wide")):
+        small = {}
+        for d in (dev, torch.device("cpu")):
+            scene, st = normal_scene(kind, d, NORMAL_SMALL[kind])
+            small[d.type] = render_frame(scene, st)
+        r = compare(f"{kind} {st.width}x{st.height}@{st.spp} s_normal card "
+                    f"vs cpu", small["cpu"], small["cuda"])
+        if not (r["mean"] < UNIT_MEAN and r["frac"] < UNIT_FRAC):
+            fail(f"s_normal {kind}: card differs from the CPU")
+        scene, st = normal_scene(kind, dev)
+        render_frame(scene, dataclasses.replace(st, spp=1))      # warm
+        zero_counts()
+        img, secs = timed(lambda: render_frame(scene, st))
+        counts = read_counts()
+        nz = {k: v for k, v in counts.items() if v}
+        ok_counts = (set(nz) == {kernel_name} if kernel_name
+                     else not nz)
+        arr = img.cpu().numpy()
+        import numpy as np
+        if (not img.is_cuda or arr.shape != (st.height, st.width, 3)
+                or not np.isfinite(arr).all() or not ok_counts):
+            fail(f"s_normal {kind}: image {arr.shape} on {img.device}, "
+                 f"launches {nz}")
+        png = save_png(img, st.tonemap, f"{kind}_s_normal.png", png_dir)
+        paths = st.width * st.height * st.spp
+        log(f"    {kind} {st.width}x{st.height} @ {st.spp} spp s_normal: "
+            f"{secs:.3f} s, {paths / secs / 1e6:.2f} Mpaths/s, launches "
+            f"{nz or 'none (tensor code)'}, mean {arr.mean():.6f}, png "
+            f"{png} bytes, on {card}")
+        launches[kind] = nz
+    return launches
+
+
+def other_frame(case, device):
+    """(scene, settings, render_frame's keywords, the walk kernel it must
+    launch on the card or None) of a phase-19 C12 case at small size: a
+    g_normal frame of terrain 20k, and material frames the megakernel
+    refuses (260 spheres): over a 2,000-triangle floor through the cluster
+    tracer (its default walk, and a given skip-walk tracer), and alone
+    through the SoA tracer. make_tracer picks no tracer for 260 spheres
+    by itself: vimg_tpu's BVH is not ported (ROADMAP A21)."""
+    from vimg_tpu_torch.geometry.cluster_trace import ClusterTracer
+    from vimg_tpu_torch.scene import ir
+    from vimg_tpu_torch.scene.synthetic import terrain_scene
+    if case == "terrain_g_normal":
+        w, h = NORMAL_SMALL["terrain"]
+        scene = terrain_scene(20_000, w, h, device=device)
+        return (scene, ir.RenderSettings(w, h, spp=4, integrator="g_normal"),
+                {}, "cluster_" + ClusterTracer(scene).walk)
+    floor = 0 if case == "unit_material" else 2_000
+    scene, st = unit_scene(device, 4, "material", n_extra=257,
+                           floor_tris=floor)
+    st = dataclasses.replace(st, max_depth=8)
+    if not floor:
+        return scene, st, {"tracer_force": "soa"}, None
+    if case == "floor_material_skip":
+        return scene, st, {"tracer": ClusterTracer(scene, walk="skip")}, \
+            "cluster_skip"
+    return (scene, st, {"tracer_force": "cluster"},
+            "cluster_" + ClusterTracer(scene).walk)
+
+
+OTHER_FRAMES = ("terrain_g_normal", "floor_material", "floor_material_skip",
+                "unit_material")
+
+
+def other_frames_phase(dev):
+    """Phase 19, the other C12 frames: each renders through render_frame
+    -> render() on the card and on the CPU, compared per pixel at the
+    unit-scale bound; on the card, with the counts set to 0 before, only
+    its walk kernel (B3 or B4; closest hits, as these integrators trace no
+    shadow rays) or none may launch."""
+    import torch
+    from vimg_tpu_torch.render.mega import supports_megakernel
+    from vimg_tpu_torch.render.render import render_frame
+    log("    C12's other frames, card vs CPU through render_frame -> "
+        "render():")
+    for case in OTHER_FRAMES:
+        imgs = {}
+        for d in (torch.device("cpu"), dev):
+            scene, st, kw, walk = other_frame(case, d)
+            if st.integrator == "material" and supports_megakernel(scene, st):
+                fail(f"{case}: the megakernel would take this frame")
+            zero_counts()
+            imgs[d.type], secs = timed(lambda: render_frame(scene, st, **kw))
+        nz = {k: v for k, v in read_counts().items() if v}
+        r = compare(f"{case} {st.width}x{st.height}@{st.spp} "
+                    f"{st.integrator} card vs cpu", imgs["cpu"], imgs["cuda"])
+        log(f"      card {secs:.3f} s, launches {nz or 'none'}")
+        if not (imgs["cuda"].is_cuda and r["mean"] < UNIT_MEAN
+                and r["frac"] < UNIT_FRAC):
+            fail(f"{case}: card differs from the CPU")
+        if set(nz) != ({walk} if walk else set()):
+            fail(f"{case}: launches {nz}, expected only {walk}")
+
+
+# ---------------------------------------------------------------------------
+# phases 20-22: the probe kernels P12-P31, through their probes' entry
+# points at the probes' own sizes, then against their plain versions
+# ---------------------------------------------------------------------------
+
+def held(label, out, ref, close=None):
+    """Log and check a kernel output against its plain version: bit for
+    bit, or within ``close(out, ref)`` (a tolerance the caller names)."""
+    bad = bits_differ(out, ref)
+    err = float((out.double() - ref.double()).abs().max())
+    ok = bad == 0 if close is None else bool(close(out, ref))
+    log(f"    {label}: {bad} of {out.numel()} outputs differ in bits from "
+        f"plain (max |d| {err:g})")
+    if not ok:
+        fail(f"{label}: kernel differs from its plain version")
+    return err
+
+
+def vpu_probe_phase(dev):
+    """Phase 20 (B-1): P12-P15 and P20 through probe_prims, probe_vpu2,
+    probe_vpu3 and probe_r2c.vpu_rate at the probes' sizes (probe_prims at
+    ITERS = 200,000), one block and the full card, separate and fused;
+    each against its plain version (probe_prims at 2,000 steps)."""
+    import torch
+    from vimg_tpu_torch.probes import (common, probe_prims, probe_r2c,
+                                       probe_vpu2, probe_vpu3)
+    log("[20] B-1: P12 (prims), P13 (fma), P14 (mix), P15 (vpu3), P20 "
+        "(vpu_rate) at the probes' sizes, one block and the full card; "
+        "records:")
+    plog = common.Log(dev)
+    zero_counts()
+    for prim in probe_prims.PRIMS:
+        probe_prims.run(prim, dev, log=plog)
+    runs = {}
+    for dtype in ("f32", "bf16"):
+        runs[("fma", dtype)] = probe_vpu2.fma_throughput(dtype, dev, log=plog)
+        runs[("mix", dtype)] = probe_vpu2.mix_throughput(dtype, dev, log=plog)
+        runs[("rate", dtype)] = probe_r2c.vpu_rate(dtype, dev, log=plog)
+    for form in probe_vpu3.FORMS:
+        runs[("vpu3", form)] = probe_vpu3.run(form, dev, log=plog)
+    log(f"    probe launches {probe_counts()}")
+    tab = probe_prims.table(dev)
+    init = torch.zeros(probe_prims.SHAPE, dtype=torch.float32, device=dev)
+    n = PRIMS_PLAIN_ITERS
+    errs, prim_ms = [], {}
+    for prim in probe_prims.PRIMS:
+        for n_rep in (1, 4):
+            ref, pms = event_ms(lambda: probe_prims.prims_plain(
+                tab, init, prim, n_rep, n), 1)
+            for n_blocks in (1, 0):
+                (out, blocks), ms = event_ms(lambda: probe_prims.prims(
+                    tab, init, prim, n_rep, n, n_blocks), 1)
+                errs.append(held(f"prims {prim} x{n_rep} at {n} steps, "
+                                 f"{blocks} blocks", out, ref))
+                if n_blocks:
+                    prim_ms[(prim, n_rep)] = (ms, pms)
+    plains = {"fma": probe_vpu2.fma_plain, "mix": probe_vpu2.mix_plain,
+              "rate": probe_r2c.rate_plain, "vpu3": probe_vpu3.vpu3_plain}
+    plain_ms = {}
+    for (kind, arg), (x, res) in runs.items():
+        for fused in (False, True):
+            ref, plain_ms[(kind, arg, fused)] = event_ms(
+                lambda: plains[kind](x, arg, fused), 1)
+            form = "fused" if fused else "separate"
+            for card in (False, True):
+                out, _, blocks = res[(fused, card)]
+                errs.append(held(f"{kind} {arg} {form}, {blocks} blocks",
+                                 out, ref))
+    ms, pms = prim_ms[("vec22", 4)]
+    shape_bytes = 2 * 4096 * 4
+    lat = "latency probe: a dependent chain on one block"
+    return [
+        probe_row("probe_prims", "tools/probe_prims.py:73", ms, pms,
+                  n * 4 * 22 * 2048, (1024 + 2 * 2048) * 4, max(errs),
+                  note=f"vec22 x4 at {n} steps (the plain version's size); "
+                       + lat),
+        probe_row("probe_fma", "tools/probe_vpu2.py:59",
+                  runs[("fma", "f32")][1][(False, False)][1],
+                  plain_ms[("fma", "f32", False)],
+                  2 * 8 * 300 * 4096 + 15 * 4096, shape_bytes,
+                  note="f32 separate, one block"),
+        probe_row("probe_mix", "tools/probe_vpu2.py:91",
+                  runs[("mix", "f32")][1][(False, False)][1],
+                  plain_ms[("mix", "f32", False)], 10 * 200 * 4096,
+                  shape_bytes, note="f32 separate, one block; " + lat),
+        probe_row("probe_vpu3", "tools/probe_vpu3.py:55",
+                  runs[("vpu3", probe_vpu3.FORMS[0])][1][(False, False)][1],
+                  plain_ms[("vpu3", probe_vpu3.FORMS[0], False)],
+                  10 * 200 * 4096, shape_bytes, peak=2 * FP32_OPS_PER_S,
+                  note="f32cmp+bf16where separate, one block (bf16 pairs at "
+                       "twice the FP32 rate); " + lat),
+        probe_row("probe_vpu_rate", "tools/probe_r2c.py:203",
+                  runs[("rate", "f32")][1][(False, False)][1],
+                  plain_ms[("rate", "f32", False)], 4 * 2000 * 4096,
+                  shape_bytes, note="f32 separate, one block; " + lat)]
+
+
+def gather_probe_phase(dev):
+    """Phase 21 (B-2): P16-P19, P21, P22 through probe_r2c and probe_r4j
+    at the probes' sizes, each against its plain version; P19 and P22
+    beside their library calls."""
+    import torch
+    from vimg_tpu_torch.probes import common, probe_r2c as r, probe_r4j as j
+    log("[21] B-2: P16 (take), P17 (onehot), P18 (selchain), P19 "
+        "(mxu_precision), P21/P22 (probe_r4j) at the probes' sizes; "
+        "records:")
+    plog = common.Log(dev)
+    zero_counts()
+    take = {n: r.gather_take(n, dev, plog) for n in r.TAKE_N}
+    onehot = {n: r.gather_onehot(n, dev, plog) for n in r.ONEHOT_N}
+    sel = {n: r.gather_selchain(n, dev, plog) for n in r.SELCHAIN_N}
+    a, b, mm = r.mxu_precision(dev, plog)
+    r4j = {n: j.run(n, device=dev, log=plog) for n in j.N_MATS}
+    log(f"    probe launches {probe_counts()}")
+    errs, pms = {}, {}
+    for name, runs, plain in (("take", take, r.take_plain),
+                              ("onehot", onehot, r.onehot_plain),
+                              ("selchain", sel, r.selchain_plain)):
+        for n, (tab, idx, out, _) in runs.items():
+            ref, pms[(name, n)] = event_ms(lambda: plain(tab, idx), 1)
+            errs[(name, n)] = held(f"{name} n={n}", out, ref)
+    for form, (out, _) in mm.items():
+        ref, pms[("mm", form)] = event_ms(
+            lambda: r.matmul_plain(a, b, form), 1)
+        tool, ratio = r.matmul_errors(a, b, out, form)
+        gate = r.matmul_held(a, b, out, form)
+        log(f"    mxu_precision {form}: |out - plain| / (2 K 2^-24 "
+            f"(|A~||B~|)) max {gate:.6f} (the gate); logged only: "
+            f"|out - float64| / (2 K u (|A||B|)) max {ratio:.6f}, the "
+            f"tool's metric {tool:.3e}")
+        errs[("mm", form)] = held(f"mxu_precision {form}", out, ref,
+                                  close=lambda o, p: gate <= 1.0)
+    lib = {}
+    for tf32 in (True, False):
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        for _ in range(2):                           # warm up cuBLAS
+            torch.matmul(a, b)
+        _, lib[tf32] = event_ms(lambda: torch.matmul(a, b), TIMED_LAUNCHES)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    log(f"    torch.matmul 256x256: TF32 {lib[True]:.6f} ms, float32 "
+        f"{lib[False]:.6f} ms")
+    for n, res in r4j.items():
+        table, ids, hi, mid, lo = res["inputs"]
+        errs[("check", n)] = held(f"lookup check n_mats={n}", res["check"][0],
+                                  j.check_plain(ids, hi, mid, lo))
+        if not torch.equal(res["check"][0], table[:, ids[0].long()]):
+            fail(f"P22 n_mats {n}: not table[:, ids]")
+        ref, pms[("mxu", n)] = event_ms(
+            lambda: j.mxu_plain(ids, hi, mid, lo), 1)
+        errs[("mxu", n)] = held(f"lookup mxu n_mats={n}", res["mxu"][0], ref)
+        if "chain" in res:
+            ref, pms[("chain", n)] = event_ms(
+                lambda: j.chain_plain(ids, hi, n), 1)
+            errs[("chain", n)] = held(f"lookup chain n_mats={n}",
+                                      res["chain"][0], ref)
+    table, ids, hi, mid, lo = r4j[512]["inputs"]
+    _, check_ms = event_ms(lambda: j.lookup_check(ids, hi, mid, lo),
+                           TIMED_LAUNCHES)
+    _, check_pms = event_ms(lambda: j.check_plain(ids, hi, mid, lo), 1)
+    row_ids = ids[0].long()
+    for _ in range(2):
+        torch.index_select(table, 1, row_ids)
+    _, check_lib = event_ms(lambda: torch.index_select(table, 1, row_ids),
+                            TIMED_LAUNCHES)
+    tab2048, idx2048 = take[2048][0], take[2048][1]
+    lanes = torch.arange(128, device=dev)
+    touched = torch.unique(((idx2048.long()[None] + torch.arange(
+        r.TAKE_REPS, device=dev)[:, None, None]) % 2048) * 128 + lanes)
+    kpad = -(-512 // 16) * 16
+    mxu_ops = j.REPS * j.ROWS * 3 * 2 * 32 * kpad * 128
+    lat = "latency probe at 4,096 lanes"
+    return [
+        probe_row("probe_take", "tools/probe_r2c.py:79", take[2048][3],
+                  pms[("take", 2048)], 3 * r.TAKE_REPS * 4096,
+                  2 * 4096 * 4 + touched.numel() * 4,
+                  note="n = 2,048; " + lat),
+        probe_row("probe_onehot", "tools/probe_r2c.py:115", onehot[2048][3],
+                  pms[("onehot", 2048)], r.ONEHOT_REPS * 2 * 4096 * 2048 * 4,
+                  2 * 4096 * 4 + 2048 * 4 * 4, peak=BF16_TC_OPS_PER_S,
+                  note="n = 2,048; the dense one-hot product at the bf16 "
+                       "tensor-core rate"),
+        probe_row("probe_selchain", "tools/probe_r2c.py:142", sel[256][3],
+                  pms[("selchain", 256)], r.SELCHAIN_REPS * 2 * 256 * 4096,
+                  2 * 4096 * 4 + 256 * 4, note="n = 256"),
+        probe_row("probe_mxu_precision", "tools/probe_r2c.py:170",
+                  mm["default"][1], pms[("mm", "default")], 2 * 256 ** 3,
+                  3 * 256 * 256 * 4,
+                  err=errs[("mm", "default")], peak=TF32_TC_OPS_PER_S,
+                  library_ms=lib[True],
+                  note=f"default (TF32); highest (float32 FMA) "
+                       f"{mm['highest'][1]:.6f} ms beside torch.matmul "
+                       f"float32 {lib[False]:.6f} ms"),
+        probe_row("probe_lookup", "tools/probe_r4j.py:94",
+                  r4j[512]["mxu"][1], pms[("mxu", 512)], mxu_ops,
+                  ids.numel() * 4 * 2 + 3 * 32 * 512 * 2,
+                  peak=BF16_TC_OPS_PER_S,
+                  note=f"mxu, n_mats 512, reps {j.REPS}; chain n_mats 48 "
+                       f"{r4j[48]['chain'][1]:.6f} ms"),
+        probe_row("probe_lookup_check", "tools/probe_r4j.py:115", check_ms,
+                  check_pms, 3 * 2 * 32 * kpad * 128,
+                  128 * 4 + 3 * 32 * 512 * 2 + 32 * 128 * 4,
+                  peak=BF16_TC_OPS_PER_S, library_ms=check_lib,
+                  note="n_mats 512; library: torch.index_select on the "
+                       "float32 table")]
+
+
+def lowering_probe_phase(dev):
+    """Phase 22 (B-3): P23-P31 through probe_pallas.run (its throughput
+    body at the probe's 131,072 lanes and on the full card) and
+    probe_constructs.run; every check's verdict must hold, and each kernel
+    is held to its plain version."""
+    import torch
+    from vimg_tpu_torch.probes import common, probe_constructs as pc
+    from vimg_tpu_torch.probes import probe_pallas as pp
+    log("[22] B-3: P23-P28 (probe_pallas), P29-P31 (probe_constructs); "
+        "records:")
+    plog = common.Log(dev)
+    zero_counts()
+    res = pp.run(dev, log=plog)
+    (aabbs, tris, rays), con = pc.run(dev, plog)
+    log(f"    probe launches {probe_counts()}")
+    if not all(rec["ok"] for rec in plog.records):
+        fail("a probe_pallas / probe_constructs check failed")
+    x_w = torch.full(pp.TILE, 0.5, dtype=torch.float32, device=dev)
+    tbl, x_t = pp.scalars_table(dev), pp.transc_input(dev)
+    exact = pp.transc_exact(x_t)
+    plains = {"grid+blocked-output": lambda: pp.grid_plain(dev),
+              "while_loop": lambda: pp.while_plain(x_w),
+              "pcg4d": lambda: pp.pcg_plain(dev),
+              "smem-scalars": lambda: pp.scalars_plain(tbl),
+              "transcendentals": lambda: pp.transc_plain(x_t)}
+    errs, pms = {}, {}
+    for name, plain in plains.items():
+        ref, pms[name] = event_ms(plain, 1)
+        close = None
+        if name == "transcendentals":      # the probe's gate, for both
+            def close(o, p):
+                return bool((((o.double() - exact).abs()
+                              <= 1e-4 * exact.abs())
+                             & ((p.double() - exact).abs()
+                                <= 1e-4 * exact.abs())).all())
+        errs[name] = held(f"{name}", res[name][0], ref, close)
+    ref, pms["throughput"] = event_ms(lambda: pp.throughput_plain(dev), 1)
+    for card, (out, ms, blocks) in res["throughput"].items():
+        errs[("throughput", card)] = held(
+            f"throughput, {blocks} blocks", out, ref)
+    for which, (out, _) in con.items():
+        ref, pms[which] = event_ms(lambda: pc.constructs_plain(
+            aabbs, tris, rays, which), 1)
+        errs[which] = held(f"constructs k{which}", out, ref)
+    steps = 0
+    v = x_w.clone()
+    while bool(v.max() < 100.0) and steps < 1000:
+        v = v * pp.F(1.1) + pp.F(0.01)
+        steps += 1
+    tile = 1024 * 4
+    lanes = pp.TP_SHAPE[0] * 128
+    lat = "launch-latency probe"
+
+    def row(name, line, key, ops, nbytes, note=lat):
+        return probe_row(name, f"tools/probe_pallas.py:{line}", res[key][1],
+                         pms[key], ops, nbytes, errs[key], note=note)
+    rows = [
+        row("probe_grid", 54, "grid+blocked-output", 32 * 256 * 2,
+            32 * 256 * 4),
+        row("probe_while", 81, "while_loop", 1024 * 3 * steps, 2 * tile,
+            note=f"{steps} steps; latency probe"),
+        row("probe_pcg", 100, "pcg4d", 1024 * 45, tile),
+        row("probe_scalars", 125, "smem-scalars", 1024 * 6, 96 + tile),
+        row("probe_transcendental", 145, "transcendentals", 1024 * 13,
+            2 * tile, note="rtol 1e-4 of float64 (the probe's gate); "
+            "each function counted as one operation; " + lat),
+        probe_row("probe_throughput", "tools/probe_pallas.py:188",
+                  res["throughput"][False][1], pms["throughput"],
+                  lanes * pp.TP_ITERS * 28, lanes * 4,
+                  errs[("throughput", False)],
+                  note=f"the probe's {lanes} lanes; full card "
+                       f"{res['throughput'][True][1]:.6f} ms on "
+                       f"{res['throughput'][True][2]} blocks; 28 operations "
+                       f"a step (sqrt and divide one each)")]
+    for which, line, ops in ((1, 39, 8 * 1024 * 2), (2, 55, 8 * 1024 * 3),
+                             (3, 79, 8 * 1024 * 2 + 8 * 1024 * 2)):
+        nbytes = 256 + (0 if which == 1 else 8 * 512) + 2 * tile
+        rows.append(probe_row(f"probe_k{which}",
+                              f"tools/probe_constructs.py:{line}",
+                              con[which][1], pms[which], ops, nbytes,
+                              errs[which], note=lat))
+    return rows
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1270,6 +1744,15 @@ def main():
     probes += scalar_probe_phase(dev)
     probes += packet_probe_phase(dev)
     probes.append(stage_probe_phase(dev))
+
+    # ---- 19. main paths 7 and 8: s_normal frames through render() -------
+    normal_phase(dev, card, png_dir)
+    other_frames_phase(dev)
+
+    # ---- 20-22. the probe kernels P12-P31 -------------------------------
+    probes += vpu_probe_phase(dev)
+    probes += gather_probe_phase(dev)
+    probes += lowering_probe_phase(dev)
 
     rows = [{
         "name": "megakernel_analytic",

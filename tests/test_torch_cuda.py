@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions, on the card:
 the megakernel (B1 analytic mode, B2 mesh mode), the cluster walks (B3
 wide, B4 skip), the packet walk (B5), the table-row gather (B6) and the
-probe kernels P1-P11 (vimg_tpu_torch/probes).
+probe kernels P1-P31 (vimg_tpu_torch/probes); and an s_normal frame on
+the card.
 
 This file imports no JAX, so it also runs on the GPU machine, which has
 none: ``python3 -m pytest --noconftest tests/test_torch_cuda.py -q`` from
@@ -10,9 +11,12 @@ JAX). Without CUDA the card tests skip and only the dispatch checks run.
 Criteria: for B1 and B2, tests/test_megakernel.py's per-pixel bound at
 unit scale (mean|d| < 1e-4, < 1% of pixels with max|d| > 1e-5; the mesh
 scenes are unit scale too) and equal segment and shadow-ray counts; for
-B3, B4 and B5, bit-equality with their plain walks; for B6 and P1-P11,
-bit-equality with their plain versions.
+B3, B4 and B5, bit-equality with their plain walks; for B6 and P1-P31,
+bit-equality with their plain versions, except where the P12-P31 tests
+say otherwise.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -22,9 +26,13 @@ from vimg_tpu_torch.geometry import cluster_trace as ct
 from vimg_tpu_torch.render.mega import kernel
 from vimg_tpu_torch.scene import ir
 from vimg_tpu_torch.scene.json_loader import SceneBuilder
+from vimg_tpu_torch.scene.synthetic import terrain_mesh, terrain_scene
 
 
-def _unit_scene(device, integrator, spp=8):
+def _unit_scene(device, integrator, spp=8, n_extra=0, floor_tris=0):
+    """Red Lambertian, glass and an emissive sphere, plus ``n_extra``
+    small spheres (257 make the megakernel refuse the scene) and a terrain
+    floor of ``floor_tris`` triangles below them."""
     b = SceneBuilder()
     red = b.add_material(ir.MAT_LAMBERTIAN, base=(0.8, 0.2, 0.2))
     glass = b.add_material(ir.MAT_DIELECTRIC, base=(1, 1, 1),
@@ -33,6 +41,11 @@ def _unit_scene(device, integrator, spp=8):
     b.add_sphere((0, 0, 0), 1.0, red)
     b.add_sphere((2.2, 0, 0), 1.0, glass)
     b.add_sphere((0, 3.0, 0), 1.0, light)
+    for k in range(n_extra):
+        b.add_sphere((-3.0 + 0.02 * k, -2.0, 0), 0.01, red)
+    if floor_tris:
+        verts, tris = terrain_mesh(floor_tris)
+        b.add_mesh(verts - np.float32([0, 2.5, 0]), tris, red)
     cam = dict(cam2world=look_at([0, 0, 6], [0.7, 0, 0], [0, 1, 0]),
                width=32, height=24, vfov_deg=45.0)
     return (b.build(camera=cam, device=device),
@@ -326,3 +339,224 @@ def test_probe_packet_stage_kernel_matches_plain(cuda, stage, n_packets):
     got = probe_r4c.packet_stage(xt, meta, tri, stage, n_packets)
     ref = probe_r4c.packet_stage_plain(xt, meta, tri, stage, n_packets)
     assert torch.equal(_bits(got), _bits(ref))
+
+
+# the probe kernels P12-P31 against their plain versions at small sizes:
+# bit for bit, except P19 (within 2 K u (|A| |B|) of the float64 product)
+# and P27 (rtol 1e-4 of float64, the probe's own gate)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_probe_prims_kernel_matches_plain(cuda):
+    from vimg_tpu_torch.probes import probe_prims
+    tab = probe_prims.table(cuda)
+    init = torch.rand(probe_prims.SHAPE, device=cuda) * 99.9
+    for prim in probe_prims.PRIMS:
+        for n_rep in (1, 4):
+            ref = probe_prims.prims_plain(tab, init, prim, n_rep, 300)
+            for n_blocks in (1, 0):
+                got, blocks = _probe_launches(
+                    "probe_prims", lambda: probe_prims.prims(
+                        tab, init, prim, n_rep, 300, n_blocks))
+                assert torch.equal(_bits(got), _bits(ref)), (prim, n_rep)
+                assert blocks == 1 if n_blocks else blocks >= 132
+
+
+def _rate_kernels_match(cases):
+    """Each (launch name, kernel, plain, x) in both forms, one block and
+    the full card, float32 and bf16, bit for bit."""
+    for dtype in ("f32", "bf16"):
+        for fused in (False, True):
+            for name, kern, plain, x in cases:
+                ref = plain(x, dtype, fused, 150)
+                for n_blocks in (1, 0):
+                    got, _ = _probe_launches(name, lambda: kern(
+                        x, dtype, fused, 150, n_blocks))
+                    assert torch.equal(_bits(got), _bits(ref)), (
+                        name, dtype, fused)
+
+
+@pytest.mark.cuda
+def test_probe_vpu2_kernels_match_plain(cuda):
+    from vimg_tpu_torch.probes import probe_vpu2 as v
+    _rate_kernels_match((
+        ("probe_fma", v.fma, v.fma_plain, v.tile(3, cuda)),
+        ("probe_mix", v.mix, v.mix_plain, v.tile(4, cuda))))
+
+
+@pytest.mark.cuda
+def test_probe_vpu3_kernel_matches_plain(cuda):
+    from vimg_tpu_torch.probes import probe_vpu2, probe_vpu3
+    x4 = probe_vpu2.tile(4, cuda)
+    for form in probe_vpu3.FORMS:
+        for fused in (False, True):
+            ref = probe_vpu3.vpu3_plain(x4, form, fused)
+            for n_blocks in (1, 0):
+                got, _ = _probe_launches("probe_vpu3", lambda: probe_vpu3.vpu3(
+                    x4, form, fused, n_blocks=n_blocks))
+                assert torch.equal(_bits(got), _bits(ref)), (form, fused)
+
+
+@pytest.mark.cuda
+def test_probe_r2c_kernels_match_plain(cuda):
+    from vimg_tpu_torch.probes import probe_r2c as r
+    for n in (8, 2048):
+        tab, idx = r.take_table(n, cuda), r.indices(n, cuda)
+        got = _probe_launches("probe_take", lambda: r.take(tab, idx))
+        assert torch.equal(_bits(got), _bits(r.take_plain(tab, idx))), n
+    for n in (256, 2048):
+        tab, idx = r.onehot_table(n, cuda), r.indices(n, cuda)
+        got = _probe_launches("probe_onehot", lambda: r.onehot(tab, idx))
+        assert torch.equal(_bits(got), _bits(r.onehot_plain(tab, idx))), n
+    for n in r.SELCHAIN_N:
+        tab, idx = r.selchain_table(n, cuda), r.indices(n, cuda)
+        got = _probe_launches("probe_selchain", lambda: r.selchain(tab, idx))
+        assert torch.equal(_bits(got), _bits(r.selchain_plain(tab, idx))), n
+    a, b = r.matmul_inputs(cuda)
+    for form in r.MM_U:
+        got = _probe_launches("probe_mxu_precision",
+                              lambda: r.matmul(a, b, form))
+        assert r.matmul_held(a, b, got, form) <= 1.0, form
+    _rate_kernels_match((("probe_vpu_rate", r.rate, r.rate_plain,
+                                r.tile(3, cuda)),))
+
+
+@pytest.mark.cuda
+def test_probe_r4j_kernels_match_plain(cuda):
+    from vimg_tpu_torch.probes import probe_r4j as j
+    for n_mats in (48, 512):
+        table, ids = j.inputs(n_mats, device=cuda)
+        hi, mid, lo = j.split3(table)
+        got = _probe_launches("probe_lookup_check",
+                              lambda: j.lookup_check(ids, hi, mid, lo))
+        assert torch.equal(got, table[:, ids[0].long()])
+        got = _probe_launches("probe_lookup",
+                              lambda: j.lookup_mxu(ids, hi, mid, lo, 2))
+        ref = j.mxu_plain(ids, hi, mid, lo, 2)
+        assert torch.equal(_bits(got), _bits(ref)), n_mats
+    table, ids = j.inputs(48, device=cuda)
+    hi = j.split3(table)[0]
+    got = _probe_launches("probe_lookup",
+                          lambda: j.lookup_chain(ids, hi, 48, reps=2))
+    assert torch.equal(_bits(got), _bits(j.chain_plain(ids, hi, 48, reps=2)))
+
+
+@pytest.mark.cuda
+def test_probe_pallas_kernels_match_plain(cuda):
+    from vimg_tpu_torch.probes import probe_pallas as pp
+    x = torch.full(pp.TILE, 0.5, device=cuda)
+    tbl = pp.scalars_table(cuda)
+    xt = pp.transc_input(cuda)
+    for name, kern, plain in (
+            ("probe_grid", lambda: pp.grid(cuda), lambda: pp.grid_plain(cuda)),
+            ("probe_while", lambda: pp.while_loop(x),
+             lambda: pp.while_plain(x)),
+            ("probe_pcg", lambda: pp.pcg(cuda), lambda: pp.pcg_plain(cuda)),
+            ("probe_scalars", lambda: pp.scalars(tbl),
+             lambda: pp.scalars_plain(tbl))):
+        got = _probe_launches(name, kern)
+        assert torch.equal(_bits(got), _bits(plain())), name
+    got = _probe_launches("probe_transcendental",
+                          lambda: pp.transcendental(xt))
+    exact = pp.transc_exact(xt)
+    assert bool(((got.double() - exact).abs() <= 1e-4 * exact.abs()).all())
+    ref = pp.throughput_plain(cuda, 200)
+    for n_blocks in (pp.TP_BLOCKS, 0):
+        got, blocks = _probe_launches(
+            "probe_throughput", lambda: pp.throughput(cuda, 200, n_blocks))
+        assert torch.equal(_bits(got), _bits(ref)) and blocks >= 128
+
+
+@pytest.mark.cuda
+def test_probe_constructs_kernels_match_plain(cuda):
+    from vimg_tpu_torch.probes import probe_constructs as pc
+    args = pc.inputs(cuda)
+    for which in (1, 2, 3):
+        got = _probe_launches(pc.LAUNCH_NAMES[which],
+                              lambda: pc.constructs(*args, which))
+        assert torch.equal(_bits(got), _bits(pc.constructs_plain(*args,
+                                                                 which)))
+
+
+@pytest.mark.cuda
+def test_s_normal_frame_renders_on_card(cuda):
+    """A JSON scene without an integrator block renders s_normal on the
+    card through render() (no megakernel), as on the CPU."""
+    import dataclasses
+    import os
+    from vimg_tpu_torch.render.render import render_frame
+    from vimg_tpu_torch.scene.json_loader import load_json_scene
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "scenes", "disney_spheres_flagship.json")
+    imgs = {}
+    for dev in (cuda, torch.device("cpu")):
+        scene, st = load_json_scene(path, device=dev)
+        scene = scene.replace(camera=dataclasses.replace(
+            scene.camera, width=180, height=80))
+        st = dataclasses.replace(st, width=180, height=80, spp=1,
+                                 integrator="s_normal")
+        before = (kernel.LAUNCHES, kernel.LAUNCHES_MESH)
+        imgs[dev.type] = render_frame(scene, st)
+        assert (kernel.LAUNCHES, kernel.LAUNCHES_MESH) == before
+    img = imgs["cuda"]
+    assert img.is_cuda and img.shape == imgs["cpu"].shape
+    assert bool(torch.isfinite(img).all())
+    d = (img.cpu() - imgs["cpu"]).abs()
+    assert float(d.mean()) < 1e-4 and float((d.max(-1).values > 1e-5)
+                                            .float().mean()) < 0.01
+
+
+def _other_frame(case, device):
+    """(scene, settings, render_frame keywords, the walk kernel the card
+    must launch or None) of a frame that render_frame sends to render()
+    on CUDA: a g_normal terrain frame, and material frames the megakernel
+    refuses (260 spheres) over a triangle floor through the cluster tracer
+    and alone through the SoA tracer (make_tracer has no tracer for 260
+    spheres by itself: the BVH is ROADMAP A21)."""
+    if case == "terrain_g_normal":
+        scene = terrain_scene(20_000, 64, 32, device=device)
+        return (scene, ir.RenderSettings(64, 32, spp=4, integrator="g_normal"),
+                {}, ct.ClusterTracer(scene).walk)
+    floor = 0 if case == "unit_material" else 2_000
+    scene, st = _unit_scene(device, "material", spp=4, n_extra=257,
+                            floor_tris=floor)
+    st = dataclasses.replace(st, max_depth=8)
+    if not floor:
+        return scene, st, {"tracer_force": "soa"}, None
+    if case == "floor_material_skip":
+        return scene, st, {"tracer": ct.ClusterTracer(scene, walk="skip")}, \
+            "skip"
+    return scene, st, {"tracer_force": "cluster"}, \
+        ct.ClusterTracer(scene).walk
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["terrain_g_normal", "floor_material",
+                                  "floor_material_skip", "unit_material"])
+def test_other_frames_render_on_card(cuda, case):
+    """g_normal and refused material frames render through render() on
+    the card, equal per pixel to the CPU's at the unit-scale bound, and
+    launch only their walk kernel (B3 or B4; these integrators trace no
+    shadow rays) or none."""
+    from vimg_tpu_torch.render.mega import supports_megakernel
+    from vimg_tpu_torch.render.render import render_frame
+    imgs = {}
+    for dev in (torch.device("cpu"), cuda):
+        scene, st, kw, walk = _other_frame(case, dev)
+        assert not supports_megakernel(scene, st)
+        before = (kernel.LAUNCHES, kernel.LAUNCHES_MESH, ct.LAUNCHES_WIDE,
+                  ct.LAUNCHES_SKIP)
+        imgs[dev.type] = render_frame(scene, st, **kw)
+    moved = [n for n, b, a in zip(("mega", "mega_mesh", "wide", "skip"),
+                                  before, (kernel.LAUNCHES,
+                                           kernel.LAUNCHES_MESH,
+                                           ct.LAUNCHES_WIDE, ct.LAUNCHES_SKIP))
+             if a != b]
+    assert moved == ([walk] if walk else [])
+    img = imgs["cuda"]
+    assert img.is_cuda and img.shape == imgs["cpu"].shape
+    assert bool(torch.isfinite(img).all())
+    d = (img.cpu() - imgs["cpu"]).abs()
+    assert float(d.mean()) < 1e-4 and float((d.max(-1).values > 1e-5)
+                                            .float().mean()) < 0.01

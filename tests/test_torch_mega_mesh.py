@@ -241,18 +241,21 @@ def test_statistical_parity_real_meshes(frame):
 
 
 def test_render_frame_mesh_dispatch_cpu():
-    """Low-spp mesh MIS and mesh material frames take B2's plain version,
-    8-spp mesh MIS frames the wavefront; nothing launches on the CPU."""
+    """vimg_tpu's CPU rule: no mesh frame takes B2 (or its plain version)
+    on the CPU. Mesh MIS frames at any spp go to the wavefront, mesh
+    material frames to the loop render over make_tracer's tracer; nothing
+    launches on the CPU."""
+    from vimg_tpu_torch.geometry.trace import make_tracer
+    from vimg_tpu_torch.render.render import render as trender
     ts = _port(jsyn.terrain_scene(300, 8, 6))
     before = _counters()
     mis4 = tir.RenderSettings(width=8, height=6, spp=4, integrator="mis")
-    assert torch.equal(render_frame(ts, mis4),
-                       tkernel.render_megakernel_plain(ts, mis4))
+    assert torch.equal(render_frame(ts, mis4), twf.render_wavefront(ts, mis4))
     mis8 = dataclasses.replace(mis4, spp=8)
     assert torch.equal(render_frame(ts, mis8), twf.render_wavefront(ts, mis8))
     mat = dataclasses.replace(mis4, integrator="material")
     img = render_frame(ts, mat)
-    assert torch.equal(img, tkernel.render_megakernel_plain(ts, mat))
+    assert torch.equal(img, trender(ts, mat, make_tracer(ts)))
     assert img.shape == (6, 8, 3) and bool(torch.isfinite(img).all())
     assert _counters() == before
     tracer = tkernel.plain_tracer(ts)

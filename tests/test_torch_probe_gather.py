@@ -1,0 +1,225 @@
+"""The gather-form probes of vimg_tpu_torch.probes against vimg_tpu's own
+tools/ probes on the CPU: P16-P19 (probe_r2c: take, onehot, selchain,
+mxu_precision) and P21/P22 (probe_r4j: the one-hot lookup and its check).
+
+The tools run as they are in a child process, as in
+tests/test_torch_probe_vpu.py (interpret-mode pallas_call recording its
+calls, jax.jit the identity memoised on its last arguments, XLA computing
+as written), with probe_r4j's OUT file moved under the test's temporary
+directory (left alone, it would overwrite bench_records/r4_probe_j.json)
+and its log captured. One cost cut, not defect hiding (the card runs the
+probe's own counts): probe_r4j's chain runs at reps 1 (its 48 x 32 x 8
+unrolled select chain takes about 94 s in interpret mode at reps 8); the
+mxu and check forms run at the probe's reps 8 for n_mats 128, 256 and 512.
+
+Tolerances: bit-equality for P16, P17, P18, P21 and P22. P19 is held to
+the float64 product within 2 K u (|A| |B|), K = 256, u = 2^-24 (the
+interpreted product is float32 whatever its precision argument, so both
+forms meet the float32 bound); the tool's own metric divides by max(|exact|,
+1e-3), which reads cancellation (ROADMAP C18), and is only logged.
+"""
+import importlib
+import json
+import os
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from test_torch_probe_vpu import bits, record_pallas, run_child
+from vimg_tpu_torch.probes import common, probe_r2c as r2c, probe_r4j as r4j
+
+R4J_REPS = {48: 1, 128: 8, 256: 8, 512: 8}
+
+
+def _references(path):
+    """Child process: every probe's last recorded call (inputs, output)
+    and the tool's own results into ``path``."""
+    jax.config.update("jax_platforms", "cpu")
+    out_dir = os.path.dirname(path)
+    ref = {}
+    calls = record_pallas()
+
+    def keep(name, text=None):
+        args, out = calls[-1]
+        ref.update({f"{name}_in{k}": a for k, a in enumerate(args)})
+        ref[f"{name}_out"] = out
+        if text is not None:
+            ref[f"{name}_text"] = np.array(json.dumps(text))
+
+    tool = importlib.import_module("tools.probe_r2c")
+    for n in r2c.TAKE_N:
+        keep(f"take_{n}", tool.gather_take(n))
+    for n in r2c.ONEHOT_N:
+        keep(f"onehot_{n}", tool.gather_onehot(n))
+    for n in r2c.SELCHAIN_N:
+        keep(f"selchain_{n}", tool.gather_selchain(n))
+    n = len(calls)
+    text = tool.mxu_precision()
+    assert len(calls) == n + 2, text
+    for form, (args, out) in zip(("default", "highest"), calls[-2:]):
+        ref.update({f"mm_{form}_in0": args[0], f"mm_{form}_in1": args[1],
+                    f"mm_{form}_out": out})
+    ref["mm_text"] = np.array(json.dumps(text))
+    tool = importlib.import_module("tools.probe_r4j")
+    records = []
+    tool.log = lambda **kw: records.append(kw)
+    tool.OUT = os.path.join(out_dir, os.path.basename(tool.OUT))
+    for n_mats, reps in R4J_REPS.items():
+        n = len(calls)
+        tool.run(n_mats, reps=reps)
+        assert all("err" not in rec for rec in records), records
+        methods = ["check", "mxu"] + (["chain"] if n_mats <= 64 else [])
+        assert len(calls) == n + len(methods), records
+        for method, (args, out) in zip(methods, calls[n:]):
+            name = f"r4j_{method}_{n_mats}"
+            ref.update({f"{name}_in{k}": a for k, a in enumerate(args)})
+            ref[f"{name}_out"] = out
+    ref["r4j_records"] = np.array(json.dumps(records))
+    np.savez(path, **ref)
+
+
+@pytest.fixture(scope="module")
+def refs(tmp_path_factory):
+    return run_child(__name__.split(".")[-1], "gather", tmp_path_factory)
+
+
+def _case(refs, name):
+    args = []
+    while f"{name}_in{len(args)}" in refs:
+        args.append(torch.from_numpy(refs[f"{name}_in{len(args)}"]))
+    return args, refs[f"{name}_out"]
+
+
+def _same(got, ref):
+    assert got.shape == ref.shape
+    assert np.array_equal(bits(got.numpy()), bits(ref))
+
+
+@pytest.mark.parametrize("n", r2c.TAKE_N)
+def test_take_matches_the_probe(refs, n):
+    (tab, idx), ref = _case(refs, f"take_{n}")
+    assert torch.equal(tab, r2c.take_table(n))
+    assert torch.equal(idx, r2c.indices(n))
+    before = dict(common.LAUNCHES)
+    _same(r2c.take(tab, idx), ref)
+    assert common.LAUNCHES == before                  # the plain version
+    assert "correct=True" in json.loads(str(refs[f"take_{n}_text"]))
+
+
+@pytest.mark.parametrize("n", r2c.ONEHOT_N)
+def test_onehot_matches_the_probe(refs, n):
+    """Bit for bit, including the tool's one-hot of idx, not idx + k
+    (ROADMAP C15): the output is exactly 10 bf16(tab)[idx, 0]."""
+    (tab, idx), ref = _case(refs, f"onehot_{n}")
+    assert torch.equal(tab, r2c.onehot_table(n))
+    got = r2c.onehot(tab, idx)
+    _same(got, ref)
+    assert torch.equal(got, 10 * tab.to(torch.bfloat16).float()[
+        idx.long(), 0])
+    log = common.Log(torch.device("cpu"))
+    r2c.gather_onehot(n, "cpu", log)
+    text = json.loads(str(refs[f"onehot_{n}_text"]))
+    assert f"max_err={log.records[0]['max_err']:.2e}" in text
+    assert log.records[0]["max_err_bf16"] <= 10 * 2.0 ** -9
+
+
+@pytest.mark.parametrize("n", r2c.SELCHAIN_N)
+def test_selchain_matches_the_probe(refs, n):
+    (tab, idx), ref = _case(refs, f"selchain_{n}")
+    assert torch.equal(tab, r2c.selchain_table(n))
+    _same(r2c.selchain(tab, idx), ref)
+
+
+@pytest.mark.parametrize("form", ["default", "highest"])
+def test_matmul_within_its_bound(refs, form):
+    (a, b), ref = _case(refs, f"mm_{form}")
+    ra, rb = r2c.matmul_inputs()
+    assert torch.equal(a, ra) and torch.equal(b, rb)
+    got = r2c.matmul(a, b, form)
+    # the interpreted product is float32; "default" rounds its inputs to
+    # TF32 first, so each is within its form's bound of the other
+    bound = 2 * r2c.MM * r2c.MM_U[form] * (a.double().abs()
+                                           @ b.double().abs())
+    assert bool(((got.double() - torch.from_numpy(ref).double()).abs()
+                 <= 2 * bound).all())
+    assert r2c.matmul_errors(a, b, got, form)[1] <= 1.0
+    assert r2c.matmul_held(a, b, got, form) <= 0.5
+    # the interpreted float32 product is within the float32 bound, yet the
+    # tool's metric reads 1.87e-3 on it (cancellation: ROADMAP C18)
+    tool, ratio = r2c.matmul_errors(a, b, torch.from_numpy(ref), "highest")
+    assert ratio <= 1.0 and tool > 1e-3
+    assert json.loads(str(refs["mm_text"]))[form] == f"{tool:.2e}"
+
+
+def test_tf32_rounds_as_cvt_rna():
+    """10 mantissa bits kept, to nearest, ties away from zero."""
+    x = torch.tensor([1.0, 1 + 2.0 ** -11, 1 + 2.0 ** -11 + 2.0 ** -23,
+                      1 + 2.0 ** -10 + 2.0 ** -11, -(1 + 2.0 ** -11),
+                      1 + 2.0 ** -12, 3.0e-39], dtype=torch.float32)
+    want = torch.tensor([1.0, 1 + 2.0 ** -10, 1 + 2.0 ** -10,
+                         1 + 2.0 ** -9, -(1 + 2.0 ** -10), 1.0, 3.0e-39],
+                        dtype=torch.float32)
+    got = r2c.tf32(x)
+    assert torch.equal(got[:6], want[:6])
+    # a subnormal keeps its top 10 of 23 fraction bits, rounded
+    assert (got[6].view(torch.int32) & 0x1FFF) == 0
+    assert abs(float(got[6]) - 3.0e-39) <= 2.0 ** -136
+
+
+@pytest.mark.parametrize("form", ["default", "highest"])
+def test_matmul_gate_fails_a_wrong_product(form):
+    """P19's gate holds the form's own product and refuses one that
+    drops a k-step (8 of 256 terms), or the other form's product."""
+    a, b = r2c.matmul_inputs()
+    ra, rb = r2c.mm_inputs(a, b, form)
+    keep = torch.ones(r2c.MM, dtype=torch.float64)
+    keep[8:16] = 0
+    dropped = ((ra.double() * keep) @ rb.double()).float()
+    assert r2c.matmul_held(a, b, r2c.matmul_plain(a, b, form), form) <= 0.5
+    assert r2c.matmul_held(a, b, dropped, form) > 100
+    other = "highest" if form == "default" else "default"
+    assert r2c.matmul_held(a, b, r2c.matmul_plain(a, b, other), form) > 1
+
+
+@pytest.mark.parametrize("n_mats", list(R4J_REPS))
+def test_lookup_matches_the_probe(refs, n_mats):
+    reps = R4J_REPS[n_mats]
+    table, ids = r4j.inputs(n_mats)
+    hi, mid, lo = r4j.split3(table)
+    (rids, rhi, rmid, rlo), check = _case(refs, f"r4j_check_{n_mats}")
+    assert torch.equal(rids, ids)
+    for mine, theirs in ((hi, rhi), (mid, rmid), (lo, rlo)):
+        assert torch.equal(mine.float(), theirs.float())
+    got = r4j.lookup_check(ids, hi, mid, lo)
+    _same(got, check)
+    assert torch.equal(got, table[:, ids[0].long()])
+    _, mxu = _case(refs, f"r4j_mxu_{n_mats}")
+    _same(r4j.lookup_mxu(ids, hi, mid, lo, reps), mxu)
+    if n_mats <= r4j.CHAIN_MAX_MATS:
+        _, chain = _case(refs, f"r4j_chain_{n_mats}")
+        _same(r4j.lookup_chain(ids, hi, n_mats, reps=reps), chain)
+    recs = [r for r in json.loads(str(refs["r4j_records"]))
+            if r.get("n_mats") == n_mats and r["method"] == "mxu_exact"]
+    assert recs[0]["bit_exact"] is True
+
+
+def test_probe_entry_points_on_cpu():
+    """device="cpu" runs the plain versions, logs the tool's keys and no
+    time."""
+    log = common.Log(torch.device("cpu"))
+    r2c.gather_take(32, "cpu", log)
+    r2c.gather_selchain(64, "cpu", log)
+    r2c.mxu_precision("cpu", log)
+    res = r4j.run(48, reps=1, device="cpu", log=log)
+    assert set(res) == {"inputs", "check", "mxu", "chain"}
+    recs = log.records
+    assert recs[0]["correct"] and recs[1]["correct"]
+    assert [r["bound_ratio"] <= 1.0 for r in recs[2:4]] == [True, True]
+    assert [r["held_ratio"] <= 0.5 for r in recs[2:4]] == [True, True]
+    assert recs[4]["bit_exact"] and recs[5]["us"] is None
+    assert all(r["card"].startswith("cpu") for r in recs)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cpu"):
+            r2c.gather_take(8)

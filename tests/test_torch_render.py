@@ -123,13 +123,16 @@ def test_sample_offset_slabs_compose():
 
 
 def test_render_frame_cpu_dispatch():
+    """vimg_tpu's CPU rule: no frame takes the megakernel on the CPU; an
+    MIS frame the megakernel covers goes to the wavefront."""
+    from vimg_tpu_torch.render import wavefront as twf
     from vimg_tpu_torch.render.render import render_frame
     ts, tst = _port(*_unit_scene(2, "mis"))
     before = tkernel.LAUNCHES
     img = render_frame(ts, tst)
     assert tkernel.LAUNCHES == before       # CPU scenes never launch
     assert img.shape == (24, 32, 3) and img.device.type == "cpu"
-    assert torch.equal(img, tkernel.render_megakernel_plain(ts, tst))
+    assert torch.equal(img, twf.render_wavefront(ts, tst))
 
 
 def test_pack_tables_match_vimg_tpu():

@@ -3,15 +3,18 @@
 ``render`` is the chunked loop over (pixel, sample) work: every chunk
 holds whole pixels with all their samples, and each pixel's samples are
 summed in sample order, as vimg_tpu's film accumulates them.
-``render_frame`` sends the frames that the megakernel covers to the
-hand-written CUDA kernel of the scene's mode (B1 analytic, B2 mesh) on
-CUDA, or to its plain version (the loop integrator) on the CPU, except
-mesh MIS frames at production sample counts, which go to the refill
-wavefront like every other MIS frame. Anything else raises on CUDA:
-nothing moves silently between devices.
+``render_frame`` dispatches as vimg_tpu does: on CUDA the frames that the
+megakernel covers go to the hand-written kernel of the scene's mode (B1
+analytic, B2 mesh), except mesh MIS frames at production sample counts;
+on the CPU no frame takes the megakernel. Every other MIS frame goes to
+the refill wavefront, and every other frame (``s_normal``, ``g_normal``,
+a ``material`` frame the megakernel refuses) to ``render`` over
+``make_tracer``'s tracer, whose walks are kernels B3/B4/B5 on CUDA.
+Nothing moves between devices.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 
 import torch
@@ -22,12 +25,16 @@ from vimg_tpu_torch.render.integrators import trace_radiance
 from vimg_tpu_torch.scene import ir
 
 
-def render(scene: ir.Scene, settings: ir.RenderSettings, progress=False,
-           sample_offset=0, stats=None, tracer=None):
+def render(scene: ir.Scene, settings: ir.RenderSettings, tracer=None,
+           progress=False, integrator=None, sample_offset=0, stats=None):
     """Render a full frame with the loop integrator. Returns the linear
-    (H, W, 3) float32 image on the scene's device. ``sample_offset`` shifts
-    every sample id (and so every RNG stream); ``tracer`` defaults to
-    ``make_tracer(scene)``."""
+    (H, W, 3) float32 image on the scene's device. ``tracer`` defaults to
+    ``make_tracer(scene)``; ``integrator`` overrides
+    ``settings.integrator``; ``sample_offset`` shifts every sample id (and
+    so every RNG stream); ``stats`` (a dict) collects segment and shadow-ray
+    counts."""
+    if integrator is not None:
+        settings = dataclasses.replace(settings, integrator=integrator)
     W, H, spp = settings.width, settings.height, settings.spp
     dev = scene.device
     tracer = tracer or make_tracer(scene)
@@ -68,40 +75,41 @@ def prefer_wavefront_for_mesh(scene, settings):
             and settings.integrator == "mis")
 
 
-def render_frame(scene, settings, progress=False, tracer=None,
-                 tracer_force=None):
-    """Render dispatch, the same choice on both devices:
+def render_frame(scene, settings, tracer=None, progress=False,
+                 integrator=None, use_wavefront=True, tracer_force=None):
+    """Render dispatch, vimg_tpu's rule (``integrator`` overrides
+    ``settings.integrator``):
 
-    - a scene and integrator the megakernel covers, unless
-      ``prefer_wavefront_for_mesh``: the CUDA megakernel of the scene's
-      mode (B1 or B2) on CUDA, its plain version (the loop integrator) on
-      the CPU;
-    - else an MIS frame: the refill wavefront (by default over the cluster
-      kernels B3/B4 on CUDA, their plain walks on the CPU);
-    - else: the loop integrator on the CPU; on CUDA it raises (nothing
-      falls back to the CPU).
+    - with ``use_wavefront``, an MIS or material frame that the megakernel
+      covers, unless ``prefer_wavefront_for_mesh``: on CUDA the megakernel
+      of the scene's mode (B1 or B2); never on the CPU;
+    - else, with ``use_wavefront``, an MIS frame: the refill wavefront (by
+      default over the cluster kernels B3/B4 on CUDA, their plain walks on
+      the CPU);
+    - else: the loop ``render`` with the integrator.
     ``tracer`` (or ``make_tracer(scene, force=tracer_force)``, built only
-    when needed) is the wavefront's and the loop's tracer, as in vimg_tpu;
-    it does not change the megakernel dispatch. Any other device raises."""
+    when needed) is the wavefront's and the loop's tracer; it does not
+    change the megakernel dispatch. Devices other than the CPU and CUDA
+    raise."""
     from vimg_tpu_torch.render.mega import (render_megakernel,
                                             supports_megakernel)
     from vimg_tpu_torch.render.wavefront import render_wavefront
     dev = scene.device
     if dev.type not in ("cpu", "cuda"):
         raise NotImplementedError(f"no render path for device {dev}")
-    mega = (supports_megakernel(scene, settings)
-            and not prefer_wavefront_for_mesh(scene, settings))
-    if mega:
-        return render_megakernel(scene, settings, progress=progress)
-    if settings.integrator != "mis" and dev.type == "cuda":
-        raise NotImplementedError(
-            f"on CUDA the {settings.integrator} integrator is ported only "
-            f"through the megakernel (see supports_megakernel)")
+    name = integrator or settings.integrator
+    if use_wavefront and name in ("mis", "material"):
+        st = dataclasses.replace(settings, integrator=name)
+        if (dev.type == "cuda" and supports_megakernel(scene, st)
+                and not prefer_wavefront_for_mesh(scene, st)):
+            return render_megakernel(scene, st, progress=progress)
+        if name == "mis":
+            tracer = tracer or make_tracer(scene, force=tracer_force)
+            return render_wavefront(scene, st, tracer=tracer,
+                                    progress=progress)
     tracer = tracer or make_tracer(scene, force=tracer_force)
-    if settings.integrator == "mis":
-        return render_wavefront(scene, settings, tracer=tracer,
-                                progress=progress)
-    return render(scene, settings, progress=progress, tracer=tracer)
+    return render(scene, settings, tracer=tracer, progress=progress,
+                  integrator=integrator)
 
 
 def render_to_png(scene, settings, path, **kw):

@@ -60,6 +60,33 @@ SIGNATURES = {
     # csrc/probe_packet_stages.cu (P11): xt, meta, tri, n_work, n_clusters,
     # stage, n_packets, out, stream
     "vimg_probe_packet_stage": ([_P] * 3 + [_I] * 4 + [_P] * 2, _I),
+    # csrc/probe_vpu.cu (pointers grid_used are host int*): P12 tab, init,
+    # k, prim, n_rep, iters, n_blocks, grid_used, out, stream; P13/P14/P20
+    # x, k, kind, bf16, fused, iters, n_blocks, grid_used, out, stream;
+    # P15 x, k, form, fused, iters, n_blocks, grid_used, out, stream
+    "vimg_probe_prims": ([_P] * 3 + [_I] * 4 + [_P] * 3, _I),
+    "vimg_probe_vpu": ([_P] * 2 + [_I] * 5 + [_P] * 3, _I),
+    "vimg_probe_vpu3": ([_P] * 2 + [_I] * 4 + [_P] * 3, _I),
+    # csrc/probe_gather.cu: P16/P17/P18 table, idx, n, reps, out, stream;
+    # P19 a, b, tf32, c, stream; P21/P22 ids, hi, mid, lo, n_params, ppad,
+    # npad, rows, reps, check, out, stream; P21 chain ids, t_hi, n_mats,
+    # n_params, npad, rows, reps, out, stream
+    "vimg_probe_take": ([_P] * 2 + [_I] * 2 + [_P] * 2, _I),
+    "vimg_probe_onehot": ([_P] * 2 + [_I] * 2 + [_P] * 2, _I),
+    "vimg_probe_selchain": ([_P] * 2 + [_I] * 2 + [_P] * 2, _I),
+    "vimg_probe_matmul": ([_P] * 2 + [_I] + [_P] * 2, _I),
+    "vimg_probe_lookup_mxu": ([_P] * 4 + [_I] * 6 + [_P] * 2, _I),
+    "vimg_probe_lookup_chain": ([_P] * 2 + [_I] * 5 + [_P] * 2, _I),
+    # csrc/probe_lowering.cu: P23 out; P24 x, out; P25 out; P26 tbl, out;
+    # P27 x, out; P28 iters, n_blocks, grid_used, out; P29-P31 aabb, tris,
+    # rays, which, out; each then the stream
+    "vimg_probe_grid": ([_P] * 2, _I),
+    "vimg_probe_while": ([_P] * 3, _I),
+    "vimg_probe_pcg": ([_P] * 2, _I),
+    "vimg_probe_scalars": ([_P] * 3, _I),
+    "vimg_probe_transc": ([_P] * 3, _I),
+    "vimg_probe_throughput": ([_I] * 2 + [_P] * 3, _I),
+    "vimg_probe_constructs": ([_P] * 3 + [_I] + [_P] * 2, _I),
     "vimg_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 
