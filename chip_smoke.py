@@ -11,11 +11,13 @@ Phases:
     parallel, linked into one library; timed), ptxas registers and spills;
  3. kernel B1 (megakernel) against its plain PyTorch version, both on the
     card: a unit-scale scene at 64x48 @ 16 spp (MIS and material;
-    per-pixel parity) and the flagship scene at 1800x800 @ 4 spp
-    (statistical parity);
+    per-pixel parity, warp steps equal to the plain count) and the
+    flagship scene at 1800x800 @ 4 spp (statistical parity); B1's warp
+    steps, SIMT fill (segments / (32 x warp steps)), registers, spills and
+    resident warps per SM;
  4. main path 1: scenes/disney_spheres_flagship.json -> render_frame on
     cuda at the file's 1800x800 @ 512 spp -> finalize -> write_png, which
-    must launch B1;
+    must launch B1; its frame time, warp steps and SIMT fill;
  5. the cluster kernels in the library: B3 (wide walk) and B4 (skip walk);
  6. B3 and B4 against their plain walks on the card, on terrain_scene
     (100k and 500k triangles) with 131,072 camera, cosine-bounce and shadow
@@ -90,7 +92,15 @@ held to its plain version bit for bit, except P19 (within 2 K 2^-24
 (|A~||B~|) of its form's plain product, TF32 inputs for "default") and P27 (rtol 1e-4 of float64, the probe's gate); the count
 of differing outputs is printed for each.
 Each main path is driven with every launch counter set to 0 just before
-and read just after. The line before the card's name is the kernels JSON;
+and read just after. The line before the card's name is the kernels JSON.
+Each of its rows names in "clock" how its "ms" and "library_ms" were
+timed: "host", the host's clock around one call between two
+synchronisations (B1's frame); "events", CUDA events around calls the host
+queues one after another (one launch for B2 and P12, 20 calls for the
+others); "device", CUDA events around 20 calls queued behind a spinning
+kernel, so that the host's time to queue them does not show
+(probes.common.device_ms). "plain_ms" is always one call between CUDA
+events;
 the last line is the JSON result {"ok": true, "device": {...}}; any
 failure exits non-zero without it. A machine without CUDA fails at once.
 """
@@ -225,6 +235,24 @@ def unit_scene(device, spp, integrator, n_extra=0, floor_tris=0):
     st = ir.RenderSettings(width=64, height=48, spp=spp, max_depth=64,
                            integrator=integrator)
     return scene, st
+
+
+def fill(stats):
+    """SIMT fill of a B1 launch: segments over 32 lanes x warp steps."""
+    return stats["segments"] / max(32 * stats["warp_steps"], 1)
+
+
+def b1_report(scene, st):
+    """B1's registers, spills and resident warps per SM for this frame."""
+    from vimg_tpu_torch.render.mega import kernel
+    from vimg_tpu_torch.runtime import cuda
+    occ = kernel.occupancy(scene, st)
+    part = f"mega_kernelI8AnalyticLb{int(st.integrator == 'mis')}E"
+    return (f"B1 ({st.integrator}) {occ['registers']} registers, "
+            f"{occ['local_bytes']} B local memory a thread, "
+            f"{occ['blocks_per_sm']} blocks = {occ['warps_per_sm']} "
+            f"resident warps per SM; ptxas: "
+            f"{' | '.join(cuda.ptxas_lines(cuda.BUILD_INFO['log'], part))}")
 
 
 def compare(name, ref, img):
@@ -649,7 +677,7 @@ def b2_main_path(phase, label, scene, st, ref_img, png, png_dir, card):
     zero_counts()
     img, secs = timed(lambda: render_frame(scene, st))
     counts = read_counts()
-    segs, shadow = (int(v) for v in kernel.LAST_COUNTS.cpu())
+    segs, shadow = (int(v) for v in kernel.LAST_COUNTS[:2].cpu())
     img_np = img.cpu().numpy()
     if img_np.shape != (MESH_H, MESH_W, 3) or not np.isfinite(img_np).all():
         fail(f"{label}: image shape {img_np.shape} / non-finite")
@@ -951,17 +979,19 @@ def bits_differ(a, b):
 
 
 def probe_row(name, replaces, ms, plain_ms, ops, nbytes, err=0.0,
-              note=None, peak=FP32_OPS_PER_S, library_ms=None):
+              note=None, peak=FP32_OPS_PER_S, library_ms=None,
+              clock="device"):
     """A kernels-JSON row of a probe kernel: no render path launches it.
     ``peak`` is the card's rate for the operations' type (FP32 by
-    default)."""
+    default); ``clock`` how ``ms`` and ``library_ms`` were timed (the
+    module's docstring)."""
     t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
     t_ops = 1e3 * ops / peak
     row = {"name": name, "route": "cuda", "source": PROBE_SOURCES[name],
            "replaces": replaces, "launches": 0, "max_abs_err": err,
            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-           "library_ms": library_ms}
+           "library_ms": library_ms, "clock": clock}
     if note:
         row["note"] = note
     lib = "" if library_ms is None else f", library {library_ms:.6f} ms"
@@ -1375,6 +1405,7 @@ def vpu_probe_phase(dev):
     return [
         probe_row("probe_prims", "tools/probe_prims.py:73", ms, pms,
                   n * 4 * 22 * 2048, (1024 + 2 * 2048) * 4, max(errs),
+                  clock="events",
                   note=f"vec22 x4 at {n} steps (the plain version's size); "
                        + lat),
         probe_row("probe_fma", "tools/probe_vpu2.py:59",
@@ -1436,12 +1467,11 @@ def gather_probe_phase(dev):
     lib = {}
     for tf32 in (True, False):
         torch.backends.cuda.matmul.allow_tf32 = tf32
-        for _ in range(2):                           # warm up cuBLAS
-            torch.matmul(a, b)
-        _, lib[tf32] = event_ms(lambda: torch.matmul(a, b), TIMED_LAUNCHES)
+        lib[tf32] = common.device_ms(lambda: torch.matmul(a, b),
+                                     TIMED_LAUNCHES)
     torch.backends.cuda.matmul.allow_tf32 = False
-    log(f"    torch.matmul 256x256: TF32 {lib[True]:.6f} ms, float32 "
-        f"{lib[False]:.6f} ms")
+    log(f"    torch.matmul 256x256 (device time): TF32 {lib[True]:.6f} ms, "
+        f"float32 {lib[False]:.6f} ms")
     for n, res in r4j.items():
         table, ids, hi, mid, lo = res["inputs"]
         errs[("check", n)] = held(f"lookup check n_mats={n}", res["check"][0],
@@ -1457,20 +1487,35 @@ def gather_probe_phase(dev):
             errs[("chain", n)] = held(f"lookup chain n_mats={n}",
                                       res["chain"][0], ref)
     table, ids, hi, mid, lo = r4j[512]["inputs"]
-    _, check_ms = event_ms(lambda: j.lookup_check(ids, hi, mid, lo),
-                           TIMED_LAUNCHES)
     _, check_pms = event_ms(lambda: j.check_plain(ids, hi, mid, lo), 1)
     row_ids = ids[0].long()
-    for _ in range(2):
-        torch.index_select(table, 1, row_ids)
-    _, check_lib = event_ms(lambda: torch.index_select(table, 1, row_ids),
-                            TIMED_LAUNCHES)
+    # P22 and its library call, each as device time (launches queued
+    # behind a spinning kernel) and as the host-paced rate of back-to-back
+    # calls (CUDA events alone, the measure of earlier runs)
+    def check():
+        return j.lookup_check(ids, hi, mid, lo)
+
+    def library():
+        return torch.index_select(table, 1, row_ids)
+
+    check_ms = common.device_ms(check, TIMED_LAUNCHES)
+    check_lib = common.device_ms(library, TIMED_LAUNCHES)
+    _, check_paced = event_ms(check, TIMED_LAUNCHES)
+    _, lib_paced = event_ms(library, TIMED_LAUNCHES)
+    log(f"    P22 (lookup check, n_mats 512): device {check_ms:.6f} ms, "
+        f"torch.index_select on the float32 table {check_lib:.6f} ms "
+        f"({check_ms / check_lib:.3f}x); host-paced {check_paced:.6f} / "
+        f"{lib_paced:.6f} ms")
     tab2048, idx2048 = take[2048][0], take[2048][1]
     lanes = torch.arange(128, device=dev)
     touched = torch.unique(((idx2048.long()[None] + torch.arange(
         r.TAKE_REPS, device=dev)[:, None, None]) % 2048) * 128 + lanes)
     kpad = -(-512 // 16) * 16
     mxu_ops = j.REPS * j.ROWS * 3 * 2 * 32 * kpad * 128
+    # P22 reads its 128 ids, the hi/mid/lo columns they name and writes
+    # (ppad, 128) float32; it needs two adds an output
+    ppad, n_cols = hi.shape[0], int(torch.unique(row_ids).numel())
+    check_bytes = 128 * 4 + 3 * ppad * n_cols * 2 + ppad * 128 * 4
     lat = "latency probe at 4,096 lanes"
     return [
         probe_row("probe_take", "tools/probe_r2c.py:79", take[2048][3],
@@ -1500,11 +1545,10 @@ def gather_probe_phase(dev):
                   note=f"mxu, n_mats 512, reps {j.REPS}; chain n_mats 48 "
                        f"{r4j[48]['chain'][1]:.6f} ms"),
         probe_row("probe_lookup_check", "tools/probe_r4j.py:115", check_ms,
-                  check_pms, 3 * 2 * 32 * kpad * 128,
-                  128 * 4 + 3 * 32 * 512 * 2 + 32 * 128 * 4,
-                  peak=BF16_TC_OPS_PER_S, library_ms=check_lib,
-                  note="n_mats 512; library: torch.index_select on the "
-                       "float32 table")]
+                  check_pms, 2 * ppad * 128, check_bytes,
+                  library_ms=check_lib,
+                  note=f"n_mats 512, {n_cols} distinct ids; library: "
+                       f"torch.index_select on the float32 table")]
 
 
 def lowering_probe_phase(dev):
@@ -1642,11 +1686,14 @@ def main():
         if not (r["mean"] < UNIT_MEAN and r["frac"] < UNIT_FRAC
                 and r["corr"] > UNIT_CORR):
             fail(f"unit-scale {integ} parity")
-        for key in ("segments", "shadow_rays"):
+        for key in ("segments", "shadow_rays", "warp_steps"):
             a, b = ks[key], ps[key]
             log(f"    {key}: kernel {a} plain {b}")
             if abs(a - b) > COUNT_REL * max(b, 1):
                 fail(f"unit-scale {integ} {key} count")
+        if ks["warp_steps"] != ps["warp_steps"]:
+            fail(f"unit-scale {integ}: warp steps differ from the plain count")
+        log(f"    SIMT fill {fill(ks):.4f}; {b1_report(scene, st)}")
 
     fscene, fst = load_json_scene(FLAGSHIP, device=dev)
     fst4 = dataclasses.replace(fst, spp=4)
@@ -1658,7 +1705,10 @@ def main():
     r = compare("flagship 1800x800@4 mis", ref, img)
     log(f"    kernel {1e3 * k_s:.1f} ms, plain {1e3 * p_s:.1f} ms; "
         f"segments kernel {ks['segments']} plain {ps['segments']}, "
-        f"shadow kernel {ks['shadow_rays']} plain {ps['shadow_rays']}")
+        f"shadow kernel {ks['shadow_rays']} plain {ps['shadow_rays']}, "
+        f"warp steps kernel {ks['warp_steps']} plain {ps['warp_steps']}")
+    log(f"    SIMT fill {fill(ks):.4f} (plain count {fill(ps):.4f}); "
+        f"{b1_report(fscene, fst4)}")
     if not (r["mean"] < FLAG_MEAN and r["corr"] > FLAG_CORR):
         fail("flagship statistical parity")
     plain_mean = ref.reshape(-1, 3).mean(0).cpu().numpy()
@@ -1680,7 +1730,7 @@ def main():
     img, secs = timed(lambda: render_frame(scene, st))
     counts = read_counts()
     mega_launches = counts["megakernel_analytic"]
-    segs, shadow = (int(v) for v in kernel.LAST_COUNTS.cpu())
+    segs, shadow, steps = (int(v) for v in kernel.LAST_COUNTS.cpu())
     png_bytes = save_png(img, st.tonemap, "flagship.png", png_dir)
     img_np = img.cpu().numpy()
     if img_np.shape != (st.height, st.width, 3) or not np.isfinite(img_np).all():
@@ -1702,6 +1752,9 @@ def main():
         f"{paths / secs / 1e6:.2f} Mpaths/s, {(segs + shadow) / secs / 1e6:.2f}"
         f" Mrays/s ({segs} segments + {shadow} shadow rays), launches "
         f"{counts}, on {card}")
+    log(f"    warp steps {steps}: SIMT fill "
+        f"{fill(dict(segments=segs, warp_steps=steps)):.4f}; "
+        f"{b1_report(scene, st)}")
 
     # ---- 5. the cluster kernels -----------------------------------------
     log("[5] B3 (cluster_wide_kernel) and B4 (cluster_skip_kernel) are in "
@@ -1765,7 +1818,8 @@ def main():
         "plain_ms": 1e3 * p_s,
         "bound_ms": mega_bound,
         "bound_by": "operations",
-        "library_ms": None}]
+        "library_ms": None,
+        "clock": "host"}]
     for (n_tris, walk, name), line in zip(
             TERRAINS, ("vimg_tpu/geometry/cluster_trace.py:455",
                        "vimg_tpu/geometry/cluster_trace.py:800")):
@@ -1782,7 +1836,8 @@ def main():
             "plain_ms": c["plain_ms"],
             "bound_ms": c["bound_ms"],
             "bound_by": c["bound_by"],
-            "library_ms": None})
+            "library_ms": None,
+            "clock": "events"})
     rows.append({
         "name": "megakernel_mesh",
         "route": "cuda",
@@ -1795,15 +1850,17 @@ def main():
         "plain_ms": b2["plain_ms"],
         "bound_ms": b2["bound_ms"],
         "bound_by": b2["bound_by"],
-        "library_ms": None})
+        "library_ms": None,
+        "clock": "events"})
     rows.append(dict(b5, name="packet_trace", route="cuda",
                      source="vimg_tpu_torch/csrc/packet_trace.cu",
                      replaces="vimg_tpu/geometry/packet_trace.py:267",
-                     library_ms=None))
+                     library_ms=None, clock="events"))
     # the launcher of the device helper vimg_tpu_torch/csrc/gather_row.cuh
     rows.append(dict(b6, name="gather_row", route="cuda",
                      source="vimg_tpu_torch/csrc/gather_row.cu",
-                     replaces="vimg_tpu/ops/mxu_gather.py:57"))
+                     replaces="vimg_tpu/ops/mxu_gather.py:57",
+                     clock="events"))
     rows += probes
     log(json.dumps({"kernels": rows}))
     log(card)

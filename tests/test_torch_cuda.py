@@ -29,7 +29,8 @@ from vimg_tpu_torch.scene.json_loader import SceneBuilder
 from vimg_tpu_torch.scene.synthetic import terrain_mesh, terrain_scene
 
 
-def _unit_scene(device, integrator, spp=8, n_extra=0, floor_tris=0):
+def _unit_scene(device, integrator, spp=8, n_extra=0, floor_tris=0,
+                width=32, height=24):
     """Red Lambertian, glass and an emissive sphere, plus ``n_extra``
     small spheres (257 make the megakernel refuse the scene) and a terrain
     floor of ``floor_tris`` triangles below them."""
@@ -47,10 +48,10 @@ def _unit_scene(device, integrator, spp=8, n_extra=0, floor_tris=0):
         verts, tris = terrain_mesh(floor_tris)
         b.add_mesh(verts - np.float32([0, 2.5, 0]), tris, red)
     cam = dict(cam2world=look_at([0, 0, 6], [0.7, 0, 0], [0, 1, 0]),
-               width=32, height=24, vfov_deg=45.0)
+               width=width, height=height, vfov_deg=45.0)
     return (b.build(camera=cam, device=device),
-            ir.RenderSettings(width=32, height=24, spp=spp, max_depth=64,
-                              integrator=integrator))
+            ir.RenderSettings(width=width, height=height, spp=spp,
+                              max_depth=64, integrator=integrator))
 
 
 @pytest.fixture
@@ -74,6 +75,37 @@ def test_kernel_matches_plain_on_card(cuda, integrator):
     assert d.mean() < 1e-4 and (d.max(-1) > 1e-5).mean() < 0.01
     assert ks["segments"] == ps["segments"]
     assert ks["shadow_rays"] == ps["shadow_rays"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("integrator", ["mis", "material"])
+def test_kernel_warp_steps_match_plain_on_card(cuda, integrator):
+    """B1's flat loop runs, per group of 32 pixels, as many iterations as
+    the group's busiest pixel has segments: its warp-step counter equals
+    the plain version's count from the per-path segments, as do the ray
+    counts."""
+    scene, st = _unit_scene(cuda, integrator, spp=16, width=64, height=48)
+    _, ks = kernel.render_megakernel(scene, st, return_stats=True)
+    _, ps = kernel.render_megakernel_plain(scene, st, return_stats=True)
+    for key in ("segments", "shadow_rays", "warp_steps"):
+        assert ks[key] == ps[key], key
+    assert 0.5 < ks["segments"] / (32 * ks["warp_steps"]) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("integrator", ["mis", "material"])
+def test_kernel_film_independent_of_grid(cuda, integrator):
+    """The persistent grid's size decides only which warp shades which
+    pixel group: one block per SM and the full resident grid give the same
+    film bit for bit, and the same counts. At 256 x 192 the frame's 1,536
+    groups need more warps than one block per SM holds."""
+    scene, st = _unit_scene(cuda, integrator, spp=4, width=256, height=192)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    a, sa = kernel._launch(scene, st, return_stats=True, blocks=sms)
+    b, sb = kernel._launch(scene, st, return_stats=True)
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    for key in ("segments", "shadow_rays", "warp_steps"):
+        assert sa[key] == sb[key], key
 
 
 @pytest.mark.cuda

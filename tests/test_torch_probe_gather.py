@@ -223,3 +223,82 @@ def test_probe_entry_points_on_cpu():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cpu"):
             r2c.gather_take(8)
+
+
+def _one_hot_products(ids8, term, tiles):
+    """(ppad, 8): the one-hot product of one bf16 table term with 8 ids as
+    kernel P22's mma.sync steps form it: a +0 float32 accumulator, then
+    for each k-tile of 16 materials in ``tiles`` (in order) its 16
+    products added in k order (each exact: a bf16 value times 0 or 1);
+    columns past npad read as zeros."""
+    ppad, npad = term.shape
+    kpad = -(-npad // 16) * 16
+    a = torch.zeros(ppad, kpad)
+    a[:, :npad] = term.float()
+    d = torch.zeros(ppad, 8)
+    for kt in tiles:
+        for k in range(16 * kt, 16 * kt + 16):
+            d = d + a[:, k, None] * (ids8 == k).float()[None, :]
+    return d
+
+
+def _lookup_model(ids_row, hi, mid, lo, skip):
+    """Kernel P22 on the CPU: per group of 8 lanes, the three products
+    over the k-tiles the group's ids touch (``skip``) or over every
+    k-tile, then (hi + mid) + lo in float32."""
+    ppad, npad = hi.shape
+    ids = ids_row.long()
+    out = torch.empty(ppad, 128)
+    for n0 in range(0, 128, 8):
+        ids8 = ids[n0:n0 + 8]
+        tiles = (sorted(set((ids8 // 16).tolist())) if skip
+                 else range(-(-npad // 16)))
+        assert len(tiles) <= 8 or not skip
+        d = [_one_hot_products(ids8, t, tiles) for t in (hi, mid, lo)]
+        out[:, n0:n0 + 8] = (d[0] + d[1]) + d[2]
+    return out
+
+
+def _lookup_case(n_mats, seed):
+    """A (32, n_mats) table with -0.0, +0.0, values whose bits reach below
+    each bf16 term (three non-zero terms), a tiny normal and a subnormal
+    that bf16 holds (split3 is exact down to 2^-133);
+    ids with tile edges, a group of 8 in one tile, the last material,
+    and random ids."""
+    rs = np.random.RandomState(seed)
+    table = rs.randn(32, n_mats).astype(np.float32)
+    special = np.float32([-0.0, 0.0, 1 + 2 ** -9 + 2 ** -17,
+                          -(1 + 2 ** -23), 1.5 * 2 ** -126, 2 ** -130,
+                          -3.0 + 2 ** -20])
+    for k, v in enumerate(special):
+        table[k::len(special), (7 * k) % n_mats] = v
+    table[:, 15] = -0.0
+    table[3, 16] = 0.0
+    ids = rs.randint(0, n_mats, 128).astype(np.int32)
+    ids[:8] = [15, 16, 15, 16, n_mats - 1, 0, 17, 31]
+    ids[8:16] = 32 + np.arange(8) % (n_mats - 32)    # one tile
+    ids[16:24] = [(7 * k) % n_mats for k in range(len(special))] + [15]
+    return torch.from_numpy(table), torch.from_numpy(ids)[None]
+
+
+@pytest.mark.parametrize("n_mats", [48, 512])
+def test_lookup_tile_skipping_is_exact(n_mats):
+    """Multiplying only the k-tiles a warp's ids touch (P22's design)
+    gives every output bit of the dense product and of check_plain. A
+    table entry of -0.0 comes back +0.0 from every form (equal as a
+    value, as the tool's np.array_equal counts it); every other entry
+    comes back with its own bits."""
+    for seed in range(2):
+        table, ids = _lookup_case(n_mats, seed)
+        hi, mid, lo = r4j.split3(table)
+        skip = _lookup_model(ids[0], hi, mid, lo, skip=True)
+        dense = _lookup_model(ids[0], hi, mid, lo, skip=False)
+        plain = r4j.check_plain(ids, hi, mid, lo)
+        want = table[:, ids[0].long()]
+        _same(skip, dense.numpy())
+        _same(skip, plain.numpy())
+        assert torch.equal(skip, want)
+        differ = bits(skip.numpy()) != bits(want.numpy())
+        neg_zero = bits(want.numpy()) == np.int32(-2 ** 31)
+        assert neg_zero.any() and np.array_equal(differ, neg_zero)
+        assert torch.equal(r4j.lookup_check(ids, hi, mid, lo), plain)

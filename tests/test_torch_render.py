@@ -110,6 +110,33 @@ def test_ray_counts(renders, name):
         assert stats["shadow_rays"] == 0
 
 
+@pytest.mark.parametrize("name", ["unit_mis", "unit_material",
+                                  "flagship_mis"])
+def test_plain_warp_steps(name):
+    """The plain version's warp steps, the analytic kernel's third counter:
+    for each group of 32 consecutive pixels, the largest per-pixel sum of
+    path segments, summed over groups; held to a brute-force loop over the
+    per-pixel sums the integrator reports, whose sum is the segment
+    count."""
+    from vimg_tpu_torch.render.render import render
+    js, st = {"unit_mis": lambda: _unit_scene(8, "mis"),
+              "unit_material": lambda: _unit_scene(8, "material"),
+              "flagship_mis": _flagship_small}[name]()
+    ts, tst = _port(js, st)
+    _, stats = tkernel.render_megakernel(ts, tst, return_stats=True)
+    n_pix = tst.width * tst.height
+    lens = {"pixel_segments": torch.zeros(n_pix, dtype=torch.int64)}
+    render(ts, tst, stats=lens, tracer=tkernel.plain_tracer(ts))
+    per_pixel = lens["pixel_segments"].tolist()
+    steps = 0
+    for g0 in range(0, n_pix, 32):
+        steps += max(per_pixel[g0:g0 + 32])
+    assert stats["warp_steps"] == steps
+    assert sum(per_pixel) == stats["segments"] == lens["segments"]
+    # every path traces at least its camera ray
+    assert min(per_pixel) >= tst.spp and steps * 32 >= stats["segments"]
+
+
 def test_sample_offset_slabs_compose():
     """Two half-spp slabs at offsets 0 and spp/2 average to the full
     render (same RNG streams); only the accumulation grouping differs."""

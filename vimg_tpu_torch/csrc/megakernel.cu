@@ -17,9 +17,17 @@
 //   VMEM residency and per-leaf DMA streaming have no counterpart: every
 //   table lives in global memory.
 //
-// Design: one thread per pixel. Each thread runs its pixel's spp paths back
-// to back, each path to termination, and sums them in sample order into a
-// register accumulator (the TPU lane's `acc`). One integrator body serves
+// Design: persistent warps over pixel groups, one lane a pixel. The launch
+// holds the card's resident blocks; each warp takes groups of 32 pixels
+// (consecutive in analytic mode, an 8 x 4 tile in mesh mode) from a global
+// counter. Within a group a lane runs its pixel's spp paths in sample order
+// through a flat loop: each iteration traces one closest-hit segment (with
+// its NEE shadow ray and BSDF sample) on every lane that has work, and a
+// lane whose path ends adds it to the pixel's sum and starts its next
+// sample at the next iteration (the TPU kernel's per-lane regeneration,
+// kernel.py:1651-1671). So a warp runs as many iterations for a group as
+// its busiest lane has segments, not the sum over samples of each sample's
+// longest path. One integrator body serves
 // both modes, templated on the geometry policy. Every step follows the
 // plain PyTorch version (vimg_tpu_torch/render/integrators.py, a port of
 // vimg_tpu/render/integrators.py, over the SoA tracer in analytic mode and
@@ -40,18 +48,14 @@
 //
 // What bounds it on this card. Analytic mode: the scene tables are a few
 // KB (<= 64 tris, <= 256 spheres/materials/lights) and stay in L1/L2, so
-// memory traffic is negligible. The limits are registers (a Disney sample
-// plus two evaluations per segment in one thread; spills go to local
-// memory) and divergence (paths in a warp terminate at different depths
-// and pick different lobes). Mesh mode adds the walk: each node step loads
-// a node that depends on the previous one (latency), and the rays of a
-// warp visit different nodes (divergence), as in B3/B4; the walk state
+// memory traffic is negligible. The limits are registers (a Disney sample plus two
+// evaluations per segment in one thread; spills go to local memory) and
+// divergence: lanes pick different lobes within an iteration, and a group
+// waits for its busiest pixel. Mesh mode adds the walk: each node step
+// loads a node that depends on the previous one (latency), and the rays of
+// a warp visit different nodes (divergence), as in B3/B4; the walk state
 // adds registers to B1's. The 100k and 500k terrains' tables (about 16 and
-// 78 MB with the per-triangle shading rows) meet the 50 MB L2. The mesh
-// mode shades 16 x 8 pixel tiles per block so a warp's rays start
-// coherent; nothing else is done about latency, divergence or the tail of
-// long paths (one launch of W*H threads, about 1.5 waves at 512 x 256):
-// speed is later work.
+// 78 MB with the per-triangle shading rows) meet the 50 MB L2.
 //
 // Launch contract: vimg_mega_render() and vimg_mega_render_mesh() launch
 // on the given stream, do not synchronise and allocate nothing; they return
@@ -356,8 +360,14 @@ __device__ HitInfo hit_info(const Tables& S, V3 ro, V3 rd, const Hit& h) {
 
 // analytic mode (B1): every triangle and sphere tested densely in one loop
 struct Analytic {
-  static constexpr int kStats = 2;  // segments, shadow rays
-  static constexpr bool kTiled = false;  // thread i shades pixel i
+  static constexpr int kStats = 3;  // segments, shadow rays, warp steps
+  static constexpr bool kTiled = false;  // groups of 32 consecutive pixels
+  static constexpr bool kFlat = true;    // the flat loop (mega_kernel)
+  // __launch_bounds__'s minimum blocks per SM: 12 cap B1 at 40 registers,
+  // and 48 resident warps per SM hide the latency of its spills and of its
+  // dependent loads better than 16 warps without spills (the measured
+  // table of build variants in PERF_APPENDIX.md)
+  static constexpr int kMinBlocks = 12;
   __device__ static Hit closest(const Tables& S, V3 ro, V3 rd, float minT,
                                 float maxT, cwalk::Tests&) {
     return trace(S, ro, rd, minT, maxT, false);
@@ -378,7 +388,12 @@ struct Analytic {
 // sphere wins only on a strictly smaller t
 struct Mesh {
   static constexpr int kStats = 4;  // + box tests, triangle tests
-  static constexpr bool kTiled = true;   // 2D pixel tiles (thread_pixel)
+  static constexpr bool kTiled = true;   // 8 x 4 pixel tiles
+  // the per-sample loop: all lanes of a warp on the same sample keep the
+  // walk coherent (the flat loop measured about 20% slower on a 64-spp
+  // material frame, PERF.md)
+  static constexpr bool kFlat = false;
+  static constexpr int kMinBlocks = 1;
   __device__ static cwalk::Hit walk(const Tables& S, V3 ro, V3 rd,
                                     float minT, float maxT, bool any_hit,
                                     cwalk::Tests& n) {
@@ -995,150 +1010,205 @@ __device__ __forceinline__ float scrub_naninf(float a) {
 }
 
 // Per-thread counters: closest-hit segments and shadow rays (both modes),
-// walk box and triangle tests (mesh mode)
+// warp steps (kept by lane 0 of each warp), walk box and triangle tests
+// (mesh mode)
 struct Counts {
-  unsigned long long seg, shadow;
+  unsigned long long seg, shadow, steps;
   cwalk::Tests walk;
 };
 
-// One MIS path (integrators.mis_integrator_loop)
-template <class G>
-__device__ V3 mis_path(const Tables& S, int pix, uint32_t samp, Counts& c) {
-  const float inf = __int_as_float(0x7f800000);
-  V3 bg = ld3(S.cam + 17);
-  V3 ro, rd;
-  primary_ray(S, pix, samp, ro, rd);
-  c.seg += 1;
-  Hit h = G::closest(S, ro, rd, MIN_T, inf, c.walk);
-  if (h.id < 0) return bg;
-  HitInfo hi = G::info(S, ro, rd, h);
-  Mat mat = load_mat(S, hi.mat);
-  if (mat.type == MAT_DIFFUSE_LIGHT) return emitted(mat, rd, hi.ns);
+// ---------------------------------------------------------------------------
+// the path loop: one closest-hit segment per lane per iteration
+// ---------------------------------------------------------------------------
 
-  V3 result = v3(0.0f, 0.0f, 0.0f);
-  V3 tp = v3(1.0f, 1.0f, 1.0f);
-  bool non_spec = false;
-  float eta_scale = 1.0f;
+// Per-lane state between iterations. A path in flight holds the ray its
+// next segment traces (a bounce: ro is the last hit point, rd the sampled
+// direction) and what that segment's MIS weights need (pdf2, w_one); the
+// hit's shading data (HitInfo, Mat) lives only inside an iteration.
+struct Lane {
+  V3 ro, rd;
+  V3 tp, result;    // the path's throughput and radiance so far
+  V3 acc;           // the pixel's sum of its finished samples, in order
+  float eta_scale, pdf2;
+  int m, d;         // sample index (spp: the lane is done), depth
+  bool fresh;       // the next segment is sample m's camera ray
+  bool non_spec, w_one;
+};
+
+// A path ended with radiance res: add it to the pixel, start sample m + 1
+__device__ __forceinline__ void end_path(Lane& L, V3 res) {
+  L.acc = L.acc + res;
+  L.m += 1;
+  L.fresh = true;
+}
+
+// One segment of an MIS path (integrators.mis_integrator_loop, cut at its
+// closest-hit traces). A fresh path traces its camera ray and keeps the
+// two early exits (background, an emissive first hit) that add no MIS
+// weight; a bounce traces from the last hit, weights an emitter or
+// background hit, and plays roulette with key d before d advances. A path
+// that goes on then shades its new hit at depth d (NEE shadow ray, BSDF
+// sample) and keeps the next ray.
+template <class G>
+__device__ __forceinline__ void mis_step(const Tables& S, int pix, Lane& L,
+                                         Counts& c) {
+  const float inf = __int_as_float(0x7f800000);
+  const uint32_t samp = (uint32_t)(L.m + S.sample_offset);
   const float nl = (float)(S.nl > 1 ? S.nl : 1);
-  for (int d = 0; d < S.max_depth; ++d) {
-    bool mat_delta = mat.type == MAT_DIELECTRIC;
-    // ---- light sampling (NEE) ----
-    if (S.nl > 0) {
-      U4 l = uniform4((uint32_t)pix, samp, (uint32_t)d, DRAW_LIGHT_SAMPLE);
-      LightSample ls = sample_lights(S, hi.p, l.a, l.b, l.c);
-      if (!mat_delta && ls.pdf != 0.0f) {
-        c.shadow += 1;
-        float shadow_max = isfinite(ls.dist) ? ls.dist - SHADOW_EPS : inf;
-        if (!G::occluded(S, hi.p, ls.wi, MIN_T, shadow_max, c.walk)) {
-          V3 f;
-          float mpdf;
-          eval_pdf(mat, S.flags, rd, ls.wi, hi, non_spec, f, mpdf);
-          if (mpdf != 0.0f && !isnanf_(mpdf)) {
-            float w = balance(ls.pdf, mpdf * ls.G);
-            V3 contrib = tp * f * ls.rad * (w * ls.G / jmax(ls.pdf, 1e-20f));
-            result = result + scrub_nan(contrib);
-          }
+  if (L.fresh) primary_ray(S, pix, samp, L.ro, L.rd);
+  c.seg += 1;
+  Hit h = G::closest(S, L.ro, L.rd, MIN_T, inf, c.walk);
+  if (h.id < 0) {
+    V3 bg = ld3(S.cam + 17);
+    if (L.fresh) {
+      end_path(L, bg);
+      return;
+    }
+    if (S.flags & F_BG_EMISSIVE) {
+      float w_bg = L.w_one ? 1.0f : balance(L.pdf2, K_INV_4PI / nl);
+      L.result = L.result + L.tp * w_bg * bg;
+    }
+    end_path(L, L.result);
+    return;
+  }
+  HitInfo hi = G::info(S, L.ro, L.rd, h);
+  Mat mat = load_mat(S, hi.mat);
+  if (mat.type == MAT_DIFFUSE_LIGHT) {
+    V3 em = emitted(mat, L.rd, hi.ns);
+    if (L.fresh) {
+      end_path(L, em);
+      return;
+    }
+    float light_pdf = surf_pdf(S, h.id, L.ro, hi.p, L.rd) / nl;
+    V3 gd = L.ro - hi.p;
+    float dist2 = jmax(dot(gd, gd), 1e-20f);
+    float G2 = fabsf(dot(hi.ng, normalize(gd))) / dist2;
+    // pdf2*G2 can overflow to inf; the clamp keeps the weight -> 1
+    float w_hit = L.w_one ? 1.0f : balance(jmin(L.pdf2 * G2, 1e30f), light_pdf);
+    L.result = L.result + L.tp * w_hit * em;
+    end_path(L, L.result);
+    return;
+  }
+  if (L.fresh) {
+    L.result = v3(0.0f, 0.0f, 0.0f);
+    L.tp = v3(1.0f, 1.0f, 1.0f);
+    L.non_spec = false;
+    L.eta_scale = 1.0f;
+    L.d = 0;
+    L.fresh = false;
+  } else {
+    // russian roulette after the bounce hit a non-light surface
+    if (L.d > ROULETTE_THRESHOLD) {
+      U4 rr = uniform4((uint32_t)pix, samp, (uint32_t)L.d, DRAW_ROULETTE);
+      if (!roulette(L.tp, L.eta_scale, rr.a)) {
+        end_path(L, L.result);
+        return;
+      }
+    }
+    L.d += 1;
+  }
+  if (L.d >= S.max_depth) {
+    end_path(L, L.result);
+    return;
+  }
+  // ---- shade the hit at depth d: light sampling (NEE) ----
+  const int d = L.d;
+  bool mat_delta = mat.type == MAT_DIELECTRIC;
+  if (S.nl > 0) {
+    U4 l = uniform4((uint32_t)pix, samp, (uint32_t)d, DRAW_LIGHT_SAMPLE);
+    LightSample ls = sample_lights(S, hi.p, l.a, l.b, l.c);
+    if (!mat_delta && ls.pdf != 0.0f) {
+      c.shadow += 1;
+      float shadow_max = isfinite(ls.dist) ? ls.dist - SHADOW_EPS : inf;
+      if (!G::occluded(S, hi.p, ls.wi, MIN_T, shadow_max, c.walk)) {
+        V3 f;
+        float mpdf;
+        eval_pdf(mat, S.flags, L.rd, ls.wi, hi, L.non_spec, f, mpdf);
+        if (mpdf != 0.0f && !isnanf_(mpdf)) {
+          float w = balance(ls.pdf, mpdf * ls.G);
+          V3 contrib = L.tp * f * ls.rad * (w * ls.G / jmax(ls.pdf, 1e-20f));
+          L.result = L.result + scrub_nan(contrib);
         }
       }
     }
-    // ---- BSDF sampling ----
-    U4 b = uniform4((uint32_t)pix, samp, (uint32_t)d, DRAW_BSDF_SAMPLE);
-    Scatter sc = sample_mat(mat, S.flags, rd, hi, b, non_spec);
-    bool cont = sc.valid;
-    non_spec = non_spec || (cont && !sc.is_spec);
-    if (sc.eta != 0.0f) eta_scale = eta_scale / (sc.eta * sc.eta);
-    V3 f2;
-    float pdf2;
-    eval_pdf(mat, S.flags, rd, sc.wo, hi, non_spec, f2, pdf2);
-    cont = cont && !isnanf_(pdf2);
-    if (!cont) break;
-    V3 ratio;
-    if (mat_delta) {
-      ratio = v3(1.0f, 1.0f, 1.0f);
-    } else {
-      float den = jmax(pdf2, 1e-20f);
-      ratio = v3(scrub_naninf(f2.x / den), scrub_naninf(f2.y / den),
-                 scrub_naninf(f2.z / den));
-    }
-    tp = tp * ratio;
-
-    // ---- next bounce ----
-    V3 nro = hi.p, nrd = sc.wo;
-    c.seg += 1;
-    Hit h2 = G::closest(S, nro, nrd, MIN_T, inf, c.walk);
-    bool w_one = mat_delta || pdf2 == 0.0f;
-    if (h2.id < 0) {
-      if (S.flags & F_BG_EMISSIVE) {
-        float w_bg = w_one ? 1.0f : balance(pdf2, K_INV_4PI / nl);
-        result = result + tp * w_bg * bg;
-      }
-      break;
-    }
-    HitInfo hi2 = G::info(S, nro, nrd, h2);
-    Mat mat2 = load_mat(S, hi2.mat);
-    if (mat2.type == MAT_DIFFUSE_LIGHT) {
-      V3 em = emitted(mat2, nrd, hi2.ns);
-      float light_pdf = surf_pdf(S, h2.id, nro, hi2.p, nrd) / nl;
-      V3 gd = nro - hi2.p;
-      float dist2 = jmax(dot(gd, gd), 1e-20f);
-      float G2 = fabsf(dot(hi2.ng, normalize(gd))) / dist2;
-      // pdf2*G2 can overflow to inf; the clamp keeps the weight -> 1
-      float w_hit = w_one ? 1.0f : balance(jmin(pdf2 * G2, 1e30f), light_pdf);
-      result = result + tp * w_hit * em;
-      break;
-    }
-    // russian roulette after the bounce hit a non-light surface
-    if (d > ROULETTE_THRESHOLD) {
-      U4 rr = uniform4((uint32_t)pix, samp, (uint32_t)d, DRAW_ROULETTE);
-      if (!roulette(tp, eta_scale, rr.a)) break;
-    }
-    rd = nrd;
-    hi = hi2;
-    mat = mat2;
   }
-  return result;
+  // ---- BSDF sampling ----
+  U4 b = uniform4((uint32_t)pix, samp, (uint32_t)d, DRAW_BSDF_SAMPLE);
+  Scatter sc = sample_mat(mat, S.flags, L.rd, hi, b, L.non_spec);
+  bool cont = sc.valid;
+  L.non_spec = L.non_spec || (cont && !sc.is_spec);
+  if (sc.eta != 0.0f) L.eta_scale = L.eta_scale / (sc.eta * sc.eta);
+  V3 f2;
+  float pdf2;
+  eval_pdf(mat, S.flags, L.rd, sc.wo, hi, L.non_spec, f2, pdf2);
+  cont = cont && !isnanf_(pdf2);
+  if (!cont) {
+    end_path(L, L.result);
+    return;
+  }
+  V3 ratio;
+  if (mat_delta) {
+    ratio = v3(1.0f, 1.0f, 1.0f);
+  } else {
+    float den = jmax(pdf2, 1e-20f);
+    ratio = v3(scrub_naninf(f2.x / den), scrub_naninf(f2.y / den),
+               scrub_naninf(f2.z / den));
+  }
+  L.tp = L.tp * ratio;
+  L.pdf2 = pdf2;
+  L.w_one = mat_delta || pdf2 == 0.0f;
+  L.ro = hi.p;
+  L.rd = sc.wo;
 }
 
-// One material-integrator path (integrators.material_integrator_loop)
+// One segment of a material-integrator path: one iteration of
+// integrators.material_integrator_loop
 template <class G>
-__device__ V3 material_path(const Tables& S, int pix, uint32_t samp,
-                            Counts& c) {
+__device__ __forceinline__ void material_step(const Tables& S, int pix,
+                                              Lane& L, Counts& c) {
   const float inf = __int_as_float(0x7f800000);
-  V3 bg = ld3(S.cam + 17);
-  V3 ro, rd;
-  primary_ray(S, pix, samp, ro, rd);
-  V3 result = v3(0.0f, 0.0f, 0.0f);
-  V3 tp = v3(1.0f, 1.0f, 1.0f);
-  bool non_spec = false;
-  float eta_scale = 1.0f;
-  for (int d = 0; d < S.max_depth; ++d) {
-    c.seg += 1;
-    Hit h = G::closest(S, ro, rd, MIN_T, inf, c.walk);
-    if (h.id < 0) {
-      result = result + tp * bg;
-      break;
-    }
-    HitInfo hi = G::info(S, ro, rd, h);
-    Mat mat = load_mat(S, hi.mat);
-    V3 em = emitted(mat, rd, hi.ns);
-    U4 b = uniform4((uint32_t)pix, samp, (uint32_t)d, DRAW_BSDF_SAMPLE);
-    Scatter sc = sample_mat(mat, S.flags, rd, hi, b, non_spec);
-    if (!sc.valid) {
-      result = result + tp * em;
-      break;
-    }
-    non_spec = non_spec || !sc.is_spec;
-    if (sc.eta != 0.0f) eta_scale = eta_scale / (sc.eta * sc.eta);
-    V3 ratio = eval_div_pdf(mat, S.flags, rd, sc.wo, hi, non_spec);
-    tp = tp * (em + ratio);
-    if (d > ROULETTE_THRESHOLD) {
-      U4 rr = uniform4((uint32_t)pix, samp, (uint32_t)d, DRAW_ROULETTE);
-      if (!roulette(tp, eta_scale, rr.a)) break;
-    }
-    ro = hi.p;
-    rd = sc.wo;
+  const uint32_t samp = (uint32_t)(L.m + S.sample_offset);
+  if (L.fresh) {
+    primary_ray(S, pix, samp, L.ro, L.rd);
+    L.result = v3(0.0f, 0.0f, 0.0f);
+    L.tp = v3(1.0f, 1.0f, 1.0f);
+    L.non_spec = false;
+    L.eta_scale = 1.0f;
+    L.d = 0;
+    L.fresh = false;
   }
-  return result;
+  c.seg += 1;
+  Hit h = G::closest(S, L.ro, L.rd, MIN_T, inf, c.walk);
+  if (h.id < 0) {
+    L.result = L.result + L.tp * ld3(S.cam + 17);
+    end_path(L, L.result);
+    return;
+  }
+  HitInfo hi = G::info(S, L.ro, L.rd, h);
+  Mat mat = load_mat(S, hi.mat);
+  V3 em = emitted(mat, L.rd, hi.ns);
+  U4 b = uniform4((uint32_t)pix, samp, (uint32_t)L.d, DRAW_BSDF_SAMPLE);
+  Scatter sc = sample_mat(mat, S.flags, L.rd, hi, b, L.non_spec);
+  if (!sc.valid) {
+    L.result = L.result + L.tp * em;
+    end_path(L, L.result);
+    return;
+  }
+  L.non_spec = L.non_spec || !sc.is_spec;
+  if (sc.eta != 0.0f) L.eta_scale = L.eta_scale / (sc.eta * sc.eta);
+  V3 ratio = eval_div_pdf(mat, S.flags, L.rd, sc.wo, hi, L.non_spec);
+  L.tp = L.tp * (em + ratio);
+  if (L.d > ROULETTE_THRESHOLD) {
+    U4 rr = uniform4((uint32_t)pix, samp, (uint32_t)L.d, DRAW_ROULETTE);
+    if (!roulette(L.tp, L.eta_scale, rr.a)) {
+      end_path(L, L.result);
+      return;
+    }
+  }
+  L.ro = hi.p;
+  L.rd = sc.wo;
+  L.d += 1;
+  if (L.d >= S.max_depth) end_path(L, L.result);
 }
 
 // ---------------------------------------------------------------------------
@@ -1146,67 +1216,114 @@ __device__ V3 material_path(const Tables& S, int pix, uint32_t samp,
 // ---------------------------------------------------------------------------
 
 #define BLOCK 128
-// mesh mode: a block shades a 16 x 8 pixel tile, each warp an 8 x 4 part
-// of it, so that the rays of a warp start close together and walk similar
-// nodes (the TPU kernel's TILE_W pixel tiles serve the same end)
-#define TILE_W 16
-#define TILE_H 8
+#define WARPS (BLOCK / 32)
+#define FULL_MASK 0xffffffffu
 
-// The pixel of this thread, or -1 outside the image
+// Pixel groups: a warp shades one group of 32 pixels at a time, lane i
+// one pixel, and takes its next group when every lane is done.
+// - analytic mode: 32 consecutive pixels;
+// - mesh mode: an 8 x 4 tile, so that the rays of a warp start close
+//   together and walk similar nodes (the TPU kernel's TILE_W pixel tiles
+//   serve the same end).
+#define GROUP_W 8
+#define GROUP_H 4
+
 template <class G>
-__device__ __forceinline__ int thread_pixel(const Tables& S) {
+__host__ __device__ __forceinline__ int n_groups(const Tables& S) {
+  if constexpr (!G::kTiled) return (S.W * S.H + 31) / 32;
+  return ((S.W + GROUP_W - 1) / GROUP_W) * ((S.H + GROUP_H - 1) / GROUP_H);
+}
+
+// The pixel of this lane in group g, or -1 outside the image
+template <class G>
+__device__ __forceinline__ int group_pixel(const Tables& S, int g, int lane) {
   if constexpr (!G::kTiled) {
-    int pix = blockIdx.x * BLOCK + threadIdx.x;
+    int pix = g * 32 + lane;
     return pix < S.W * S.H ? pix : -1;
   }
-  int tiles_x = (S.W + TILE_W - 1) / TILE_W;
-  int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  int x = (blockIdx.x % tiles_x) * TILE_W + (warp & 1) * 8 + (lane & 7);
-  int row = (blockIdx.x / tiles_x) * TILE_H + (warp >> 1) * 4 + (lane >> 3);
+  int groups_x = (S.W + GROUP_W - 1) / GROUP_W;
+  int x = (g % groups_x) * GROUP_W + (lane % GROUP_W);
+  int row = (g / groups_x) * GROUP_H + lane / GROUP_W;
   return (x < S.W && row < S.H) ? row * S.W + x : -1;
 }
 
-template <class G>
-__global__ void __launch_bounds__(BLOCK)
+// Persistent warps: the launch holds as many blocks as are resident on the
+// card at once; each warp takes pixel groups from the global counter
+// next_group (zeroed by the caller), one atomic per group, until none is
+// left. Within a group each lane runs its pixel's spp paths in sample
+// order, one segment an iteration. With the flat loop (G::kFlat) a lane
+// whose path ends adds it to the pixel's sum and starts its next sample at
+// the next iteration, so the warp runs max over lanes of (the lane's
+// segments) iterations for the group. Otherwise (the per-sample loop) it
+// waits until every lane has ended the same sample, and the warp runs the
+// sum over samples of the sample's longest path. Either way each pixel's
+// film value is its samples' sum in sample order, whoever shades the
+// group. The analytic kernel adds each group's iterations to stats[2]
+// (warp steps).
+template <class G, bool kMis>
+__global__ void __launch_bounds__(BLOCK, G::kMinBlocks)
 mega_kernel(Tables S, float* __restrict__ film,
-            unsigned long long* __restrict__ stats) {
+            unsigned long long* __restrict__ stats,
+            unsigned int* __restrict__ next_group) {
   constexpr int NS = G::kStats;
   __shared__ unsigned long long s_stats[NS];
   if (threadIdx.x < NS) s_stats[threadIdx.x] = 0ull;
   __syncthreads();
-  int pix = thread_pixel<G>(S);
+  const int lane = threadIdx.x & 31;
+  const int groups = n_groups<G>(S);
   Counts c;
   c.seg = 0ull;
   c.shadow = 0ull;
+  c.steps = 0ull;
   c.walk.box = 0u;
   c.walk.tri = 0u;
-  if (pix >= 0) {
-    V3 acc = v3(0.0f, 0.0f, 0.0f);
-    bool mis = (S.flags & F_MIS) != 0;
-    for (int m = 0; m < S.spp; ++m) {
-      uint32_t samp = (uint32_t)(m + S.sample_offset);
-      V3 res = mis ? mis_path<G>(S, pix, samp, c)
-                   : material_path<G>(S, pix, samp, c);
-      acc = acc + res;
+  for (;;) {
+    int g = 0;
+    if (lane == 0) g = (int)atomicAdd(next_group, 1u);
+    g = __shfl_sync(FULL_MASK, g, 0);
+    if (g >= groups) break;
+    const int pix = group_pixel<G>(S, g, lane);
+    Lane L;
+    L.acc = v3(0.0f, 0.0f, 0.0f);
+    L.fresh = true;
+    // a material path of max_depth <= 0 traces nothing and adds +0
+    L.m = (pix < 0 || (!kMis && S.max_depth <= 0)) ? S.spp : 0;
+    for (;;) {
+      bool work = L.m < S.spp;
+      if (!__any_sync(FULL_MASK, work)) break;
+      if constexpr (!G::kFlat) {
+        bool between = __all_sync(FULL_MASK, L.fresh || !work);
+        work = work && (between || !L.fresh);
+      }
+      if (work) {
+        if (kMis)
+          mis_step<G>(S, pix, L, c);
+        else
+          material_step<G>(S, pix, L, c);
+      }
+      if (lane == 0) c.steps += 1;
     }
-    film[3 * pix + 0] = acc.x;
-    film[3 * pix + 1] = acc.y;
-    film[3 * pix + 2] = acc.z;
+    if (pix >= 0) {
+      film[3 * pix + 0] = L.acc.x;
+      film[3 * pix + 1] = L.acc.y;
+      film[3 * pix + 2] = L.acc.z;
+    }
   }
   // per-block counter reduction: warp shuffle, shared atomics, one global
   // atomic per counter per block
   unsigned long long v[NS];
   v[0] = c.seg;
   v[1] = c.shadow;
-  if constexpr (NS > 2) {
+  if constexpr (NS == 3) v[2] = c.steps;
+  if constexpr (NS == 4) {
     v[2] = c.walk.box;
     v[3] = c.walk.tri;
   }
 #pragma unroll
   for (int k = 0; k < NS; ++k)
     for (int off = 16; off > 0; off >>= 1)
-      v[k] += __shfl_down_sync(0xffffffffu, v[k], off);
-  if ((threadIdx.x & 31) == 0) {
+      v[k] += __shfl_down_sync(FULL_MASK, v[k], off);
+  if (lane == 0) {
 #pragma unroll
     for (int k = 0; k < NS; ++k) atomicAdd(&s_stats[k], v[k]);
   }
@@ -1214,14 +1331,46 @@ mega_kernel(Tables S, float* __restrict__ film,
   if (threadIdx.x < NS) atomicAdd(&stats[threadIdx.x], s_stats[threadIdx.x]);
 }
 
-// B1: analytic scenes (<= 64 triangles without vertex normals)
+// The kernel of a mode and integrator
+template <class G>
+static const void* kernel_of(bool mis) {
+  return mis ? (const void*)mega_kernel<G, true>
+             : (const void*)mega_kernel<G, false>;
+}
+
+// Launch the kernel of mode G on `blocks` blocks, or (blocks <= 0) on as
+// many as are resident on the card at once, never more than the groups
+// need; returns cudaGetLastError().
+template <class G>
+static int launch(const Tables& S, int blocks, float* film,
+                  unsigned long long* stats, unsigned int* next_group,
+                  cudaStream_t stream) {
+  const void* fn = kernel_of<G>((S.flags & F_MIS) != 0);
+  if (blocks <= 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, BLOCK, 0);
+    blocks = sms * (per_sm > 0 ? per_sm : 1);
+  }
+  int need = (n_groups<G>(S) + WARPS - 1) / WARPS;
+  blocks = blocks < need ? blocks : need;
+  if (blocks < 1) blocks = 1;
+  void* args[] = {(void*)&S, (void*)&film, (void*)&stats, (void*)&next_group};
+  cudaLaunchKernel(fn, dim3(blocks), dim3(BLOCK), args, 0, stream);
+  return (int)cudaGetLastError();
+}
+
+// B1: analytic scenes (<= 64 triangles without vertex normals). blocks <=
+// 0 launches the resident grid; next_group is one zeroed counter; stats
+// gets segments, shadow rays, warp steps.
 extern "C" int vimg_mega_render(
     const float* tri_c, const float* tri_v, const float* sph,
     const int* prim_mat, const int* mat_type, const float* mat_base,
     const float* mat_sc, const float* light_rows, const int* light_type,
     const float* cam, int nt, int ns, int nl, int W, int H, int spp,
-    int max_depth, int sample_offset, int flags, float* film,
-    unsigned long long* stats, void* stream) {
+    int max_depth, int sample_offset, int flags, int blocks, float* film,
+    unsigned long long* stats, unsigned int* next_group, void* stream) {
   Tables S = {};
   S.tri_c = tri_c;
   S.tri_v = tri_v;
@@ -1242,15 +1391,12 @@ extern "C" int vimg_mega_render(
   S.max_depth = max_depth;
   S.sample_offset = sample_offset;
   S.flags = flags;
-  int n_pix = W * H;
-  int blocks = (n_pix + BLOCK - 1) / BLOCK;
-  mega_kernel<Analytic><<<blocks, BLOCK, 0, (cudaStream_t)stream>>>(
-      S, film, stats);
-  return (int)cudaGetLastError();
+  return launch<Analytic>(S, blocks, film, stats, next_group,
+                          (cudaStream_t)stream);
 }
 
-// B2: mesh scenes (more than 64 triangles, or vertex normals); stats gets
-// segments, shadow rays, box tests, triangle tests
+// B2: mesh scenes (more than 64 triangles, or vertex normals), launched as
+// B1; stats gets segments, shadow rays, box tests, triangle tests
 extern "C" int vimg_mega_render_mesh(
     const float* tri_v, const float* sph, const int* prim_mat,
     const int* mat_type, const float* mat_base, const float* mat_sc,
@@ -1259,7 +1405,8 @@ extern "C" int vimg_mega_render_mesh(
     const float* ctri, const int* perm, const float* vnormals,
     const int* tri_vidx, const int* tri_flags, int nt, int ns, int nl,
     int n_nodes, int W, int H, int spp, int max_depth, int sample_offset,
-    int flags, float* film, unsigned long long* stats, void* stream) {
+    int flags, int blocks, float* film, unsigned long long* stats,
+    unsigned int* next_group, void* stream) {
   Tables S = {};
   S.tri_v = tri_v;
   S.sph = sph;
@@ -1288,9 +1435,22 @@ extern "C" int vimg_mega_render_mesh(
   S.max_depth = max_depth;
   S.sample_offset = sample_offset;
   S.flags = flags;
-  int blocks = ((W + TILE_W - 1) / TILE_W) * ((H + TILE_H - 1) / TILE_H);
-  mega_kernel<Mesh><<<blocks, BLOCK, 0, (cudaStream_t)stream>>>(S, film,
-                                                                stats);
+  return launch<Mesh>(S, blocks, film, stats, next_group,
+                      (cudaStream_t)stream);
+}
+
+// What a launch of the mode (mesh 0: B1, 1: B2) and integrator would run:
+// its resident blocks per SM (blocks of BLOCK threads), registers a thread
+// and local memory bytes a thread (its stack frame, spills included).
+extern "C" int vimg_mega_occupancy(int mesh, int mis, int* per_sm, int* regs,
+                                   int* local_bytes) {
+  const void* fn = mesh ? kernel_of<Mesh>(mis != 0)
+                        : kernel_of<Analytic>(mis != 0);
+  cudaFuncAttributes attr;
+  cudaFuncGetAttributes(&attr, fn);
+  *regs = attr.numRegs;
+  *local_bytes = (int)attr.localSizeBytes;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, fn, BLOCK, 0);
   return (int)cudaGetLastError();
 }
 

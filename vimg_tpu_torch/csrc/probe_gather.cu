@@ -38,18 +38,25 @@
 //  - P21 mxu: one block; warp w takes lanes 8w..8w+7; the (n_params, 128)
 //    values of a row go through shared memory and 128 threads sum them
 //    over the parameters in the plain version's order.
+//  - P22: a grid of (128 / 8) x (ppad / 16) one-warp blocks, one output
+//    tile each; a warp multiplies only the k-tiles its 8 ids touch (at
+//    most 8 of npad / 16), staged by cp.async in one round trip (see
+//    lookup_check_kernel for why the bits do not change).
 // The file is built with -fmad=false and without fast math.
 //
 // What bounds them on this card: P16 and P18 latency at the probe's
 // 4,096 lanes; P17 and P21 the dense one-hot products (16 x 8 x 16 MACs an
-// mma, most of them on zeros), P19 the tensor-core or FP32 rate. All are
+// mma, most of them on zeros), P19 the tensor-core or FP32 rate; P22 the
+// latency of one launch, one load of its ids and one of its tiles. All are
 // far from their bytes bound.
 //
 // Launch contract: the vimg_probe_* functions launch on the given stream,
 // do not synchronise and allocate nothing; they return cudaGetLastError().
 
 #include <cuda_bf16.h>
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 namespace {
@@ -298,19 +305,73 @@ __global__ void __launch_bounds__(LK_WARPS * 32)
     for (int r = 0; r < rows; r++) out[r * LANES + t] = acc;
 }
 
-__global__ void __launch_bounds__(LK_WARPS * 32)
+// P22: one warp a (16-parameter m-tile, 8-lane n-tile) pair of the
+// (ppad, 128) output, one warp a block. The warp's 8 ids touch at most 8 of
+// the npad / 16 k-tiles; only those are multiplied, in increasing order.
+// A skipped tile would add products that are all +-0 to an accumulator
+// that starts at +0, and x + (+-0) = x for x != 0, (+0) + (-0) = +0, so
+// every output keeps its bits. The touched tiles of the three tables are
+// staged in shared memory by cp.async, all in flight at once, then read as
+// A fragments for the mma.
+constexpr int CK_TILES = 8;           // at most one k-tile per column
+
+__global__ void __launch_bounds__(32)
     lookup_check_kernel(const int* __restrict__ ids,
                         const uint16_t* __restrict__ hi,
                         const uint16_t* __restrict__ mid,
-                        const uint16_t* __restrict__ lo, int ppad, int npad,
+                        const uint16_t* __restrict__ lo, int npad,
                         float* __restrict__ out) {
-  __shared__ float s_val[MAX_PARAMS][LANES];
-  const int t = threadIdx.x;
-  lookup_row(hi, mid, lo, ids[(t >> 5) * 8 + (t & 31) / 4], ppad, npad,
-             s_val);
-  __syncthreads();
-  for (int e = t; e < ppad * LANES; e += blockDim.x)
-    out[e] = s_val[e / LANES][e % LANES];
+  __shared__ __align__(16) uint16_t s_a[CK_TILES][3][16][16];
+  const int lane = threadIdx.x, g = lane >> 2, tg = lane & 3;
+  const int n0 = blockIdx.x * 8, m0 = blockIdx.y * 16;
+  const int id = ids[n0 + g];
+  const int tile = id >> 4;
+  const uint16_t* tabs[3] = {hi, mid, lo};
+  // the distinct touched tiles, smallest first; each lane copies 16 bytes
+  // (row lane / 2, half lane % 2) of each, zero-filled past npad
+  const int row = lane >> 1, half = (lane & 1) * 8;
+  int tiles[CK_TILES];
+  int last = -1;
+#pragma unroll
+  for (int j = 0; j < CK_TILES; j++) {
+    tiles[j] = __reduce_min_sync(0xffffffffu, tile > last ? tile : INT_MAX);
+    if (tiles[j] != INT_MAX) {
+      const int col = tiles[j] * 16 + half;
+      const bool in = col < npad;
+#pragma unroll
+      for (int q = 0; q < 3; q++)
+        __pipeline_memcpy_async(&s_a[j][q][row][half],
+                                tabs[q] + (m0 + row) * npad + (in ? col : 0),
+                                16, in ? 0 : 16);
+      last = tiles[j];
+    }
+  }
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  __syncwarp();
+  float d[3][4] = {};
+#pragma unroll
+  for (int j = 0; j < CK_TILES; j++) {
+    if (tiles[j] == INT_MAX) break;
+    const int c = tiles[j] * 16 + 2 * tg;
+    const uint32_t b0 = pack_onehot(id == c, id == c + 1);
+    const uint32_t b1 = pack_onehot(id == c + 8, id == c + 9);
+#pragma unroll
+    for (int q = 0; q < 3; q++) {
+      const uint32_t a[4] = {
+          *reinterpret_cast<const uint32_t*>(&s_a[j][q][g][2 * tg]),
+          *reinterpret_cast<const uint32_t*>(&s_a[j][q][g + 8][2 * tg]),
+          *reinterpret_cast<const uint32_t*>(&s_a[j][q][g][2 * tg + 8]),
+          *reinterpret_cast<const uint32_t*>(&s_a[j][q][g + 8][2 * tg + 8])};
+      mma_bf16(d[q], a, b0, b1);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 4; j++) {
+    const int p = m0 + g + (j >= 2 ? 8 : 0);
+    const int l = n0 + 2 * tg + (j & 1);
+    out[p * LANES + l] = __fadd_rn(__fadd_rn(d[0][j], d[1][j]), d[2][j]);
+  }
 }
 
 // chain: t_hi (>= n_params, npad) bf16, widened to float32 in shared
@@ -401,8 +462,8 @@ extern "C" int vimg_probe_lookup_mxu(const int* ids, const uint16_t* hi,
   if (ppad % 16 || ppad > MAX_PARAMS || npad % 8 || n_params > ppad)
     return (int)cudaErrorInvalidValue;
   if (check)
-    lookup_check_kernel<<<1, LK_WARPS * 32, 0, s>>>(ids, hi, mid, lo, ppad,
-                                                     npad, out);
+    lookup_check_kernel<<<dim3(LANES / 8, ppad / 16), 32, 0, s>>>(
+        ids, hi, mid, lo, npad, out);
   else
     lookup_mxu_kernel<<<1, LK_WARPS * 32, 0, s>>>(ids, hi, mid, lo, n_params,
                                                    ppad, npad, rows, reps,

@@ -162,11 +162,17 @@ def lookup_check(ids, hi, mid, lo):
     """Kernel P22 on CUDA tensors, check_plain on CPU tensors.
 
     Replaces tools/probe_r4j.py::make_check_fn (pallas_call :115): the
-    first row of ids through P21's products, the (ppad, 128) values
-    written out. Bounded by latency (one row, one block)."""
+    first row of ids through the three one-hot products, the (ppad, 128)
+    values written out. One warp an output tile of 16 parameters x 8
+    lanes; it multiplies only the k-tiles of 16 materials its 8 ids touch,
+    which leaves every bit as it is (the skipped products are +-0 added
+    to a +0 accumulator), and stages them with cp.async (16-byte aligned
+    tables). Bounded by latency (one launch, two dependent loads)."""
     if not common.on_card(ids):
         return check_plain(ids, hi, mid, lo)
     ppad, npad = _check_tables(ids, (hi, mid, lo), ids.shape[0])
+    if any(t.data_ptr() % 16 for t in (hi, mid, lo)):
+        raise ValueError("the lookup check copies 16-byte aligned tables")
     out = torch.empty((ppad, 128), dtype=torch.float32, device=ids.device)
     common.launch("probe_lookup_check", "vimg_probe_lookup_mxu", ids.device,
                   ids, *(t.view(torch.int16) for t in (hi, mid, lo)), ppad,

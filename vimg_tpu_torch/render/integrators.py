@@ -15,7 +15,9 @@ same. Smooth dielectrics work under MIS here, a deliberate divergence from
 the C++ reference that vimg_tpu makes too.
 
 ``stats`` (optional dict) accumulates ``segments`` (closest-hit rays of
-live paths) and ``shadow_rays`` (NEE rays) as the megakernel counts them.
+live paths) and ``shadow_rays`` (NEE rays) as the megakernel counts them;
+where it holds a ``pixel_segments`` tensor (int64, one entry a pixel of
+the frame), the material and MIS loops add each segment to its pixel.
 """
 from __future__ import annotations
 
@@ -48,6 +50,16 @@ def _check_supported(scene: ir.Scene):
 def _count(stats, key, n):
     if stats is not None:
         stats[key] = stats.get(key, 0) + int(n)
+
+
+def _count_pixels(stats, pix):
+    """One segment for the pixel of each path in ``pix`` (pixel ids, with
+    repeats), added to ``stats["pixel_segments"]`` where the caller asks
+    for it."""
+    if stats is not None and "pixel_segments" in stats:
+        stats["pixel_segments"].index_add_(
+            0, pix, torch.ones(pix.shape[0], dtype=torch.int64,
+                               device=pix.device))
 
 
 def _primary_rays(scene: ir.Scene, settings, pix, samp):
@@ -120,6 +132,7 @@ def material_integrator_loop(scene, settings, tracer, pix, samp, stats=None):
     d = 0
     while d < settings.max_depth and idx.numel() > 0:
         _count(stats, "segments", idx.numel())
+        _count_pixels(stats, pix[idx])
         hr = tracer.closest(scene, ro, rd, _full(ro, MIN_T),
                             _full(ro, float("inf")))
         found = hr.hit
@@ -163,6 +176,7 @@ def mis_integrator_loop(scene, settings, tracer, pix, samp, stats=None):
     hr = tracer.closest(scene, ro, rd, _full(ro, MIN_T),
                         _full(ro, float("inf")))
     _count(stats, "segments", B)
+    _count_pixels(stats, pix)
     hi = intersect.hit_info(scene, ro, rd, hr)
 
     # primary miss -> background; first hit emissive -> its emission
@@ -227,6 +241,7 @@ def mis_integrator_loop(scene, settings, tracer, pix, samp, stats=None):
         # ---- next bounce ----------------------------------------------
         nro, nrd = hi.p, sc.wo
         _count(stats, "segments", cont.sum())
+        _count_pixels(stats, pix[idx[cont]])
         hr2 = tracer.closest(scene, nro, nrd, minT, infT)
         hi2 = intersect.hit_info(scene, nro, nrd, hr2)
         found = cont & hr2.hit

@@ -8,17 +8,22 @@ kernel (port of vimg_tpu.render.mega.kernel), in two modes:
   cluster tree over ClusterData's tables, the spheres densely beside it.
 
 - ``render_megakernel`` is the wrapper. A CUDA scene launches the
-  hand-written kernel of ``csrc/megakernel.cu`` for its mode (one thread
-  per pixel, all spp paths back to back); a CPU scene takes the plain
-  PyTorch version. Any other device raises.
+  hand-written kernel of ``csrc/megakernel.cu`` for its mode: persistent
+  warps over groups of 32 pixels, a lane a pixel, each lane running its
+  pixel's spp paths in sample order one segment an iteration. In analytic
+  mode a lane whose path ends starts its next sample at once; in mesh
+  mode it waits until every lane of the warp has ended the same sample. A
+  CPU scene takes the plain PyTorch version. Any other device raises.
 - ``render_megakernel_plain`` is the plain version: the chunked loop
   renderer over the loop integrators, traced by the SoA tracer (analytic
   mode) or the cluster tracer's plain skip walk (mesh mode), so it never
   launches a kernel, with the same segment and shadow-ray counts the
-  kernel keeps.
+  kernel keeps, and in analytic mode its warp steps (``warp_steps``).
 - ``LAUNCHES`` counts analytic-mode launches, ``LAUNCHES_MESH`` mesh-mode
-  launches (plain renders count neither); ``LAST_COUNTS`` is the
-  (segments, shadow rays) int64 device tensor of the latest launch.
+  launches (plain renders count neither); ``LAST_COUNTS`` is the int64
+  device tensor of the latest launch's counters: segments, shadow rays,
+  then warp steps (analytic mode) or box and triangle tests (mesh
+  mode).
 
 Scene tables are numpy arrays packed on the host as vimg_tpu's
 ``_pack_scene`` packs them (triangle normals and areas in float32 with
@@ -356,18 +361,37 @@ def plain_tracer(scene: ir.Scene):
     return SoATracer(scene)
 
 
+def warp_steps(pixel_segments: torch.Tensor, group=32) -> int:
+    """The analytic kernel's warp steps from the segments of each pixel
+    (all its samples): a warp shades ``group`` consecutive pixels and
+    iterates until its busiest lane is done, so each group costs its
+    largest pixel total."""
+    n = pixel_segments.numel()
+    padded = torch.zeros(-(-n // group) * group, dtype=torch.int64,
+                         device=pixel_segments.device)
+    padded[:n] = pixel_segments
+    return int(padded.view(-1, group).amax(1).sum())
+
+
 def render_megakernel_plain(scene: ir.Scene, settings: ir.RenderSettings,
                             sample_offset=0, return_stats=False,
                             progress=False):
     """Plain PyTorch version: the loop renderer over trace_radiance with
     ``plain_tracer``, on any device, counting segments and shadow rays
-    like the kernel."""
+    like the kernel, and in analytic mode (with ``return_stats``) its warp
+    steps from the segments of each pixel."""
     from vimg_tpu_torch.render.render import render
     stats = {"segments": 0, "shadow_rays": 0}
+    if return_stats and not is_mesh_mode(scene):
+        stats["pixel_segments"] = torch.zeros(
+            settings.width * settings.height, dtype=torch.int64,
+            device=scene.device)
     t0 = time.time()
     img = render(scene, settings, progress=progress,
                  sample_offset=sample_offset, stats=stats,
                  tracer=plain_tracer(scene))
+    if "pixel_segments" in stats:
+        stats["warp_steps"] = warp_steps(stats.pop("pixel_segments"))
     if scene.device.type == "cuda":
         torch.cuda.synchronize(scene.device)
     stats["seconds"] = time.time() - t0
@@ -379,20 +403,30 @@ def render_megakernel(scene: ir.Scene, settings: ir.RenderSettings,
     """Full-frame render through the CUDA megakernel of the scene's mode
     (CUDA scenes) or its plain version (CPU scenes). Returns the linear
     (H, W, 3) image on the scene's device, plus a stats dict (segments,
-    shadow_rays, seconds; in mesh mode also the walk's box_tests and
-    tri_tests) with ``return_stats``."""
-    global LAUNCHES, LAUNCHES_MESH, LAST_COUNTS
+    shadow_rays, seconds; in analytic mode also warp_steps, in mesh mode
+    the walk's box_tests and tri_tests) with ``return_stats``."""
     dev = scene.device
     if dev.type == "cpu":
         return render_megakernel_plain(scene, settings, sample_offset,
                                        return_stats, progress)
     if dev.type != "cuda":
         raise NotImplementedError(f"no megakernel for device {dev}")
+    return _launch(scene, settings, sample_offset, return_stats, progress)
+
+
+def _launch(scene, settings, sample_offset=0, return_stats=False,
+            progress=False, blocks=0, lib=None):
+    """The kernel launch of ``render_megakernel`` on ``blocks`` persistent
+    blocks (0: as many as the card holds at once), from the kernel library
+    ``lib`` (default: ``runtime.cuda``'s). The film does not depend on
+    ``blocks``."""
+    global LAUNCHES, LAUNCHES_MESH, LAST_COUNTS
+    dev = scene.device
     if not supports_megakernel(scene, settings):
         raise ValueError("scene/settings outside the megakernel's feature "
                          "set (see supports_megakernel)")
     from vimg_tpu_torch.runtime.cuda import check, load_library
-    lib = load_library()
+    lib = load_library() if lib is None else lib
     mesh = is_mesh_mode(scene)
     order = _MESH_TABLE_ORDER if mesh else _TABLE_ORDER
     tabs = _device_tables(scene)
@@ -405,7 +439,9 @@ def render_megakernel(scene: ir.Scene, settings: ir.RenderSettings,
     run = (W, H, spp, min(settings.max_depth, 2 ** 31 - 1),
            int(sample_offset), _flags(scene, settings))
     film = torch.empty((H * W, 3), dtype=torch.float32, device=dev)
-    counts = torch.zeros((4 if mesh else 2,), dtype=torch.int64, device=dev)
+    # the kernel's counters, then its pixel-group counter (zeroed here)
+    counts = torch.zeros((5 if mesh else 4,), dtype=torch.int64, device=dev)
+    next_group = counts[-1:].view(torch.int32)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev)
         start = torch.cuda.Event(enable_timing=True)
@@ -415,16 +451,18 @@ def render_megakernel(scene: ir.Scene, settings: ir.RenderSettings,
         if mesh:
             rc = lib.vimg_mega_render_mesh(
                 *ptrs, nt, ns, nl, cluster_data(scene).n_nodes, *run,
-                film.data_ptr(), counts.data_ptr(), stream.cuda_stream)
+                blocks, film.data_ptr(), counts.data_ptr(),
+                next_group.data_ptr(), stream.cuda_stream)
             check(rc, "megakernel (mesh mode)")
             LAUNCHES_MESH += 1
         else:
             rc = lib.vimg_mega_render(
-                *ptrs, nt, ns, nl, *run,
-                film.data_ptr(), counts.data_ptr(), stream.cuda_stream)
+                *ptrs, nt, ns, nl, *run, blocks,
+                film.data_ptr(), counts.data_ptr(), next_group.data_ptr(),
+                stream.cuda_stream)
             check(rc, "megakernel")
             LAUNCHES += 1
-        LAST_COUNTS = counts[:2]
+        LAST_COUNTS = counts[:-1]
         end.record(stream)
     img = film.view(H, W, 3) / spp
     if not (return_stats or progress):
@@ -443,4 +481,23 @@ def render_megakernel(scene: ir.Scene, settings: ir.RenderSettings,
     stats = dict(segments=segs, shadow_rays=shadow, seconds=seconds)
     if mesh:
         stats.update(box_tests=vals[2], tri_tests=vals[3])
+    else:
+        stats.update(warp_steps=vals[2])
     return img, stats
+
+
+def occupancy(scene: ir.Scene, settings: ir.RenderSettings, lib=None):
+    """What the launch of this frame runs on the card: resident blocks of
+    128 threads per SM, registers and local-memory bytes a thread (dict;
+    CUDA only), from the kernel library ``lib`` as in ``_launch``."""
+    import ctypes
+    from vimg_tpu_torch.runtime.cuda import check, load_library
+    lib = load_library() if lib is None else lib
+    vals = [ctypes.c_int(0) for _ in range(3)]
+    with torch.cuda.device(scene.device):
+        check(lib.vimg_mega_occupancy(
+            int(is_mesh_mode(scene)), int(settings.integrator == "mis"),
+            *(ctypes.byref(v) for v in vals)), "megakernel occupancy")
+    per_sm, regs, local = (v.value for v in vals)
+    return dict(blocks_per_sm=per_sm, warps_per_sm=4 * per_sm,
+                registers=regs, local_bytes=local)

@@ -28,10 +28,14 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # name -> (argtypes, restype); pointers and the stream are c_void_p
 SIGNATURES = {
-    # csrc/megakernel.cu: 10 tables, 9 ints, film, counts, stream
-    "vimg_mega_render": ([_P] * 10 + [_I] * 9 + [_P] * 3, _I),
-    # mesh mode: 17 tables, 10 ints, film, counts, stream
-    "vimg_mega_render_mesh": ([_P] * 17 + [_I] * 10 + [_P] * 3, _I),
+    # csrc/megakernel.cu: 10 tables, 9 ints, blocks, film, counts,
+    # next_group, stream
+    "vimg_mega_render": ([_P] * 10 + [_I] * 10 + [_P] * 4, _I),
+    # mesh mode: 17 tables, 10 ints, blocks, film, counts, next_group,
+    # stream
+    "vimg_mega_render_mesh": ([_P] * 17 + [_I] * 11 + [_P] * 4, _I),
+    # mesh, mis, per_sm, regs, local_bytes (host int*)
+    "vimg_mega_occupancy": ([_I] * 2 + [_P] * 3, _I),
     # csrc/cluster_trace.cu: 4 tables, ro, rd, minT, maxT, n_rays,
     # n_nodes (wide or binary), any_hit, t, slot, u, v, stream
     "vimg_cluster_wide": ([_P] * 8 + [_I] * 3 + [_P] * 5, _I),
@@ -155,6 +159,18 @@ def build():
     log.write_text(text)
     os.replace(tmp, out)
     BUILD_INFO.update(path=str(out), seconds=time.time() - t0, log=text)
+    return out
+
+
+def ptxas_lines(log, part):
+    """ptxas -v's register and spill lines, from a build ``log``, of the
+    entry functions whose mangled name holds ``part``."""
+    out, entry = [], ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1] if "'" in line else ""
+        elif part in entry and ("registers" in line or "spill" in line):
+            out.append(line.strip())
     return out
 
 
