@@ -45,7 +45,8 @@ Phases:
 12. kernel B5 (packet walk) against its plain walk on the card, on phase
     6's terrain-100k camera, bounce and shadow rays in PacketTracer's own
     order, variants slist and f2b: zero (t, code) mismatches; kernel and
-    cull times with CUDA events; the bound of each; closest() and
+    cull times with CUDA events; the bound of each; B5's warp test steps
+    and lane fill (needed tests / (32 x steps)); closest() and
     occluded() against B3's on the same rays (prim ids may differ only
     where t ties exactly: counted and printed);
 13. main path 6: terrain 100k at 512x256 @ 64 spp -> render_frame(...,
@@ -770,7 +771,8 @@ def packet_vs_plain(scene, rays):
             _, packed = tr.pack(*r)
             meta = tr.cull(packed)
             args = (tr.tri_t, meta, *packed, *tr.walk_args(any_hit))
-            got = pt.trace_packet(*args)
+            steps = torch.zeros(1, dtype=torch.int64, device=meta.device)
+            got = pt.trace_packet(*args, steps=steps)
             torch.cuda.synchronize()
             for _ in range(2):                              # warm-up
                 pt.trace_packet(*args)
@@ -783,6 +785,7 @@ def packet_vs_plain(scene, rays):
                 lambda: pt.packet_walk_plain(*args, stats=st,
                                              cl_len=data.cl_len), 1)
             bad, err = mismatches(got, ref)
+            fill_ = st["tri_tests"] / (32 * int(steps))
             cands = meta.view(-1, pt.META_ROWS, tr.cp)[:, 2, 0].float()
             nbytes = (meta.numel() * 4 + tr.tri_t.numel() * 4
                       + packed[0].shape[0] * (32 + 8))
@@ -794,7 +797,9 @@ def packet_vs_plain(scene, rays):
                 mismatches=bad, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
-                cull_ms=cull_ms, trace_ms=trace_ms)
+                cull_ms=cull_ms, trace_ms=trace_ms, fill=fill_)
+            log(f"  {variant:5s} {kind:6s}: {int(steps)} warp test steps, "
+                f"lane fill {fill_:.4f} (needed tests / (32 x steps))")
             log(f"  {variant:5s} {kind:6s}: {'occluded' if any_hit else 'hits'}"
                 f" {hits}/{r[0].shape[0]}, kernel vs plain (t, code) "
                 f"mismatches {bad}; B5 {ms:.3f} ms, cull {cull_ms:.3f} ms, "
@@ -911,7 +916,7 @@ def packet_phases(scene, rays, b3_img, png_dir, card, dev):
     return dict(launches=launches,
                 max_abs_err=max(v["max_abs_err"] for v in res.values()),
                 ms=c["ms"], plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
-                bound_by=c["bound_by"])
+                bound_by=c["bound_by"], note=f"lane fill {c['fill']:.4f}")
 
 
 def gather_phase(dev, card):
@@ -1275,7 +1280,7 @@ def other_frame(case, device):
     refuses (260 spheres): over a 2,000-triangle floor through the cluster
     tracer (its default walk, and a given skip-walk tracer), and alone
     through the SoA tracer. make_tracer picks no tracer for 260 spheres
-    by itself: vimg_tpu's BVH is not ported (ROADMAP A21)."""
+    by itself: vimg_tpu's BVH is not ported (ROADMAP A4)."""
     from vimg_tpu_torch.geometry.cluster_trace import ClusterTracer
     from vimg_tpu_torch.scene import ir
     from vimg_tpu_torch.scene.synthetic import terrain_scene
@@ -1464,14 +1469,29 @@ def gather_probe_phase(dev):
             f"tool's metric {tool:.3e}")
         errs[("mm", form)] = held(f"mxu_precision {form}", out, ref,
                                   close=lambda o, p: gate <= 1.0)
-    lib = {}
-    for tf32 in (True, False):
+    def library_mm(tf32):
         torch.backends.cuda.matmul.allow_tf32 = tf32
-        lib[tf32] = common.device_ms(lambda: torch.matmul(a, b),
-                                     TIMED_LAUNCHES)
-    torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            return common.device_ms(lambda: torch.matmul(a, b),
+                                    TIMED_LAUNCHES)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+
+    def p19_tf32():
+        return common.device_ms(lambda: r.matmul(a, b, "default"),
+                                TIMED_LAUNCHES)
+
+    # P19's TF32 kernel and torch.matmul TF32 in turns (A B B A)
+    turns = [p19_tf32(), library_mm(True), library_mm(True), p19_tf32()]
+    p19_ms = (turns[0] + turns[3]) / 2
+    lib = {True: (turns[1] + turns[2]) / 2, False: library_mm(False)}
     log(f"    torch.matmul 256x256 (device time): TF32 {lib[True]:.6f} ms, "
         f"float32 {lib[False]:.6f} ms")
+    log(f"    P19 TF32 kernel {p19_ms:.6f} ms vs torch.matmul TF32 "
+        f"{lib[True]:.6f} ms ({p19_ms / lib[True]:.3f}x; device time, in "
+        f"turns: {', '.join(f'{t:.6f}' for t in turns)} ms); highest "
+        f"{mm['highest'][1]:.6f} ms vs torch.matmul float32 "
+        f"{lib[False]:.6f} ms")
     for n, res in r4j.items():
         table, ids, hi, mid, lo = res["inputs"]
         errs[("check", n)] = held(f"lookup check n_mats={n}", res["check"][0],
@@ -1531,7 +1551,7 @@ def gather_probe_phase(dev):
                   pms[("selchain", 256)], r.SELCHAIN_REPS * 2 * 256 * 4096,
                   2 * 4096 * 4 + 256 * 4, note="n = 256"),
         probe_row("probe_mxu_precision", "tools/probe_r2c.py:170",
-                  mm["default"][1], pms[("mm", "default")], 2 * 256 ** 3,
+                  p19_ms, pms[("mm", "default")], 2 * 256 ** 3,
                   3 * 256 * 256 * 4,
                   err=errs[("mm", "default")], peak=TF32_TC_OPS_PER_S,
                   library_ms=lib[True],

@@ -1,0 +1,193 @@
+"""Time this checkout's kernels B5 (packet walk) and P19 (TF32 product) and
+main path 6 against another checkout of the port, on one GPU, in turns.
+
+Unpack the other commit into a directory that .gitignore lists and run,
+from the repository root on a machine with an NVIDIA GPU:
+
+    git archive PARENT | (mkdir -p _proof/parent && tar -x -C _proof/parent)
+    python3 compare_parent.py _proof/parent [--out parent.json]
+
+Each checkout runs in its own process (it builds its own kernel library
+under its own vimg_tpu_torch/_build/), in the order other, this, this,
+other. A process makes chip_smoke.py's phase-6 rays with that checkout's
+own chip_smoke.py (terrain 100k, 131,072 camera, bounce and shadow rays),
+then:
+
+- B5: for each variant (slist, f2b) and ray kind, the rays in
+  PacketTracer's order and their meta, one launch kept for the
+  comparison, two warm-ups, then three readings of 20 launches between
+  CUDA events (chip_smoke.py's phase-12 clock); the warp test steps where
+  the checkout's trace_packet counts them;
+- P19: the TF32 product of probe_r2c on its (256, 256) inputs, three
+  readings of probes.common.device_ms (launches queued behind a spin);
+- main path 6: render_frame(..., tracer_force="packet") on terrain 100k
+  at 512x256 @ 64 spp after a 1-spp warm-up frame, timed once.
+
+Then it checks that every B5 (t, code) is bit-equal across the four runs,
+that each P19 product is held by matmul_held, and that the frames agree
+(only the film's atomic index_add_ order may differ), prints the table
+and the card's name and power limit, and writes the readings as JSON.
+Exits non-zero on any failure.
+"""
+import argparse
+import importlib.util
+import inspect
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+READINGS = 3
+
+
+def _smoke(tree):
+    """The checkout's own chip_smoke.py as a module; it puts the checkout
+    first on sys.path, so vimg_tpu_torch is imported from there."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(tree, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def worker(tree, out):
+    import torch
+    cs = _smoke(tree)
+    from vimg_tpu_torch.geometry import cluster_trace as ct
+    from vimg_tpu_torch.geometry import packet_trace as pt
+    from vimg_tpu_torch.probes import common, probe_r2c
+    from vimg_tpu_torch.render import wavefront
+    from vimg_tpu_torch.render.render import render_frame
+    from vimg_tpu_torch.scene import ir
+    from vimg_tpu_torch.scene.synthetic import terrain_scene
+    if not os.path.abspath(pt.__file__).startswith(tree + os.sep):
+        raise RuntimeError(f"{pt.__file__} is not under {tree}")
+    dev = torch.device("cuda", 0)
+    res = {"tree": tree, "b5": {}}
+    scene = terrain_scene(100_000, cs.MESH_W, cs.MESH_H, device=dev)
+    rays = cs.terrain_rays(scene, ct.ClusterTracer(scene, walk="wide"))
+    slist = pt.PacketTracer(scene)
+    tracers = {"slist": slist,
+               "f2b": pt.PacketTracer(scene, variant="f2b", data=slist.data)}
+    counts = "steps" in inspect.signature(pt.trace_packet).parameters
+    outs = {}
+    for kind, r in rays.items():
+        for variant, tr in tracers.items():
+            _, packed = tr.pack(*r)
+            meta = tr.cull(packed)
+            args = (tr.tri_t, meta, *packed, *tr.walk_args(kind == "shadow"))
+            steps = torch.zeros(1, dtype=torch.int64, device=dev)
+            got = (pt.trace_packet(*args, steps=steps) if counts
+                   else pt.trace_packet(*args))
+            for _ in range(2):
+                pt.trace_packet(*args)
+            ms = [cs.event_ms(lambda: pt.trace_packet(*args),
+                              cs.TIMED_LAUNCHES)[1] for _ in range(READINGS)]
+            outs[f"{variant}/{kind}"] = [x.cpu() for x in got]
+            res["b5"][f"{variant}/{kind}"] = dict(
+                ms=ms, steps=int(steps) if counts else None)
+    a, b = probe_r2c.matmul_inputs(dev)
+    prod = probe_r2c.matmul(a, b, "default")
+    res["p19"] = dict(
+        ms=[common.device_ms(lambda: probe_r2c.matmul(a, b, "default"),
+                             cs.TIMED_LAUNCHES) for _ in range(READINGS)],
+        held=float(probe_r2c.matmul_held(a, b, prod, "default")))
+    st = ir.RenderSettings(cs.MESH_W, cs.MESH_H, spp=cs.MESH_SPP,
+                           max_depth=64, integrator="mis", tonemap="agx",
+                           batch_size=cs.MESH_BATCH)
+    render_frame(scene, ir.RenderSettings(
+        cs.MESH_W, cs.MESH_H, spp=1, max_depth=64, integrator="mis",
+        tonemap="agx", batch_size=cs.MESH_BATCH), tracer_force="packet")
+    before = pt.LAUNCHES
+    img, secs = cs.timed(lambda: render_frame(scene, st,
+                                              tracer_force="packet"))
+    res["frame"] = dict(s=secs, loop_s=wavefront.LAST_STATS["seconds"],
+                        launches=pt.LAUNCHES - before)
+    torch.save({"b5": outs, "img": img.cpu()}, out + ".pt")
+    with open(out, "w") as f:
+        json.dump(res, f)
+
+
+def main():
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("other", nargs="?", help="the other checkout's root")
+    p.add_argument("--out", default=None, help="JSON of the readings")
+    p.add_argument("--worker", default=None, help=argparse.SUPPRESS)
+    args = p.parse_args()
+    if args.worker:
+        return worker(os.path.abspath(args.worker), args.out)
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit("compare_parent.py needs a GPU")
+    if not args.other:
+        p.error("name the other checkout")
+    other = os.path.abspath(args.other)
+    cs = _smoke(ROOT)
+    card = cs.nvidia_smi_line()
+    order = [("other", other), ("this", ROOT), ("this", ROOT),
+             ("other", other)]
+    runs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, (name, tree) in enumerate(order):
+            path = os.path.join(tmp, f"run{i}.json")
+            t0 = time.time()
+            subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--worker", tree, "--out", path], check=True)
+            with open(path) as f:
+                res = json.load(f)
+            res.update(name=name, wall_s=time.time() - t0,
+                       data=torch.load(path + ".pt"))
+            runs.append(res)
+            print(f"run {i} ({name}) done in {res['wall_s']:.1f} s",
+                  flush=True)
+    bad = []
+    ref = runs[1]["data"]
+    for res in runs:
+        for key, (t, code) in res["data"]["b5"].items():
+            rt, rc = ref["b5"][key]
+            n = int(((t.view(torch.int32) != rt.view(torch.int32))
+                     | (code.view(torch.int32) != rc.view(torch.int32))).sum())
+            if n:
+                bad.append(f"B5 {key} run {res['name']}: {n} rays differ")
+        if res["p19"]["held"] > 1.0:
+            bad.append(f"P19 run {res['name']}: gate {res['p19']['held']}")
+        r = cs.compare(f"main path 6, {res['name']} vs this",
+                       ref["img"], res["data"]["img"])
+        if not (r["mean"] < cs.WF_MEAN and r["corr"] > cs.WF_CORR):
+            bad.append(f"main path 6 run {res['name']}: another image")
+
+    def span(key, get):
+        xs = [x for res in runs if res["name"] == key for x in get(res)]
+        return f"{min(xs):.6f}-{max(xs):.6f}"
+
+    print(f"B5 ms (20 launches between CUDA events, {READINGS} readings a "
+          f"run; other runs 1 and 4, this runs 2 and 3):")
+    for key in runs[0]["b5"]:
+        steps = runs[1]["b5"][key]["steps"]
+        print(f"  {key:13s} other {span('other', lambda r: r['b5'][key]['ms'])}"
+              f"  this {span('this', lambda r: r['b5'][key]['ms'])}"
+              f"  warp test steps (this) {steps}")
+    print(f"P19 TF32 ms (device time): other "
+          f"{span('other', lambda r: r['p19']['ms'])}  this "
+          f"{span('this', lambda r: r['p19']['ms'])}")
+    print(f"main path 6 frame s (render loop s), in run order: " + ", ".join(
+        f"{r['name']} {r['frame']['s']:.3f} ({r['frame']['loop_s']:.3f})"
+        for r in runs))
+    print(card)
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)),
+                    exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(dict(card=card, other=other, runs=[
+                {k: v for k, v in r.items() if k != "data"} for r in runs],
+                failures=bad), f, indent=1)
+    if bad:
+        sys.exit("FAIL: " + "; ".join(bad))
+    print("all B5 outputs bit-equal across the runs, P19 held, frames agree")
+
+
+if __name__ == "__main__":
+    main()

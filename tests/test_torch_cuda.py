@@ -206,7 +206,8 @@ def _bits(x):
 def test_packet_kernel_matches_plain_walk(cuda, variant):
     """B5 against packet_walk_plain on the same meta, closest and any hit,
     on rays from above (idle lanes included) and on camera rays (coherent
-    workgroups, where f2b's early exit fires); then the tracer facade."""
+    workgroups, where f2b's early exit fires), its step counter covering
+    the needed tests; then the tracer facade."""
     from vimg_tpu_torch.geometry import packet_trace as pt
     from vimg_tpu_torch.render.integrators import _primary_rays
     from vimg_tpu_torch.scene.synthetic import terrain_scene
@@ -223,16 +224,20 @@ def test_packet_kernel_matches_plain_walk(cuda, variant):
         meta = tr.cull(packed)
         for any_hit in (False, True):
             before = pt.LAUNCHES
+            steps = torch.zeros(1, dtype=torch.int64, device=cuda)
             got = pt.trace_packet(tr.tri_t, meta, *packed,
-                                  *tr.walk_args(any_hit))
+                                  *tr.walk_args(any_hit), steps=steps)
             torch.cuda.synchronize()
             assert pt.LAUNCHES == before + 1
+            st = {}
             ref = pt.packet_walk_plain(tr.tri_t, meta, *packed,
-                                       *tr.walk_args(any_hit))
+                                       *tr.walk_args(any_hit), stats=st,
+                                       cl_len=tr.data.cl_len)
             assert pt.LAUNCHES == before + 1
             for a, b in zip(got, ref):
                 assert torch.equal(_bits(a), _bits(b))
             assert bool((got[1] >= 0).any()) or any_hit
+            assert 0 < st["tri_tests"] <= 32 * int(steps)
     plain = pt.PacketTracer(scene, variant=variant, plain=True, data=tr.data)
     before = pt.LAUNCHES
     h = tr.closest(scene, *camera)

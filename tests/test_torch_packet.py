@@ -323,3 +323,212 @@ def test_wavefront_through_packet_walk(monkeypatch):
         tpt.trace_packet(pt.tri_t, None, *(x.to("meta") for x in
                                            _t(*_rays(ts, n=128))),
                          pt.data.n_clusters, False)
+
+
+# ---------------------------------------------------------------------------
+# kernel B5's warp design, step by step (csrc/packet_trace.cu)
+# ---------------------------------------------------------------------------
+
+def _jmin(a, b):
+    return torch.where(torch.isnan(a) | torch.isnan(b), float("nan"),
+                       torch.minimum(a, b))
+
+
+def _merge_quarters(bt, code, s):
+    """The kernel's merge of lane l with lane l ^ s (s = 8, 16): the least
+    t, then the least code among the two that hold a hit."""
+    lane = torch.arange(32)
+    obt, ocode = bt[..., lane ^ s], code[..., lane ^ s]
+    take = obt < bt
+    tie = ~(bt < obt) & (ocode >= 0) & ((code < 0) | (ocode < code))
+    return (torch.where(take, obt, bt),
+            torch.where(take | (~take & tie), ocode, code))
+
+
+def _warp_model(tri_t, meta, ro, rd, minT, maxT, n_clusters, any_hit,
+                variant="slist", unroll=4, entry_scale=1.0,
+                scene_bounds=None):
+    """B5's warp design on CPU tensors: the warp owning packet p of
+    workgroup w runs p's live pairs in chain order; lane l = (ray l & 7,
+    quarter q = l >> 3) tests triangle 4 kk + q at step kk, for the steps
+    up to the cluster's last non-zero normal, and keeps (bt, code, mask)
+    with the first design's rule; any-hit rays share their occlusion after
+    each pair and a packet whose rays are all occluded stops; f2b reduces
+    the workgroup after each chunk of ``unroll`` chain entries. Packets
+    are independent outside f2b's reductions (and a warp's packets run in
+    chain order), so they advance here in lockstep by chain index.
+    Returns (t, code, warp test steps)."""
+    N = ro.shape[0]
+    W, cp = N // tpt.WG, meta.shape[1]
+    m = meta.view(W, tpt.META_ROWS, cp).long()
+    tri = tri_t.view(-1, tpt.N_CONST, 128)
+    f2b = variant == "f2b"
+    lane = torch.arange(32)
+    q = lane >> 3
+    ray = (torch.arange(W)[:, None, None] * tpt.WG
+           + torch.arange(tpt.N_PACKETS)[None, :, None] * 8 + (lane & 7))
+    o, d, mnt = ro[ray], rd[ray], minT[ray]               # (W, 16, 32, .)
+    bt = maxT[ray].clone()
+    code = torch.full(bt.shape, -1, dtype=torch.int64)
+    mask = torch.zeros(bt.shape, dtype=torch.int64)
+    if f2b:
+        exit_t = tpt._scene_exits(ro, rd, scene_bounds)[ray]
+    done = torch.zeros((W, tpt.N_PACKETS), dtype=torch.bool)
+    running = torch.ones(W, dtype=torch.bool)
+    count = m[:, 2, 0]
+    # the chain: ascending slots whose packet mask is non-zero
+    cand = m[:, 1, :] != 0
+    order = torch.argsort((~cand).to(torch.int8), dim=1, stable=True)
+    bit = torch.arange(tpt.N_PACKETS)
+    ch = max(unroll, 1)
+    steps = 0
+    for i in range(int(count.max())):
+        w = torch.nonzero(running & (i < count))[:, 0]
+        slot = order[w, i]
+        live = ((m[w, 1, slot][:, None] >> bit) & 1).bool() & ~done[w]
+        wi, pi = torch.nonzero(live, as_tuple=True)
+        if wi.numel():
+            wp = w[wi]
+            rid = m[wp, 4, slot[wi]] if f2b else slot[wi]
+            rows = tri[rid.clamp_max(n_clusters - 1)]         # (R, 12, 128)
+            nz = (rows[:, :3, :] != 0).view(-1, 3, 32, 4).any(dim=3).any(1)
+            n_steps = torch.where(nz.any(1), 32 - torch.argmax(
+                nz.flip(1).to(torch.int8), dim=1), 0)
+            steps += int(n_steps.sum())
+            b, c, mk = bt[wp, pi], code[wp, pi], mask[wp, pi]
+            ox, oy, oz = (o[wp, pi][..., a] for a in range(3))
+            dx, dy, dz = (d[wp, pi][..., a] for a in range(3))
+            mn = mnt[wp, pi]
+            cbase = (rid * 128)[:, None]
+            for kk in range(32):
+                k = 4 * kk + q
+                (nx, ny, nzz, d0, m1x, m1y, m1z, c1, m2x, m2y, m2z,
+                 c2) = (rows[:, j, k] for j in range(tpt.N_CONST))
+                ro_n = ox * nx + oy * ny + oz * nzz
+                rd_n = dx * nx + dy * ny + dz * nzz
+                par = rd_n.abs() < 1e-22
+                t = (d0 - ro_n) / torch.where(par, 1.0, rd_n)
+                u = (ox * m1x + oy * m1y + oz * m1z - c1
+                     + t * (dx * m1x + dy * m1y + dz * m1z))
+                v = (ox * m2x + oy * m2y + oz * m2z - c2
+                     + t * (dx * m2x + dy * m2y + dz * m2z))
+                hit = ((kk < n_steps)[:, None] & ~par & (u >= 0.0)
+                       & (v >= 0.0) & (u + v <= 1.0) & (t >= mn))
+                lt = hit & (t < b)
+                if any_hit:
+                    b = torch.where(lt, -float("inf"), b)
+                    continue
+                join = (hit & ~lt & (t == b) & (c >= 0)
+                        & ((mk >> kk) & 1 == 0))
+                b = torch.where(lt, t, b)
+                c = torch.where(lt, cbase + k, c)
+                mk = torch.where(lt, 1 << kk, mk)
+                mk = torch.where(join, mk | (1 << kk), mk)
+                c = torch.where(join, torch.minimum(c, cbase + k), c)
+            if any_hit:
+                occ = (b == -float("inf")).view(-1, 4, 8).any(dim=1)
+                b = torch.where(occ.repeat(1, 4), -float("inf"), b)
+                done[wp, pi] = occ.all(dim=1)
+            bt[wp, pi], code[wp, pi], mask[wp, pi] = b, c, mk
+        if f2b and (i + 1) % ch == 0:
+            w = torch.nonzero(running & (i + 1 < count))[:, 0]
+            r4 = bt[w].view(-1, tpt.N_PACKETS, 4, 8)
+            rbt = _jmin(_jmin(r4[:, :, 0], r4[:, :, 1]),
+                        _jmin(r4[:, :, 2], r4[:, :, 3]))
+            worst = _jmin(rbt, exit_t[w][..., :8]).amax(dim=(1, 2))
+            nxt_e = m[w, 3, m[w, 0, order[w, i] + 1]]
+            stop = worst * entry_scale < (nxt_e - 1).to(torch.float32)
+            running[w[stop]] = False
+    for s in (8, 16):
+        bt, code = _merge_quarters(bt, code, s)
+    return (bt[..., :8].reshape(N), code[..., :8].reshape(N).float(), steps)
+
+
+def _dup_soup():
+    """Every triangle twice (the copy in another lane, often another
+    cluster): closest hits tie exactly in t."""
+    js, _ = _soup(T=300, spheres=0, seed=7)
+    v = np.asarray(js.verts).reshape(-1, 3, 3)
+    v = np.concatenate([v, v[::-1]]).reshape(-1, 3)
+    b = SceneBuilder()
+    m = b.add_material(jir.MAT_LAMBERTIAN, base=(0.5, 0.5, 0.5))
+    b.add_mesh(v, np.arange(v.shape[0]).reshape(-1, 3), m)
+    js = b.build(camera=js.camera)
+    return tir.scene_from_numpy(*tir.scene_to_numpy(js), device="cpu")
+
+
+def _camera_rays(ts, w, h):
+    from vimg_tpu_torch.render.integrators import _primary_rays
+    n = w * h
+    ro, rd = _primary_rays(ts, tir.RenderSettings(width=w, height=h),
+                           torch.arange(n), torch.zeros(n, dtype=torch.int64))
+    return ro, rd, torch.full((n,), 1e-4), torch.full((n,), float("inf"))
+
+
+@pytest.fixture(scope="module")
+def model_cases(terrain, soup):
+    """scene -> (tracers by variant, rays): the terrain and soup fixtures'
+    rays from above, the duplicated soup's rays from above, and a 5k
+    terrain's 32x16 camera rays (where f2b's exit fires at unroll 1)."""
+    out = {}
+    dup = _dup_soup()
+    t5k = tterrain(5000, 32, 16, device="cpu")
+    for name, ts, rays in (
+            ("terrain", terrain[1], _t(*_rays(terrain[1]))),
+            ("soup", soup[1], _t(*_rays(soup[1], n=700, seed=2, lift=0.3))),
+            ("dup_soup", dup, _t(*_rays(dup, n=512, seed=3, lift=0.3))),
+            ("terrain5k_camera", t5k, _camera_rays(t5k, 32, 16))):
+        slist = tpt.PacketTracer(ts, data=terrain[2] if name == "terrain"
+                                 else None)
+        trs = {"slist": slist,
+               "f2b": tpt.PacketTracer(ts, variant="f2b", data=slist.data,
+                                       unroll=1)}
+        out[name] = (trs, rays)
+    return out
+
+
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
+@pytest.mark.parametrize("variant", ["slist", "f2b"])
+@pytest.mark.parametrize("case", ["terrain", "soup", "dup_soup",
+                                  "terrain5k_camera"])
+def test_warp_model_matches_plain_walk(model_cases, case, variant, any_hit):
+    """B5's schedule (pairs in chain order, a lane's (ray, quarter) state,
+    the quarter merge, f2b's chunked exit, the any-hit skip) gives
+    packet_walk_plain's (t, code) bit for bit; its warp steps cover the
+    tests the plain walk counts as needed."""
+    trs, rays = model_cases[case]
+    tr = trs[variant]
+    _, packed = tr.pack(*rays)
+    meta = tr.cull(packed)
+    st = {}
+    want = tpt.packet_walk_plain(tr.tri_t, meta, *packed,
+                                 *tr.walk_args(any_hit), stats=st,
+                                 cl_len=tr.data.cl_len)
+    t, code, steps = _warp_model(tr.tri_t, meta, *packed,
+                                 *tr.walk_args(any_hit))
+    assert torch.equal(t.view(torch.int32), want[0].view(torch.int32))
+    assert torch.equal(code, want[1])
+    assert (want[0] == -float("inf")).any() if any_hit else (
+        code >= 0).sum() > 50
+    assert 0 < st["tri_tests"] <= 32 * steps
+    if case == "dup_soup" and not any_hit:
+        # every hit ties exactly with the duplicate (triangle 599 - id, the
+        # same constants): the lesser code wins
+        slot = torch.empty_like(tr.perm)
+        slot[tr.perm] = torch.arange(tr.perm.numel())
+        win = code[code >= 0].long()
+        assert (win < slot[599 - tr.perm[win]]).all()
+
+
+def test_warp_model_exits_early(model_cases):
+    """f2b's chunked exit fires in one of the model's cases (unroll 1), so
+    the exact test above covers it: the plain walk skips pairs there."""
+    trs, rays = model_cases["terrain5k_camera"]
+    pairs = {}
+    for name, tr in trs.items():
+        _, packed = tr.pack(*rays)
+        st = {}
+        tpt.packet_walk_plain(tr.tri_t, tr.cull(packed), *packed,
+                              *tr.walk_args(False), stats=st)
+        pairs[name] = st["packet_tests"]
+    assert 0 < pairs["f2b"] < pairs["slist"]

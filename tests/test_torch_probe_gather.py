@@ -183,6 +183,39 @@ def test_matmul_gate_fails_a_wrong_product(form):
     assert r2c.matmul_held(a, b, r2c.matmul_plain(a, b, other), form) > 1
 
 
+def _tile_order_product(a, b, step_sum):
+    """P19's TF32 kernel's order of additions, modelled in float32: a
+    block's warps hold each output over the k steps of 8 of one parity
+    (even steps in one warp, odd in another), each step's mma adds one sum
+    of 8 exact TF32 products to the accumulator, and the two parities are
+    added at the end (even + odd). ``step_sum`` models the mma's inner sum:
+    "rounded" the 8 products summed exactly then rounded to float32,
+    "sequential" added one by one in float32."""
+    ra, rb = (x.double() for x in r2c.mm_inputs(a, b, "default"))
+    d = [torch.zeros((r2c.MM, r2c.MM), dtype=torch.float32)
+         for _ in range(2)]
+    for s in range(r2c.MM // 8):
+        ks = slice(8 * s, 8 * s + 8)
+        if step_sum == "rounded":
+            d[s % 2] = d[s % 2] + (ra[:, ks] @ rb[ks, :]).float()
+            continue
+        for k in range(8 * s, 8 * s + 8):
+            # a TF32 x TF32 product has 22 significant bits: exact in float32
+            d[s % 2] = d[s % 2] + (ra[:, k:k + 1] * rb[k:k + 1, :]).float()
+    return d[0] + d[1]
+
+
+@pytest.mark.parametrize("step_sum", ["rounded", "sequential"])
+def test_matmul_tile_order_within_gate(step_sum):
+    """The redesigned TF32 kernel's order of additions (two k parities a
+    tile, added at the end) stays within P19's gate on the probe's inputs,
+    next to the gate's refusal of a wrong product above."""
+    a, b = r2c.matmul_inputs()
+    got = _tile_order_product(a, b, step_sum)
+    assert not torch.equal(got, r2c.matmul_plain(a, b, "default"))
+    assert r2c.matmul_held(a, b, got, "default") <= 0.5
+
+
 @pytest.mark.parametrize("n_mats", list(R4J_REPS))
 def test_lookup_matches_the_probe(refs, n_mats):
     reps = R4J_REPS[n_mats]

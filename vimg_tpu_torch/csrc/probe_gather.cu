@@ -33,7 +33,9 @@
 //  - P18: the unrolled compare-select chain (a template on n) over a
 //    shared-memory copy of tab[:, 0], every lane the whole chain.
 //  - P19 "default" is TF32 on the tensor cores (mma.sync m16n8k8, inputs
-//    rounded by cvt.rna.tf32.f32); "highest" a tiled float32 kernel of
+//    rounded by cvt.rna.tf32.f32): 32 x 32 block tiles whose A and B
+//    panels cp.async stages in shared memory, K in four groups in flight
+//    at once (mm_tf32_kernel); "highest" a tiled float32 kernel of
 //    explicit fmaf (16 x 16 tiles through shared memory).
 //  - P21 mxu: one block; warp w takes lanes 8w..8w+7; the (n_params, 128)
 //    values of a row go through shared memory and 128 threads sum them
@@ -174,31 +176,130 @@ __device__ __forceinline__ uint32_t to_tf32(float x) {
   return r;
 }
 
-// one warp a 16 x 8 output tile, K in steps of 8
-__global__ void __launch_bounds__(128)
+// TF32: a block a 32 x 32 output tile, 8 warps. All of K is issued up
+// front as four cp.async groups of 64 k (A's 32-row panel and B's 32-column
+// panel, 16 coalesced bytes a copy, 78,848 bytes of shared memory with the
+// output tile); as each group lands, the threads that copied it round it
+// to TF32 in place (cvt.rna.tf32.f32, once an element) and the block
+// multiplies it. Warp w holds the 16 x 16 tile (w & 1, (w >> 1) & 1) as
+// two m16n8k8 accumulators over the k steps of parity w >> 2; the two
+// parities are added through shared memory and the tile leaves in
+// coalesced 16-byte stores. Rows are padded (A 260, B 40 floats) so the
+// fragment reads are free of bank conflicts.
+constexpr int TT = 32;                   // output tile edge
+constexpr int TT_THREADS = 256;
+constexpr int KCH = 64;                  // k per cp.async group
+constexpr int A_LD = MM + 4, B_LD = TT + 8, C_LD = TT + 4;
+constexpr int TT_SMEM = (TT * A_LD + MM * B_LD + TT * C_LD) * 4;
+
+__device__ __forceinline__ void mm_cp16(float* dst, const float* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
+
+// the thread's copies of group `ch`: two float4 of A, two of B
+__device__ __forceinline__ float* mm_slot(float* sa, float* sb, int ch,
+                                          int u, int tid) {
+  const int idx = (u & 1) * TT_THREADS + tid;
+  return u < 2 ? sa + (idx >> 4) * A_LD + ch * KCH + (idx & 15) * 4
+               : sb + (ch * KCH + (idx >> 3)) * B_LD + (idx & 7) * 4;
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__global__ void __launch_bounds__(TT_THREADS)
     mm_tf32_kernel(const float* __restrict__ a, const float* __restrict__ b,
                    float* __restrict__ c) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, tg = lane & 3;
-  const int tile = blockIdx.x * 4 + (threadIdx.x >> 5);
-  const int m0 = (tile / (MM / 8)) * 16, n0 = (tile % (MM / 8)) * 8;
-  float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  for (int k0 = 0; k0 < MM; k0 += 8) {
-    const uint32_t a0 = to_tf32(a[(m0 + g) * MM + k0 + tg]);
-    const uint32_t a1 = to_tf32(a[(m0 + g + 8) * MM + k0 + tg]);
-    const uint32_t a2 = to_tf32(a[(m0 + g) * MM + k0 + tg + 4]);
-    const uint32_t a3 = to_tf32(a[(m0 + g + 8) * MM + k0 + tg + 4]);
-    const uint32_t b0 = to_tf32(b[(k0 + tg) * MM + n0 + g]);
-    const uint32_t b1 = to_tf32(b[(k0 + tg + 4) * MM + n0 + g]);
-    asm volatile(
-        "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+  extern __shared__ float4 mm_smem4[];
+  float* sa = reinterpret_cast<float*>(mm_smem4);   // [TT][A_LD]
+  float* sb = sa + TT * A_LD;                        // [MM][B_LD]
+  float* sc = sb + MM * B_LD;                        // [TT][C_LD]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tg = lane & 3;
+  const int m0 = blockIdx.y * TT, n0 = blockIdx.x * TT;
+
+#pragma unroll
+  for (int ch = 0; ch < MM / KCH; ch++) {
+#pragma unroll
+    for (int u = 0; u < 4; u++) {
+      const int idx = (u & 1) * TT_THREADS + tid;
+      const float* src =
+          u < 2 ? a + (m0 + (idx >> 4)) * MM + ch * KCH + (idx & 15) * 4
+                : b + (ch * KCH + (idx >> 3)) * MM + n0 + (idx & 7) * 4;
+      mm_cp16(mm_slot(sa, sb, ch, u, tid), src);
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
   }
-  c[(m0 + g) * MM + n0 + 2 * tg] = d[0];
-  c[(m0 + g) * MM + n0 + 2 * tg + 1] = d[1];
-  c[(m0 + g + 8) * MM + n0 + 2 * tg] = d[2];
-  c[(m0 + g + 8) * MM + n0 + 2 * tg + 1] = d[3];
+
+  const int wm = (warp & 1) * 16, wn = ((warp >> 1) & 1) * 16;
+  const int kh = warp >> 2;
+  float d[2][4] = {};
+#pragma unroll
+  for (int ch = 0; ch < MM / KCH; ch++) {
+    if (ch == 0) asm volatile("cp.async.wait_group 3;\n" ::);
+    if (ch == 1) asm volatile("cp.async.wait_group 2;\n" ::);
+    if (ch == 2) asm volatile("cp.async.wait_group 1;\n" ::);
+    if (ch == 3) asm volatile("cp.async.wait_group 0;\n" ::);
+#pragma unroll
+    for (int u = 0; u < 4; u++) {
+      float4* p = reinterpret_cast<float4*>(mm_slot(sa, sb, ch, u, tid));
+      float4 v = *p;
+      v.x = __uint_as_float(to_tf32(v.x));
+      v.y = __uint_as_float(to_tf32(v.y));
+      v.z = __uint_as_float(to_tf32(v.z));
+      v.w = __uint_as_float(to_tf32(v.w));
+      *p = v;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int s = kh; s < KCH / 8; s += 2) {
+      const int k0 = ch * KCH + s * 8;
+      const float* ar = sa + (wm + g) * A_LD + k0 + tg;
+      const uint32_t af[4] = {
+          __float_as_uint(ar[0]), __float_as_uint(ar[8 * A_LD]),
+          __float_as_uint(ar[4]), __float_as_uint(ar[8 * A_LD + 4])};
+#pragma unroll
+      for (int j = 0; j < 2; j++) {
+        const float* br = sb + (k0 + tg) * B_LD + wn + j * 8 + g;
+        mma_tf32(d[j], af, __float_as_uint(br[0]),
+                 __float_as_uint(br[4 * B_LD]));
+      }
+    }
+  }
+
+  // odd k steps + even k steps, then the tile in 16-byte rows
+  float* cr = sc + (wm + g) * C_LD + wn + 2 * tg;
+  if (kh == 1) {
+#pragma unroll
+    for (int j = 0; j < 2; j++) {
+      cr[j * 8] = d[j][0];
+      cr[j * 8 + 1] = d[j][1];
+      cr[8 * C_LD + j * 8] = d[j][2];
+      cr[8 * C_LD + j * 8 + 1] = d[j][3];
+    }
+  }
+  __syncthreads();
+  if (kh == 0) {
+#pragma unroll
+    for (int j = 0; j < 2; j++) {
+      cr[j * 8] = d[j][0] + cr[j * 8];
+      cr[j * 8 + 1] = d[j][1] + cr[j * 8 + 1];
+      cr[8 * C_LD + j * 8] = d[j][2] + cr[8 * C_LD + j * 8];
+      cr[8 * C_LD + j * 8 + 1] = d[j][3] + cr[8 * C_LD + j * 8 + 1];
+    }
+  }
+  __syncthreads();
+  const int row = tid >> 3, c4 = (tid & 7) * 4;
+  *reinterpret_cast<float4*>(c + (m0 + row) * MM + n0 + c4) =
+      *reinterpret_cast<const float4*>(sc + row * C_LD + c4);
 }
 
 constexpr int MT = 16;
@@ -443,10 +544,16 @@ extern "C" int vimg_probe_selchain(const float* tab, const int* idx, int n,
 extern "C" int vimg_probe_matmul(const float* a, const float* b, int tf32,
                                  float* c, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (tf32)
-    mm_tf32_kernel<<<(MM / 16) * (MM / 8) / 4, 128, 0, s>>>(a, b, c);
-  else
+  if (tf32) {
+    // the opt-in is per device: set it on every launch (it is cheap)
+    const cudaError_t e = cudaFuncSetAttribute(
+        mm_tf32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, TT_SMEM);
+    if (e != cudaSuccess) return (int)e;
+    mm_tf32_kernel<<<dim3(MM / TT, MM / TT), TT_THREADS, TT_SMEM, s>>>(a, b,
+                                                                       c);
+  } else {
     mm_f32_kernel<<<dim3(MM / MT, MM / MT), MT * MT, 0, s>>>(a, b, c);
+  }
   return (int)cudaGetLastError();
 }
 

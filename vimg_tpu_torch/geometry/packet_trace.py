@@ -14,7 +14,9 @@ constant j of its 128 triangles). Two passes per trace:
 - the walk (``trace_packet``): kernel B5 (``csrc/packet_trace.cu``) for
   CUDA tensors, counted in ``LAUNCHES``; ``packet_walk_plain`` for CPU
   tensors only. Each ray tests all 128 triangles of every candidate cluster
-  whose bit its packet holds, in chain order.
+  whose bit its packet holds, in chain order. On the card one warp runs
+  one live (candidate, packet) pair: lane (ray, quarter) tests every
+  fourth triangle.
 
 vimg_tpu's variants ``slist``, ``chase`` and ``prefetch`` consume the same
 chain in the same order and differ only in their TPU schedule, so here they
@@ -352,16 +354,19 @@ def packet_walk_plain(tri_t, meta, ro, rd, minT, maxT, n_clusters, any_hit,
 
 def trace_packet(tri_t, meta, ro, rd, minT, maxT, n_clusters, any_hit,
                  variant="slist", unroll=4, entry_scale=1.0,
-                 scene_bounds=None):
+                 scene_bounds=None, steps=None):
     """Kernel B5 (CUDA tensors) or packet_walk_plain (CPU tensors).
 
-    Replaces vimg_tpu/geometry/packet_trace.py::_make_packet_kernel: one
-    block of 128 threads per workgroup, one thread per ray; the block
-    stages each candidate cluster's 12 x 128 constants in shared memory and
-    every thread of a live packet tests the 128 triangles from there. What
-    bounds it on this card: float32 operations of the dense triangle tests
-    (bound_ms in chip_smoke.py), far below the latency of the per-candidate
-    load and barrier in this first version. See csrc/packet_trace.cu."""
+    Replaces vimg_tpu/geometry/packet_trace.py::_make_packet_kernel. A warp
+    owns its packets (one for slist, four for f2b) and runs their live
+    (candidate, packet) pairs in chain order: lane (ray lane & 7, quarter
+    lane >> 3) tests triangles 4 kk + q, reading their constants from L2,
+    and keeps its (ray, quarter)'s best t, code and mask; the quarters
+    merge at the end by the plain rule. ``steps``, a (1,) int64 CUDA
+    tensor, gets the warp test steps run added to it (the lane fill is the
+    plain count of needed tests / (32 x steps)). What bounds it on this
+    card: float32 operations of the needed triangle tests (bound_ms in
+    chip_smoke.py). See csrc/packet_trace.cu."""
     global LAUNCHES
     _check_variant(variant)
     dev = _device_of(ro)
@@ -382,6 +387,8 @@ def trace_packet(tri_t, meta, ro, rd, minT, maxT, n_clusters, any_hit,
     _check(rd, "rd", torch.float32, (N, 3), dev)
     _check(minT, "minT", torch.float32, (N,), dev)
     _check(maxT, "maxT", torch.float32, (N,), dev)
+    if steps is not None:
+        _check(steps, "steps", torch.int64, (1,), dev)
     t = torch.empty((N,), dtype=torch.float32, device=dev)
     code = torch.empty((N,), dtype=torch.float32, device=dev)
     if N == 0:
@@ -395,7 +402,8 @@ def trace_packet(tri_t, meta, ro, rd, minT, maxT, n_clusters, any_hit,
             tri_t.data_ptr(), meta.data_ptr(), ro.data_ptr(), rd.data_ptr(),
             minT.data_ptr(), maxT.data_ptr(), N, cp, n_clusters,
             int(any_hit), int(f2b), max(unroll, 1), entry_scale, *bounds,
-            t.data_ptr(), code.data_ptr(), stream)
+            t.data_ptr(), code.data_ptr(),
+            None if steps is None else steps.data_ptr(), stream)
     check(rc, "vimg_packet_trace")
     LAUNCHES += 1
     return t, code

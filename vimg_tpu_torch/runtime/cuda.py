@@ -42,8 +42,8 @@ SIGNATURES = {
     "vimg_cluster_skip": ([_P] * 8 + [_I] * 3 + [_P] * 5, _I),
     # csrc/packet_trace.cu: tri_t, meta, ro, rd, minT, maxT, n_rays, cp,
     # n_clusters, any_hit, f2b, unroll, entry_scale, scene box lo/hi (6),
-    # t, code, stream
-    "vimg_packet_trace": ([_P] * 6 + [_I] * 6 + [_F] * 7 + [_P] * 3, _I),
+    # t, code, steps (device uint64 or null), stream
+    "vimg_packet_trace": ([_P] * 6 + [_I] * 6 + [_F] * 7 + [_P] * 4, _I),
     # csrc/gather_row.cu: hi, mid, lo, ids, p, n_rows, n_ids, out, stream
     "vimg_gather_rows": ([_P] * 4 + [_I] * 3 + [_P] * 2, _I),
     # csrc/probe_walk.cu (P1): aabb, cid, skip, tri, n_nodes, ro, rd, tmin,
