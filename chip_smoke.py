@@ -22,7 +22,10 @@ Phases:
  6. B3 and B4 against their plain walks on the card, on terrain_scene
     (100k and 500k triangles) with 131,072 camera, cosine-bounce and shadow
     rays each: zero mismatches, kernel vs plain and wide vs skip; kernel
-    times with CUDA events; the bound of each;
+    times with CUDA events; the bound of each; B4's warp node and triangle
+    steps (one counted launch) equal to the replay of its schedule
+    (geometry/skip_schedule.py), and B4's leaf lane fill (needed triangle
+    tests / (32 x triangle steps));
  7. main path 2: terrain 100k at 512x256 @ 64 spp, max_depth 64,
     batch 1<<17 -> render_frame -> finalize -> write_png through B3 (not
     B1), after the same frame at 1 spp through B3 and through the plain
@@ -32,16 +35,19 @@ Phases:
  9. kernel B2 (mesh-mode megakernel) against its plain PyTorch version,
     both on the card, at 512x256 @ 1 spp: terrain 100k MIS, the smooth-
     shaded bumpy sphere 100k under the material integrator, terrain 500k
-    MIS (per-pixel parity, equal ray counts; the plain renders launch no
-    kernel); B2 timed at 4 spp on terrain 100k with CUDA events, its
-    bound from the kernel's own box and triangle test counters;
+    MIS (films bit-identical, equal ray counts; the plain renders launch
+    no kernel); B2's registers, spills and resident warps per SM, its
+    walk's warp steps and lane fill (kernel counters); B2 timed at 4 spp
+    on terrain 100k with CUDA events, its bound from the kernel's own box
+    and triangle test counters;
 10. main path 4: terrain 100k at 512x256 @ 4 spp MIS (a low-spp preview)
     -> render_frame -> finalize -> write_png through B2 only, its mean
     against the B3 wavefront's 4-spp frame (another estimator order, the
     same expectation);
 11. main path 5: the smooth bumpy sphere 100k at 512x256 @ 64 spp under
     the material integrator -> render_frame -> write_png through B2 only,
-    its mean against the plain version's 4-spp frame;
+    its mean against the plain version's 4-spp frame; then the same launch
+    alone between CUDA events, its bound and lane fill from its counters;
 12. kernel B5 (packet walk) against its plain walk on the card, on phase
     6's terrain-100k camera, bounce and shadow rays in PacketTracer's own
     order, variants slist and f2b: zero (t, code) mismatches; kernel and
@@ -244,12 +250,15 @@ def fill(stats):
 
 
 def b1_report(scene, st):
-    """B1's registers, spills and resident warps per SM for this frame."""
+    """The megakernel's registers, spills and resident warps per SM for
+    this frame (B1 or B2, by the scene's mode)."""
     from vimg_tpu_torch.render.mega import kernel
     from vimg_tpu_torch.runtime import cuda
     occ = kernel.occupancy(scene, st)
-    part = f"mega_kernelI8AnalyticLb{int(st.integrator == 'mis')}E"
-    return (f"B1 ({st.integrator}) {occ['registers']} registers, "
+    mode, name = (("4Mesh", "B2") if kernel.is_mesh_mode(scene)
+                  else ("8Analytic", "B1"))
+    part = f"mega_kernelI{mode}Lb{int(st.integrator == 'mis')}E"
+    return (f"{name} ({st.integrator}) {occ['registers']} registers, "
             f"{occ['local_bytes']} B local memory a thread, "
             f"{occ['blocks_per_sm']} blocks = {occ['warps_per_sm']} "
             f"resident warps per SM; ptxas: "
@@ -403,6 +412,25 @@ def mismatches(a, b):
     return int(bad.sum()), err
 
 
+def skip_steps(tracer, rays, any_hit, st):
+    """B4's warp node and triangle steps (one counted launch, not timed),
+    held equal to the replay of its schedule on the same rays, and its
+    lane fill (the plain walk's triangle tests / (32 x triangle steps))."""
+    import torch
+    from vimg_tpu_torch.geometry import cluster_trace as ct
+    from vimg_tpu_torch.geometry import skip_schedule as ss
+    tabs = (*tracer.node_tables, tracer.tri_rows, tracer.data.n_nodes)
+    steps = torch.zeros(2, dtype=torch.int64, device=rays[0].device)
+    ct.trace_skip(*tabs, *rays, any_hit, steps=steps)
+    node, tri = (int(x) for x in steps.cpu())
+    _, warp = ss.warp_schedule(*tabs, *rays, any_hit)
+    if (warp["node_steps"], warp["tri_steps"]) != (node, tri):
+        fail(f"B4 warp steps {node}, {tri} differ from its schedule's "
+             f"{warp['node_steps']}, {warp['tri_steps']}")
+    return dict(node_steps=node, tri_steps=tri,
+                fill=st["tri_tests"] / max(32 * tri, 1))
+
+
 def kernel_vs_plain(n_tris, scene):
     """Phase 6 for one terrain: both walks, three ray kinds."""
     import torch
@@ -458,6 +486,12 @@ def kernel_vs_plain(n_tris, scene):
                 bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 box_tests=st["box_tests"], tri_tests=st["tri_tests"])
+            if walk == "skip":
+                w = skip_steps(tr, rs, any_hit, st)
+                res[(walk, kind)].update(w)
+                log(f"  skip {kind:6s}: warp steps node {w['node_steps']} "
+                    f"tri {w['tri_steps']} (equal to the replay of its "
+                    f"schedule), leaf lane fill {w['fill']:.4f}")
             log(f"  {walk:4s} {kind:6s}: {'occluded' if any_hit else 'hits'} "
                 f"{hits}/{N_RAYS}, kernel vs plain mismatches {bad} "
                 f"(max|d| {err:g}); kernel {ms:.3f} ms, plain "
@@ -630,26 +664,40 @@ def b2_vs_plain(label, kind, n_tris, integrator, dev):
             kernel.LAUNCHES_MESH) != walks:
         fail(f"{label}: the plain version launched a kernel")
     r = compare(f"{label} {MESH_W}x{MESH_H}@1 B2 vs plain", ref, img)
-    log(f"    B2 {1e3 * k_s:.2f} ms, plain {1e3 * p_s:.1f} ms; segments "
+    differ = int((img.contiguous().view(torch.int32)
+                  != ref.contiguous().view(torch.int32)).any(-1).sum())
+    log(f"    B2 {1e3 * k_s:.2f} ms, plain {1e3 * p_s:.1f} ms; film: "
+        f"{differ} pixels not bit-identical (max|d| {r['max']:g}); segments "
         f"{ks['segments']} / {ps['segments']}, shadow rays "
         f"{ks['shadow_rays']} / {ps['shadow_rays']}; B2 walk: "
-        f"{ks['box_tests']} box + {ks['tri_tests']} triangle tests")
+        f"{ks['box_tests']} box + {ks['tri_tests']} triangle tests, warp "
+        f"steps node {ks['warp_node_steps']} tri {ks['warp_tri_steps']}, "
+        f"lane fill {b2_fill(ks):.4f}")
+    log(f"    {b1_report(scene, st)}")
     if not (r["mean"] < UNIT_MEAN and r["frac"] < UNIT_FRAC
             and r["corr"] > UNIT_CORR):
         fail(f"{label}: B2 vs plain per-pixel parity")
+    if differ:
+        fail(f"{label}: B2's film is not its plain version's bit for bit")
     for key in ("segments", "shadow_rays"):
-        if abs(ks[key] - ps[key]) > COUNT_REL * max(ps[key], 1):
+        if ks[key] != ps[key]:
             fail(f"{label}: {key} count")
     return scene, nbytes, r["max"], 1e3 * p_s
 
 
-def b2_timing(scene, nbytes):
-    """B2 at B2_TIMED_SPP on the scene: the wrapper's CUDA events around
-    one launch, after a warm one; the bound from this launch's
-    counters."""
+def b2_fill(ks):
+    """Lane fill of B2's walk: needed triangle tests over 32 lanes x its
+    warp triangle steps (kernel counters)."""
+    return ks["tri_tests"] / max(32 * ks["warp_tri_steps"], 1)
+
+
+def b2_timing(scene, nbytes, st=None):
+    """B2 on the scene (MIS at B2_TIMED_SPP unless ``st`` says otherwise):
+    the wrapper's CUDA events around one launch, after a warm one; the
+    bound from this launch's counters."""
     from vimg_tpu_torch.geometry import cluster_trace as ct
     from vimg_tpu_torch.render.mega import kernel
-    st = b2_settings("mis", B2_TIMED_SPP)
+    st = st or b2_settings("mis", B2_TIMED_SPP)
     kernel.render_megakernel(scene, st)                       # warm
     _, ks = kernel.render_megakernel(scene, st, return_stats=True)
     ms = 1e3 * ks["seconds"]
@@ -660,12 +708,15 @@ def b2_timing(scene, nbytes):
     t_ops = 1e3 * ops / FP32_OPS_PER_S
     t_bytes = 1e3 * (nbytes + MESH_W * MESH_H * 3 * 4) / HBM_BYTES_PER_S
     res = dict(ms=ms, bound_ms=max(t_ops, t_bytes),
-               bound_by="operations" if t_ops >= t_bytes else "bytes")
-    log(f"    B2 @ {B2_TIMED_SPP} spp: {ms:.3f} ms (CUDA events); "
+               bound_by="operations" if t_ops >= t_bytes else "bytes",
+               lane_fill=b2_fill(ks))
+    log(f"    B2 @ {st.spp} spp {st.integrator}: {ms:.3f} ms (CUDA events); "
         f"{ks['segments']} segments, {ks['shadow_rays']} shadow rays, "
-        f"{ks['box_tests']} box + {ks['tri_tests']} triangle tests (kernel "
-        f"counters) -> bound {res['bound_ms']:.4f} ms ({res['bound_by']}: "
-        f"ops {t_ops:.4f} ms, bytes {t_bytes:.4f} ms)")
+        f"{ks['box_tests']} box + {ks['tri_tests']} triangle tests, warp "
+        f"steps node {ks['warp_node_steps']} tri {ks['warp_tri_steps']} "
+        f"(kernel counters; lane fill {res['lane_fill']:.4f}) -> bound "
+        f"{res['bound_ms']:.4f} ms ({res['bound_by']}: ops {t_ops:.4f} ms, "
+        f"bytes {t_bytes:.4f} ms)")
     return res
 
 
@@ -737,11 +788,16 @@ def b2_phases(dev, png_dir, card):
         sc, b2_settings("material", MAIN5_REF_SPP)))
     log(f"    reference: the plain version at {MAIN5_REF_SPP} spp, "
         f"{ref5_s:.1f} s")
-    b2_launches += b2_main_path(11, "bumpy 100k smooth material", sc,
-                                b2_settings("material", MAIN5_SPP), ref5,
-                                "bumpy100k_b2.png", png_dir, card)
+    st5 = b2_settings("material", MAIN5_SPP)
+    b2_launches += b2_main_path(11, "bumpy 100k smooth material", sc, st5,
+                                ref5, "bumpy100k_b2.png", png_dir, card)
+    log(f"    main path 5's launch alone (not counted as a main-path "
+        f"launch):")
+    m5 = b2_timing(sc, b2_scenes["bumpy 100k smooth material"][1], st5)
 
-    return dict(b2, launches=b2_launches, max_abs_err=b2_err)
+    return dict(b2, launches=b2_launches, max_abs_err=b2_err,
+                main5_ms=m5["ms"], main5_bound_ms=m5["bound_ms"],
+                main5_bound_by=m5["bound_by"], main5_lane_fill=m5["lane_fill"])
 
 
 # ---------------------------------------------------------------------------
@@ -1857,7 +1913,11 @@ def main():
             "bound_ms": c["bound_ms"],
             "bound_by": c["bound_by"],
             "library_ms": None,
-            "clock": "events"})
+            "clock": "events",
+            **({"lane_fill": c["fill"], "camera_ms":
+                cmp[(n_tris, walk, "camera")]["ms"], "shadow_ms":
+                cmp[(n_tris, walk, "shadow")]["ms"]} if walk == "skip"
+               else {})})
     rows.append({
         "name": "megakernel_mesh",
         "route": "cuda",
@@ -1871,7 +1931,9 @@ def main():
         "bound_ms": b2["bound_ms"],
         "bound_by": b2["bound_by"],
         "library_ms": None,
-        "clock": "events"})
+        "clock": "events",
+        **{k: b2[k] for k in ("lane_fill", "main5_ms", "main5_bound_ms",
+                              "main5_bound_by", "main5_lane_fill")}})
     rows.append(dict(b5, name="packet_trace", route="cuda",
                      source="vimg_tpu_torch/csrc/packet_trace.cu",
                      replaces="vimg_tpu/geometry/packet_trace.py:267",

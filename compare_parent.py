@@ -1,5 +1,5 @@
-"""Time this checkout's kernels B5 (packet walk) and P19 (TF32 product) and
-main path 6 against another checkout of the port, on one GPU, in turns.
+"""Time this checkout's kernels B2-B5 and P19 and main paths 3 and 6
+against another checkout of the port, on one GPU, in turns.
 
 Unpack the other commit into a directory that .gitignore lists and run,
 from the repository root on a machine with an NVIDIA GPU:
@@ -21,15 +21,32 @@ then:
 - P19: the TF32 product of probe_r2c on its (256, 256) inputs, three
   readings of probes.common.device_ms (launches queued behind a spin);
 - main path 6: render_frame(..., tracer_force="packet") on terrain 100k
-  at 512x256 @ 64 spp after a 1-spp warm-up frame, timed once.
+  at 512x256 @ 64 spp after a 1-spp warm-up frame, timed once;
+- B4 (skip walk) on terrain 500k's camera, bounce and shadow rays and B3
+  (wide walk) on terrain 100k's, made as chip_smoke.py's phase 6 makes
+  them, in the tracer's order: one launch kept, two warm-ups, three
+  readings of 20 launches between CUDA events; B4's warp steps where the
+  checkout's trace_skip counts them;
+- B2 at main paths 4 (terrain 100k, 4 spp MIS) and 5 (the smooth bumpy
+  sphere 100k, 64 spp material), 512x256: one warm launch, then three
+  launches each timed by the wrapper's CUDA events; the first one's film
+  and counters (segments, shadow rays, box and triangle tests) kept;
+- main path 3: render_frame on terrain 500k at 512x256 @ 64 spp MIS
+  (the wavefront over B4) after a 1-spp warm-up frame, timed once;
+- B1 on the flagship at 1800x800 @ 4 spp (its integrator body is B2's):
+  one warm launch, three launches each timed by the wrapper's CUDA
+  events, the first one's film and counters kept.
 
-Then it checks that every B5 (t, code) is bit-equal across the four runs,
-that each P19 product is held by matmul_held, and that the frames agree
-(only the film's atomic index_add_ order may differ), prints the table
-and the card's name and power limit, and writes the readings as JSON.
-Exits non-zero on any failure.
+Then it checks that every B3, B4 (t, slot, u, v) and B5 (t, code) is
+bit-equal across the four runs, that B1's and B2's films and counters are,
+that
+each P19 product is held by matmul_held, and that the wavefront frames
+agree (only the film's atomic index_add_ order may differ), prints the
+table and the card's name and power limit, and writes the readings as
+JSON. Exits non-zero on any failure.
 """
 import argparse
+import dataclasses
 import importlib.util
 import inspect
 import json
@@ -106,9 +123,103 @@ def worker(tree, out):
                                               tracer_force="packet"))
     res["frame"] = dict(s=secs, loop_s=wavefront.LAST_STATS["seconds"],
                         launches=pt.LAUNCHES - before)
-    torch.save({"b5": outs, "img": img.cpu()}, out + ".pt")
+    res["walks"], walk_outs = walk_readings(cs, scene, rays, dev)
+    res["b2"], b2_outs = b2_readings(cs, dev)
+    res["frame3"], img3 = frame_readings(cs, dev)
+    torch.save({"b5": outs, "img": img.cpu(), "walks": walk_outs,
+                "b2": b2_outs, "img3": img3}, out + ".pt")
     with open(out, "w") as f:
         json.dump(res, f)
+
+
+def walk_readings(cs, scene100, rays100, dev):
+    """B3 on terrain 100k's phase-6 rays and B4 on terrain 500k's: (t,
+    slot, u, v) of one launch, three readings of 20 launches, B4's warp
+    steps where trace_skip counts them."""
+    import torch
+    from vimg_tpu_torch.geometry import cluster_trace as ct
+    from vimg_tpu_torch.scene.synthetic import terrain_scene
+    counts = "steps" in inspect.signature(ct.trace_skip).parameters
+    wide = ct.ClusterTracer(scene100, walk="wide")
+    scene500 = terrain_scene(500_000, cs.MESH_W, cs.MESH_H, device=dev)
+    data = ct.ClusterData(scene500)
+    wide500 = ct.ClusterTracer(scene500, walk="wide", data=data)
+    skip = ct.ClusterTracer(scene500, walk="skip", data=data)
+    rays500 = cs.terrain_rays(scene500, wide500)
+    res, outs = {}, {}
+    for walk, tr, rays in (("b3", wide, rays100), ("b4", skip, rays500)):
+        for kind, r in rays.items():
+            rs = cs.sorted_rays(tr, r)
+            any_hit = kind == "shadow"
+            if walk == "b3":
+                fn = lambda: ct.trace_wide(*tr.node_tables, tr.tri_rows,
+                                           tr.n_wide, tr.max_stack, *rs,
+                                           any_hit)
+            else:
+                fn = lambda: ct.trace_skip(*tr.node_tables, tr.tri_rows,
+                                           tr.data.n_nodes, *rs, any_hit)
+            got = fn()
+            steps = None
+            if walk == "b4" and counts:
+                st = torch.zeros(2, dtype=torch.int64, device=dev)
+                ct.trace_skip(*tr.node_tables, tr.tri_rows, tr.data.n_nodes,
+                              *rs, any_hit, steps=st)
+                steps = [int(x) for x in st.cpu()]
+            for _ in range(2):
+                fn()
+            ms = [cs.event_ms(fn, cs.TIMED_LAUNCHES)[1]
+                  for _ in range(READINGS)]
+            outs[f"{walk}/{kind}"] = [x.cpu() for x in got]
+            res[f"{walk}/{kind}"] = dict(ms=ms, steps=steps)
+    return res, outs
+
+
+def b2_readings(cs, dev):
+    """B2 at main paths 4 and 5 and B1 on the flagship at 4 spp: three
+    launches each between the wrapper's CUDA events after a warm one; the
+    first launch's film and counters."""
+    from vimg_tpu_torch.render.mega import kernel
+    from vimg_tpu_torch.scene.json_loader import load_json_scene
+    res, outs = {}, {}
+    flag, fst = load_json_scene(cs.FLAGSHIP, device=dev)
+    frames = (("main4", cs.b2_scene("terrain", 100_000, dev),
+               cs.b2_settings("mis", cs.MAIN4_SPP)),
+              ("main5", cs.b2_scene("bumpy", 100_000, dev),
+               cs.b2_settings("material", cs.MAIN5_SPP)),
+              ("b1_flagship4", flag, dataclasses.replace(fst, spp=4)))
+    for key, scene, st in frames:
+        kernel.render_megakernel(scene, st)
+        runs = [kernel.render_megakernel(scene, st, return_stats=True)
+                for _ in range(READINGS)]
+        img, ks = runs[0]
+        outs[key] = dict(img=img.cpu(), counts=[
+            ks[k] for k in ("segments", "shadow_rays", "box_tests",
+                            "tri_tests", "warp_steps") if k in ks])
+        res[key] = dict(ms=[1e3 * r[1]["seconds"] for r in runs],
+                        warp_tri_steps=ks.get("warp_tri_steps"),
+                        tri_tests=ks.get("tri_tests"))
+    return res, outs
+
+
+def frame_readings(cs, dev):
+    """Main path 3: terrain 500k at 512x256 @ 64 spp MIS through the
+    wavefront over B4, after a 1-spp warm-up frame, timed once."""
+    from vimg_tpu_torch.geometry import cluster_trace as ct
+    from vimg_tpu_torch.render import wavefront
+    from vimg_tpu_torch.render.render import render_frame
+    from vimg_tpu_torch.scene import ir
+    from vimg_tpu_torch.scene.synthetic import terrain_scene
+    scene = terrain_scene(500_000, cs.MESH_W, cs.MESH_H, device=dev)
+    st = ir.RenderSettings(cs.MESH_W, cs.MESH_H, spp=cs.MESH_SPP,
+                           max_depth=64, integrator="mis", tonemap="agx",
+                           batch_size=cs.MESH_BATCH)
+    render_frame(scene, ir.RenderSettings(
+        cs.MESH_W, cs.MESH_H, spp=1, max_depth=64, integrator="mis",
+        tonemap="agx", batch_size=cs.MESH_BATCH))
+    before = ct.LAUNCHES_SKIP
+    img, secs = cs.timed(lambda: render_frame(scene, st))
+    return dict(s=secs, loop_s=wavefront.LAST_STATS["seconds"],
+                launches=ct.LAUNCHES_SKIP - before), img.cpu()
 
 
 def main():
@@ -154,10 +265,24 @@ def main():
                 bad.append(f"B5 {key} run {res['name']}: {n} rays differ")
         if res["p19"]["held"] > 1.0:
             bad.append(f"P19 run {res['name']}: gate {res['p19']['held']}")
-        r = cs.compare(f"main path 6, {res['name']} vs this",
-                       ref["img"], res["data"]["img"])
-        if not (r["mean"] < cs.WF_MEAN and r["corr"] > cs.WF_CORR):
-            bad.append(f"main path 6 run {res['name']}: another image")
+        for key, got in res["data"]["walks"].items():
+            n = sum(int((a.view(torch.int32) != b.view(torch.int32)).sum())
+                    for a, b in zip(got, ref["walks"][key]))
+            if n:
+                bad.append(f"{key} run {res['name']}: {n} values differ")
+        for key, got in res["data"]["b2"].items():
+            want = ref["b2"][key]
+            if not torch.equal(got["img"].view(torch.int32),
+                               want["img"].view(torch.int32)):
+                bad.append(f"{key} run {res['name']}: another film")
+            if got["counts"] != want["counts"]:
+                bad.append(f"{key} run {res['name']}: counters "
+                           f"{got['counts']} != {want['counts']}")
+        for name, key in (("main path 6", "img"), ("main path 3", "img3")):
+            r = cs.compare(f"{name}, {res['name']} vs this", ref[key],
+                           res["data"][key])
+            if not (r["mean"] < cs.WF_MEAN and r["corr"] > cs.WF_CORR):
+                bad.append(f"{name} run {res['name']}: another image")
 
     def span(key, get):
         xs = [x for res in runs if res["name"] == key for x in get(res)]
@@ -176,6 +301,24 @@ def main():
     print(f"main path 6 frame s (render loop s), in run order: " + ", ".join(
         f"{r['name']} {r['frame']['s']:.3f} ({r['frame']['loop_s']:.3f})"
         for r in runs))
+    print(f"B3 (terrain 100k) and B4 (terrain 500k) ms (20 launches between "
+          f"CUDA events, {READINGS} readings a run):")
+    for key in runs[0]["walks"]:
+        print(f"  {key:10s} other "
+              f"{span('other', lambda r: r['walks'][key]['ms'])}  this "
+              f"{span('this', lambda r: r['walks'][key]['ms'])}  warp steps "
+              f"(node, tri; this) {runs[1]['walks'][key]['steps']}")
+    for key in runs[0]["b2"]:
+        b2 = runs[1]["b2"][key]
+        fill = (b2["tri_tests"] / (32 * b2["warp_tri_steps"])
+                if b2["warp_tri_steps"] else None)
+        print(f"{key} ms (CUDA events, one launch each): other "
+              f"{span('other', lambda r: r['b2'][key]['ms'])}  this "
+              f"{span('this', lambda r: r['b2'][key]['ms'])}  lane fill "
+              f"(this) {fill}")
+    print(f"main path 3 frame s (render loop s), in run order: " + ", ".join(
+        f"{r['name']} {r['frame3']['s']:.3f} ({r['frame3']['loop_s']:.3f})"
+        for r in runs))
     print(card)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
@@ -186,7 +329,8 @@ def main():
                 failures=bad), f, indent=1)
     if bad:
         sys.exit("FAIL: " + "; ".join(bad))
-    print("all B5 outputs bit-equal across the runs, P19 held, frames agree")
+    print("all B3, B4, B5 outputs and B1, B2 films and counters bit-equal "
+          "across the runs, P19 held, frames agree")
 
 
 if __name__ == "__main__":

@@ -11,7 +11,9 @@ JAX). Without CUDA the card tests skip and only the dispatch checks run.
 Criteria: for B1 and B2, tests/test_megakernel.py's per-pixel bound at
 unit scale (mean|d| < 1e-4, < 1% of pixels with max|d| > 1e-5; the mesh
 scenes are unit scale too) and equal segment and shadow-ray counts; for
-B3, B4 and B5, bit-equality with their plain walks; for B6 and P1-P31,
+B3, B4 and B5, bit-equality with their plain walks (B4 also with exact
+ties, and its warp steps equal to its schedule's replay); for B6 and
+P1-P31,
 bit-equality with their plain versions, except where the P12-P31 tests
 say otherwise.
 """
@@ -199,6 +201,91 @@ def test_cluster_kernels_match_plain_walks(cuda, walk):
 
 def _bits(x):
     return x.view(torch.int32)
+
+
+def _tied(tri):
+    """tests/test_torch_cluster_warp.py's exact ties: in every cluster
+    row 1 repeats row 0 and rows 16..23 repeat rows 0..7 (sub-box 1's box
+    widened to hold sub-box 0's)."""
+    t = tri.clone().view(-1, ct.CLUSTER_K, ct.ROW16)
+    t[:, 1, :13] = t[:, 0, :13]
+    t[:, 16:24, :13] = t[:, 0:8, :13]
+    t[:, 2, 13:16] = torch.minimum(t[:, 2, 13:16], t[:, 0, 13:16])
+    t[:, 3, 13:16] = torch.maximum(t[:, 3, 13:16], t[:, 1, 13:16])
+    return t.reshape(-1).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ties", [False, True])
+def test_skip_kernel_bit_equal_with_warp_steps(cuda, ties):
+    """B4 (the warp-cooperative walk) bit for bit against skip_walk_plain,
+    closest and any hit, on a ragged ray count with idle lanes, with exact
+    ties or not; its warp node and triangle steps equal the replay of its
+    schedule (skip_schedule.warp_schedule)."""
+    from vimg_tpu_torch.geometry import skip_schedule as ss
+    scene = terrain_scene(20_000, 16, 8, device=cuda)
+    tr = ct.ClusterTracer(scene, walk="skip")
+    tri = _tied(tr.tri_rows) if ties else tr.tri_rows
+    rays = tuple(x[:16384 - 11] for x in _terrain_rays(cuda))
+    order = tr.sort_order(rays[0], rays[1], rays[3])
+    rays = tuple(x[order].contiguous() for x in rays)
+    tabs = (*tr.node_tables, tri, tr.data.n_nodes)
+    for any_hit in (False, True):
+        steps = torch.zeros(2, dtype=torch.int64, device=cuda)
+        got = ct.trace_skip(*tabs, *rays, any_hit, steps=steps)
+        st = {}
+        ref = ct.skip_walk_plain(*tabs, *rays, any_hit, stats=st)
+        for a, b in zip(got, ref):
+            assert torch.equal(_bits(a) if a.is_floating_point() else a,
+                               _bits(b) if b.is_floating_point() else b)
+        _, counts = ss.warp_schedule(*tabs, *rays, any_hit)
+        assert [int(x) for x in steps.cpu()] == [counts["node_steps"],
+                                                 counts["tri_steps"]]
+        assert st["tri_tests"] / (32 * counts["tri_steps"]) > 0.5
+
+
+@pytest.mark.cuda
+def test_skip_kernel_refuses_misaligned_tables(cuda):
+    """B4 reads node boxes and triangle rows 16 bytes at a time: a view
+    that does not start 16-byte aligned raises (no fallback)."""
+    scene = terrain_scene(2_000, 16, 8, device=cuda)
+    tr = ct.ClusterTracer(scene, walk="skip")
+    rays = _terrain_rays(cuda, n=256)
+    aabbs, cid, skip = tr.node_tables
+    shifted = torch.empty(aabbs.numel() + 1, device=cuda)[1:]
+    shifted.copy_(aabbs)
+    with pytest.raises(ValueError, match="16-byte"):
+        ct.trace_skip(shifted, cid, skip, tr.tri_rows, tr.data.n_nodes,
+                      *rays, False)
+    rows = torch.empty(tr.tri_rows.numel() + 2, device=cuda)[2:]
+    rows.copy_(tr.tri_rows)
+    with pytest.raises(ValueError, match="16-byte"):
+        ct.trace_skip(aabbs, cid, skip, rows, tr.data.n_nodes, *rays, True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frame", ["terrain_mis", "bumpy_smooth_material"])
+def test_mesh_kernel_bit_identical_to_plain(cuda, frame):
+    """B2 (every lane of a warp at each walk) against its plain version at
+    a small size whose width is not a power of two: the film bit for bit,
+    equal segment and shadow-ray counts, and the walk's lane fill from its
+    counters."""
+    from vimg_tpu_torch.scene.synthetic import bumpy_sphere_scene
+    if frame == "terrain_mis":
+        scene, integ = terrain_scene(5000, 48, 32, device=cuda), "mis"
+    else:
+        scene = bumpy_sphere_scene(5000, 48, 32, smooth_normals=True,
+                                   device=cuda)
+        integ = "material"
+    st = ir.RenderSettings(width=48, height=32, spp=1, max_depth=64,
+                           integrator=integ)
+    img, ks = kernel.render_megakernel(scene, st, return_stats=True)
+    ref, ps = kernel.render_megakernel_plain(scene, st, return_stats=True)
+    assert torch.equal(_bits(img.contiguous()), _bits(ref.contiguous()))
+    assert (ks["segments"], ks["shadow_rays"]) == (ps["segments"],
+                                                   ps["shadow_rays"])
+    assert 0.5 < ks["tri_tests"] / (32 * ks["warp_tri_steps"]) <= 1.0
+    assert ks["warp_node_steps"] > 0
 
 
 @pytest.mark.cuda

@@ -11,9 +11,10 @@
 //   triangles, or any with vertex normals. The TPU kernel walks the binary
 //   skip-link cluster tree in-kernel (trace_mesh kernel.py:641,
 //   trace_mesh_stack :885, trace_mesh_defer :1148; the three give the
-//   same hits); here every thread runs the skip walk of cluster_walk.cuh
-//   (kernel B4's device code) over the same tables, tests the spheres
-//   densely beside it and merges them as the tracer does. The TPU kernel's
+//   same hits); here the warp runs the warp-cooperative skip walk of
+//   cluster_walk.cuh (kernel B4's device code) over the same tables, a
+//   lane's nodes per lane and the warp's leaves together, tests the
+//   spheres densely beside it and merges them as the tracer does. The TPU kernel's
 //   VMEM residency and per-leaf DMA streaming have no counterpart: every
 //   table lives in global memory.
 //
@@ -363,17 +364,21 @@ struct Analytic {
   static constexpr int kStats = 3;  // segments, shadow rays, warp steps
   static constexpr bool kTiled = false;  // groups of 32 consecutive pixels
   static constexpr bool kFlat = true;    // the flat loop (mega_kernel)
+  // the traces are per lane: only the lanes with a ray call them
+  static constexpr bool kWarpWalk = false;
   // __launch_bounds__'s minimum blocks per SM: 12 cap B1 at 40 registers,
   // and 48 resident warps per SM hide the latency of its spills and of its
   // dependent loads better than 16 warps without spills (the measured
   // table of build variants in PERF_APPENDIX.md)
   static constexpr int kMinBlocks = 12;
   __device__ static Hit closest(const Tables& S, V3 ro, V3 rd, float minT,
-                                float maxT, cwalk::Tests&) {
+                                float maxT, bool, cwalk::Tests&,
+                                cwalk::Steps&) {
     return trace(S, ro, rd, minT, maxT, false);
   }
   __device__ static bool occluded(const Tables& S, V3 ro, V3 rd, float minT,
-                                  float maxT, cwalk::Tests&) {
+                                  float maxT, bool, cwalk::Tests&,
+                                  cwalk::Steps&) {
     return trace(S, ro, rd, minT, maxT, true).id >= 0;
   }
   __device__ static HitInfo info(const Tables& S, V3 ro, V3 rd,
@@ -382,35 +387,44 @@ struct Analytic {
   }
 };
 
-// mesh mode (B2): the triangles through the skip walk of the binary
-// cluster tree (cluster_walk.cuh, kernel B4's device code), the spheres
-// densely beside it, merged as cluster_trace.merge_spheres merges them: a
-// sphere wins only on a strictly smaller t
+// mesh mode (B2): the triangles through the warp-cooperative skip walk of
+// the binary cluster tree (cluster_walk.cuh, kernel B4's device code), the
+// spheres densely beside it, merged as cluster_trace.merge_spheres merges
+// them: a sphere wins only on a strictly smaller t. The walk runs a warp's
+// leaves together, so every lane of the warp calls each trace (go says
+// whether the lane has a ray).
 struct Mesh {
-  static constexpr int kStats = 4;  // + box tests, triangle tests
+  // + box tests, triangle tests, warp node steps, warp triangle steps
+  static constexpr int kStats = 6;
   static constexpr bool kTiled = true;   // 8 x 4 pixel tiles
   // the per-sample loop: all lanes of a warp on the same sample keep the
   // walk coherent (the flat loop measured about 20% slower on a 64-spp
   // material frame, PERF.md)
   static constexpr bool kFlat = false;
+  static constexpr bool kWarpWalk = true;
+  // no register cap: caps of 2-8 blocks per SM measured no faster on main
+  // paths 4 and 5 (PERF_APPENDIX.md)
   static constexpr int kMinBlocks = 1;
   __device__ static cwalk::Hit walk(const Tables& S, V3 ro, V3 rd,
                                     float minT, float maxT, bool any_hit,
-                                    cwalk::Tests& n) {
+                                    bool go, cwalk::Tests& n,
+                                    cwalk::Steps& st) {
     cwalk::Ray r = cwalk::make_ray(ro.x, ro.y, ro.z, rd.x, rd.y, rd.z, minT);
     cwalk::Hit w;
     w.t = maxT;
     w.u = 0.0f;
     w.v = 0.0f;
     w.slot = -1;
-    if (cwalk::walks(r, maxT, any_hit))
-      cwalk::skip_walk<true>(S.node_aabb, S.node_cid, S.node_skip, S.ctri,
-                             S.n_nodes, r, w, any_hit, n);
+    go = go && cwalk::walks(r, maxT, any_hit);
+    cwalk::warp_skip_walk<true, true>(S.node_aabb, S.node_cid, S.node_skip,
+                                      S.ctri, S.n_nodes, r, w, any_hit, go,
+                                      n, st);
     return w;
   }
   __device__ static Hit closest(const Tables& S, V3 ro, V3 rd, float minT,
-                                float maxT, cwalk::Tests& n) {
-    cwalk::Hit w = walk(S, ro, rd, minT, maxT, false, n);
+                                float maxT, bool go, cwalk::Tests& n,
+                                cwalk::Steps& st) {
+    cwalk::Hit w = walk(S, ro, rd, minT, maxT, false, go, n, st);
     Hit h = no_hit(__int_as_float(0x7f800000));
     if (w.slot >= 0) {
       h.t = w.t;
@@ -418,7 +432,7 @@ struct Mesh {
       h.bu = w.u;
       h.bv = w.v;
     }
-    if (S.ns > 0) {
+    if (go && S.ns > 0) {
       Hit s = no_hit(maxT);
       sphere_loop(S, ro, rd, minT, s, false);
       if (s.id >= 0 && s.t < h.t) h = s;
@@ -426,12 +440,16 @@ struct Mesh {
     return h;
   }
   __device__ static bool occluded(const Tables& S, V3 ro, V3 rd, float minT,
-                                  float maxT, cwalk::Tests& n) {
-    if (S.ns > 0) {
+                                  float maxT, bool go, cwalk::Tests& n,
+                                  cwalk::Steps& st) {
+    bool sph = false;
+    if (go && S.ns > 0) {
       Hit s = no_hit(maxT);
-      if (sphere_loop(S, ro, rd, minT, s, true)) return true;
+      sph = sphere_loop(S, ro, rd, minT, s, true);
     }
-    return walk(S, ro, rd, minT, maxT, true, n).t == -INFINITY;
+    return walk(S, ro, rd, minT, maxT, true, go && !sph, n, st).t ==
+               -INFINITY ||
+           sph;
   }
   __device__ static HitInfo info(const Tables& S, V3 ro, V3 rd,
                                  const Hit& h) {
@@ -1010,11 +1028,12 @@ __device__ __forceinline__ float scrub_naninf(float a) {
 }
 
 // Per-thread counters: closest-hit segments and shadow rays (both modes),
-// warp steps (kept by lane 0 of each warp), walk box and triangle tests
-// (mesh mode)
+// warp steps (analytic mode, kept by lane 0 of each warp), walk box and
+// triangle tests and the walk's warp steps (mesh mode; steps by lane 0)
 struct Counts {
   unsigned long long seg, shadow, steps;
   cwalk::Tests walk;
+  cwalk::Steps wsteps;
 };
 
 // ---------------------------------------------------------------------------
@@ -1042,42 +1061,41 @@ __device__ __forceinline__ void end_path(Lane& L, V3 res) {
   L.fresh = true;
 }
 
-// One segment of an MIS path (integrators.mis_integrator_loop, cut at its
-// closest-hit traces). A fresh path traces its camera ray and keeps the
-// two early exits (background, an emissive first hit) that add no MIS
-// weight; a bounce traces from the last hit, weights an emitter or
-// background hit, and plays roulette with key d before d advances. A path
-// that goes on then shades its new hit at depth d (NEE shadow ray, BSDF
-// sample) and keeps the next ray.
+// The steps below take `work`: whether this lane traces a segment. In
+// mesh mode (G::kWarpWalk) every lane of the warp calls them, so that each
+// trace is reached by the whole warp; in analytic mode only working lanes
+// call them, with work = true.
+
+// The closest hit of an MIS segment decided (integrators.mis_integrator_
+// loop up to the hit's shading): the two early exits of a fresh path
+// (background, an emissive first hit), a bounce's weighted emitter or
+// background hit, roulette with key d before d advances, the depth limit.
+// Returns whether the path goes on to shade its hit at depth L.d (then hi
+// and mat hold its shading data).
 template <class G>
-__device__ __forceinline__ void mis_step(const Tables& S, int pix, Lane& L,
-                                         Counts& c) {
-  const float inf = __int_as_float(0x7f800000);
-  const uint32_t samp = (uint32_t)(L.m + S.sample_offset);
-  const float nl = (float)(S.nl > 1 ? S.nl : 1);
-  if (L.fresh) primary_ray(S, pix, samp, L.ro, L.rd);
-  c.seg += 1;
-  Hit h = G::closest(S, L.ro, L.rd, MIN_T, inf, c.walk);
+__device__ __forceinline__ bool mis_hit(const Tables& S, int pix,
+                                        uint32_t samp, float nl, const Hit& h,
+                                        Lane& L, HitInfo& hi, Mat& mat) {
   if (h.id < 0) {
     V3 bg = ld3(S.cam + 17);
     if (L.fresh) {
       end_path(L, bg);
-      return;
+      return false;
     }
     if (S.flags & F_BG_EMISSIVE) {
       float w_bg = L.w_one ? 1.0f : balance(L.pdf2, K_INV_4PI / nl);
       L.result = L.result + L.tp * w_bg * bg;
     }
     end_path(L, L.result);
-    return;
+    return false;
   }
-  HitInfo hi = G::info(S, L.ro, L.rd, h);
-  Mat mat = load_mat(S, hi.mat);
+  hi = G::info(S, L.ro, L.rd, h);
+  mat = load_mat(S, hi.mat);
   if (mat.type == MAT_DIFFUSE_LIGHT) {
     V3 em = emitted(mat, L.rd, hi.ns);
     if (L.fresh) {
       end_path(L, em);
-      return;
+      return false;
     }
     float light_pdf = surf_pdf(S, h.id, L.ro, hi.p, L.rd) / nl;
     V3 gd = L.ro - hi.p;
@@ -1087,7 +1105,7 @@ __device__ __forceinline__ void mis_step(const Tables& S, int pix, Lane& L,
     float w_hit = L.w_one ? 1.0f : balance(jmin(L.pdf2 * G2, 1e30f), light_pdf);
     L.result = L.result + L.tp * w_hit * em;
     end_path(L, L.result);
-    return;
+    return false;
   }
   if (L.fresh) {
     L.result = v3(0.0f, 0.0f, 0.0f);
@@ -1102,38 +1120,38 @@ __device__ __forceinline__ void mis_step(const Tables& S, int pix, Lane& L,
       U4 rr = uniform4((uint32_t)pix, samp, (uint32_t)L.d, DRAW_ROULETTE);
       if (!roulette(L.tp, L.eta_scale, rr.a)) {
         end_path(L, L.result);
-        return;
+        return false;
       }
     }
     L.d += 1;
   }
   if (L.d >= S.max_depth) {
     end_path(L, L.result);
-    return;
+    return false;
   }
-  // ---- shade the hit at depth d: light sampling (NEE) ----
-  const int d = L.d;
-  bool mat_delta = mat.type == MAT_DIELECTRIC;
-  if (S.nl > 0) {
-    U4 l = uniform4((uint32_t)pix, samp, (uint32_t)d, DRAW_LIGHT_SAMPLE);
-    LightSample ls = sample_lights(S, hi.p, l.a, l.b, l.c);
-    if (!mat_delta && ls.pdf != 0.0f) {
-      c.shadow += 1;
-      float shadow_max = isfinite(ls.dist) ? ls.dist - SHADOW_EPS : inf;
-      if (!G::occluded(S, hi.p, ls.wi, MIN_T, shadow_max, c.walk)) {
-        V3 f;
-        float mpdf;
-        eval_pdf(mat, S.flags, L.rd, ls.wi, hi, L.non_spec, f, mpdf);
-        if (mpdf != 0.0f && !isnanf_(mpdf)) {
-          float w = balance(ls.pdf, mpdf * ls.G);
-          V3 contrib = L.tp * f * ls.rad * (w * ls.G / jmax(ls.pdf, 1e-20f));
-          L.result = L.result + scrub_nan(contrib);
-        }
-      }
-    }
+  return true;
+}
+
+// The light sample's MIS-weighted contribution, its shadow ray unoccluded
+__device__ __forceinline__ void nee_add(const Tables& S, Lane& L,
+                                        const HitInfo& hi, const Mat& mat,
+                                        const LightSample& ls) {
+  V3 f;
+  float mpdf;
+  eval_pdf(mat, S.flags, L.rd, ls.wi, hi, L.non_spec, f, mpdf);
+  if (mpdf != 0.0f && !isnanf_(mpdf)) {
+    float w = balance(ls.pdf, mpdf * ls.G);
+    V3 contrib = L.tp * f * ls.rad * (w * ls.G / jmax(ls.pdf, 1e-20f));
+    L.result = L.result + scrub_nan(contrib);
   }
-  // ---- BSDF sampling ----
-  U4 b = uniform4((uint32_t)pix, samp, (uint32_t)d, DRAW_BSDF_SAMPLE);
+}
+
+// BSDF sampling at the hit of an MIS segment: the next ray, or the end
+__device__ __forceinline__ void mis_scatter(const Tables& S, int pix,
+                                            uint32_t samp, Lane& L,
+                                            const HitInfo& hi, const Mat& mat) {
+  const bool mat_delta = mat.type == MAT_DIELECTRIC;
+  U4 b = uniform4((uint32_t)pix, samp, (uint32_t)L.d, DRAW_BSDF_SAMPLE);
   Scatter sc = sample_mat(mat, S.flags, L.rd, hi, b, L.non_spec);
   bool cont = sc.valid;
   L.non_spec = L.non_spec || (cont && !sc.is_spec);
@@ -1161,24 +1179,61 @@ __device__ __forceinline__ void mis_step(const Tables& S, int pix, Lane& L,
   L.rd = sc.wo;
 }
 
-// One segment of a material-integrator path: one iteration of
-// integrators.material_integrator_loop
+// One segment of an MIS path (integrators.mis_integrator_loop, cut at its
+// closest-hit traces). A fresh path traces its camera ray; mis_hit decides
+// the hit; a path that goes on then shades its new hit at depth d (NEE
+// shadow ray, BSDF sample) and keeps the next ray.
 template <class G>
-__device__ __forceinline__ void material_step(const Tables& S, int pix,
-                                              Lane& L, Counts& c) {
+__device__ __forceinline__ void mis_step(const Tables& S, int pix, Lane& L,
+                                         Counts& c, bool work) {
   const float inf = __int_as_float(0x7f800000);
   const uint32_t samp = (uint32_t)(L.m + S.sample_offset);
-  if (L.fresh) {
-    primary_ray(S, pix, samp, L.ro, L.rd);
-    L.result = v3(0.0f, 0.0f, 0.0f);
-    L.tp = v3(1.0f, 1.0f, 1.0f);
-    L.non_spec = false;
-    L.eta_scale = 1.0f;
-    L.d = 0;
-    L.fresh = false;
+  const float nl = (float)(S.nl > 1 ? S.nl : 1);
+  if (work && L.fresh) primary_ray(S, pix, samp, L.ro, L.rd);
+  if (work) c.seg += 1;
+  Hit h = G::closest(S, L.ro, L.rd, MIN_T, inf, work, c.walk, c.wsteps);
+  HitInfo hi;
+  Mat mat;
+  const bool go = work && mis_hit<G>(S, pix, samp, nl, h, L, hi, mat);
+  if (!G::kWarpWalk && !go) return;
+  // ---- shade the hit at depth d: light sampling (NEE) ----
+  LightSample ls;
+  bool shadow = false;
+  V3 sro = L.ro, swi = L.rd;  // a lane without a shadow ray passes these
+  float shadow_max = inf;
+  if (go && S.nl > 0) {
+    U4 l = uniform4((uint32_t)pix, samp, (uint32_t)L.d, DRAW_LIGHT_SAMPLE);
+    ls = sample_lights(S, hi.p, l.a, l.b, l.c);
+    if (mat.type != MAT_DIELECTRIC && ls.pdf != 0.0f) {
+      c.shadow += 1;
+      shadow_max = isfinite(ls.dist) ? ls.dist - SHADOW_EPS : inf;
+      if constexpr (G::kWarpWalk) {
+        shadow = true;
+        sro = hi.p;
+        swi = ls.wi;
+      } else if (!G::occluded(S, hi.p, ls.wi, MIN_T, shadow_max, true,
+                              c.walk, c.wsteps)) {
+        nee_add(S, L, hi, mat, ls);
+      }
+    }
   }
-  c.seg += 1;
-  Hit h = G::closest(S, L.ro, L.rd, MIN_T, inf, c.walk);
+  if constexpr (G::kWarpWalk) {
+    // the whole warp traces, lanes without a shadow ray too
+    const bool occ = G::occluded(S, sro, swi, MIN_T, shadow_max, shadow,
+                                 c.walk, c.wsteps);
+    if (shadow && !occ) nee_add(S, L, hi, mat, ls);
+  }
+  // ---- BSDF sampling ----
+  if (go) mis_scatter(S, pix, samp, L, hi, mat);
+}
+
+// The hit of a material-integrator segment shaded: emission, BSDF sample,
+// roulette, depth (the rest of one iteration of
+// integrators.material_integrator_loop)
+template <class G>
+__device__ __forceinline__ void material_hit(const Tables& S, int pix,
+                                             uint32_t samp, const Hit& h,
+                                             Lane& L) {
   if (h.id < 0) {
     L.result = L.result + L.tp * ld3(S.cam + 17);
     end_path(L, L.result);
@@ -1211,11 +1266,33 @@ __device__ __forceinline__ void material_step(const Tables& S, int pix,
   if (L.d >= S.max_depth) end_path(L, L.result);
 }
 
+// One segment of a material-integrator path: one iteration of
+// integrators.material_integrator_loop
+template <class G>
+__device__ __forceinline__ void material_step(const Tables& S, int pix,
+                                              Lane& L, Counts& c, bool work) {
+  const float inf = __int_as_float(0x7f800000);
+  const uint32_t samp = (uint32_t)(L.m + S.sample_offset);
+  if (work && L.fresh) {
+    primary_ray(S, pix, samp, L.ro, L.rd);
+    L.result = v3(0.0f, 0.0f, 0.0f);
+    L.tp = v3(1.0f, 1.0f, 1.0f);
+    L.non_spec = false;
+    L.eta_scale = 1.0f;
+    L.d = 0;
+    L.fresh = false;
+  }
+  if (work) c.seg += 1;
+  Hit h = G::closest(S, L.ro, L.rd, MIN_T, inf, work, c.walk, c.wsteps);
+  if (work) material_hit<G>(S, pix, samp, h, L);
+}
+
 // ---------------------------------------------------------------------------
 // kernel + C entry
 // ---------------------------------------------------------------------------
 
 #define BLOCK 128
+static_assert(BLOCK == 32 * cwalk::WALK_WARPS, "the mesh walk's scratch");
 #define WARPS (BLOCK / 32)
 #define FULL_MASK 0xffffffffu
 
@@ -1277,6 +1354,8 @@ mega_kernel(Tables S, float* __restrict__ film,
   c.steps = 0ull;
   c.walk.box = 0u;
   c.walk.tri = 0u;
+  c.wsteps.node = 0u;
+  c.wsteps.tri = 0u;
   for (;;) {
     int g = 0;
     if (lane == 0) g = (int)atomicAdd(next_group, 1u);
@@ -1295,11 +1374,11 @@ mega_kernel(Tables S, float* __restrict__ film,
         bool between = __all_sync(FULL_MASK, L.fresh || !work);
         work = work && (between || !L.fresh);
       }
-      if (work) {
+      if (G::kWarpWalk || work) {
         if (kMis)
-          mis_step<G>(S, pix, L, c);
+          mis_step<G>(S, pix, L, c, work);
         else
-          material_step<G>(S, pix, L, c);
+          material_step<G>(S, pix, L, c, work);
       }
       if (lane == 0) c.steps += 1;
     }
@@ -1315,9 +1394,11 @@ mega_kernel(Tables S, float* __restrict__ film,
   v[0] = c.seg;
   v[1] = c.shadow;
   if constexpr (NS == 3) v[2] = c.steps;
-  if constexpr (NS == 4) {
+  if constexpr (NS == 6) {
     v[2] = c.walk.box;
     v[3] = c.walk.tri;
+    v[4] = c.wsteps.node;
+    v[5] = c.wsteps.tri;
   }
 #pragma unroll
   for (int k = 0; k < NS; ++k)
@@ -1396,7 +1477,8 @@ extern "C" int vimg_mega_render(
 }
 
 // B2: mesh scenes (more than 64 triangles, or vertex normals), launched as
-// B1; stats gets segments, shadow rays, box tests, triangle tests
+// B1; stats gets segments, shadow rays, box tests, triangle tests, the
+// walk's warp node steps and warp triangle steps
 extern "C" int vimg_mega_render_mesh(
     const float* tri_v, const float* sph, const int* prim_mat,
     const int* mat_type, const float* mat_base, const float* mat_sc,

@@ -567,9 +567,10 @@ def _check(x, name, dtype, shape, device):
 
 
 def _launch(fn_name, tables, tab_specs, n_nodes, ro, rd, minT, maxT,
-            any_hit):
+            any_hit, extra=()):
     """Shared body of the two wrappers: check, allocate, launch on the
-    current stream, raise on a CUDA error."""
+    current stream (``extra`` pointers go before it), raise on a CUDA
+    error."""
     from vimg_tpu_torch.runtime.cuda import check, load_library
     dev = ro.device
     N = ro.shape[0]
@@ -592,7 +593,7 @@ def _launch(fn_name, tables, tab_specs, n_nodes, ro, rd, minT, maxT,
             *(x.data_ptr() for x in tables), ro.data_ptr(), rd.data_ptr(),
             minT.data_ptr(), maxT.data_ptr(), N, n_nodes, int(any_hit),
             t.data_ptr(), slot.data_ptr(), u.data_ptr(), v.data_ptr(),
-            stream)
+            *extra, stream)
     check(rc, fn_name)
     return (t, slot, u, v), True
 
@@ -634,15 +635,22 @@ def trace_wide(boxes, refs, cl_boxes, tri, n_wide, max_stack, ro, rd, minT,
     return out
 
 
-def trace_skip(aabbs, cid, skip, tri, n_nodes, ro, rd, minT, maxT, any_hit):
+def trace_skip(aabbs, cid, skip, tri, n_nodes, ro, rd, minT, maxT, any_hit,
+               steps=None):
     """Kernel B4 (CUDA tensors) or skip_walk_plain (CPU tensors).
 
     Replaces vimg_tpu/geometry/cluster_trace.py::_make_trace_kernel, the
     TPU tile walk of the skip-linked binary tree (with per-leaf DMA
-    streaming for tables above VMEM). Here one thread walks one ray,
-    stacklessly; every table stays in global memory, where the 50 MB L2
-    holds the node tables and the hot triangle blocks. Bounded like B3 by
-    dependent-load latency and divergence. See csrc/cluster_trace.cu."""
+    streaming for tables above VMEM). Here a lane walks its ray's nodes
+    stacklessly and the warp runs its lanes' leaves together, 32
+    triangles a step (``csrc/cluster_walk.cuh``, ``warp_skip_walk``);
+    every table stays in global memory, where the 50 MB L2 holds the node
+    tables and the hot triangle blocks. The node boxes and triangle rows
+    are read 16 bytes at a time, so ``aabbs`` and ``tri`` must start
+    16-byte aligned (a misaligned view raises). ``steps``, a (2,) int64
+    CUDA tensor, gets the warp node steps and warp triangle steps added to
+    it (the lane fill is the plain walk's tri_tests / (32 x triangle
+    steps); ``skip_schedule.warp_schedule`` replays the same counts)."""
     global LAUNCHES_SKIP
     if _device_of(ro).type == "cpu":
         return skip_walk_plain(aabbs, cid, skip, tri, n_nodes, ro, rd, minT,
@@ -653,8 +661,17 @@ def trace_skip(aabbs, cid, skip, tri, n_nodes, ro, rd, minT, maxT, any_hit):
              ("tri", torch.float32, tri.numel()))
     if aabbs.numel() < 8 * n_nodes or cid.numel() < n_nodes:
         raise ValueError(f"node tables smaller than {n_nodes} nodes")
+    for x, name in ((aabbs, "aabbs"), (tri, "tri")):
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name}: kernel B4 reads 16-byte rows, the "
+                             f"tensor must start 16-byte aligned")
+    extra = (None,)
+    if steps is not None:
+        _check(steps, "steps", torch.int64, (2,), ro.device)
+        extra = (steps.data_ptr(),)
     out, launched = _launch("vimg_cluster_skip", (aabbs, cid, skip, tri),
-                            specs, n_nodes, ro, rd, minT, maxT, any_hit)
+                            specs, n_nodes, ro, rd, minT, maxT, any_hit,
+                            extra)
     LAUNCHES_SKIP += launched
     return out
 

@@ -1,0 +1,258 @@
+"""Warp schedules of the binary skip walk (kernel B4 and the mesh mode of
+the megakernel B2), replayed in plain PyTorch.
+
+Both replays group the rays 32 to a warp, in order (a ragged last warp is
+padded with lanes that do not walk), run the per-ray skip walk of
+``cluster_trace.skip_walk_plain`` and count what a warp of the kernel
+executes:
+
+- ``lane_schedule``: one lane a ray for the whole walk, leaf included (the
+  design before the warp-cooperative leaf, still B3's leaf). The warp runs
+  its lanes in lockstep: an iteration tests one node on every lane still
+  walking, and the lanes whose node is a live leaf scan its gated
+  triangles in order (sub-box s, then k), strict < on the running t, so
+  the first of equal t stays. A warp triangle step is a (sub-box,
+  triangle) position that some lane of the warp executes: 16 for each
+  sub-box that a leaf lane gates, fewer for an any-hit lane that returns
+  at its first hit.
+- ``warp_schedule``: kernel B4's and B2's walk (``csrc/cluster_walk.cuh``,
+  ``warp_skip_walk``). Nodes stay per lane: in a round every lane walks
+  until it reaches a live leaf (it posts the leaf and waits) or the end of
+  the tree; the round's node steps are the most any lane took. Then the
+  warp runs the posted leaves together: each posted lane's four sub-box
+  gates at its entry t, then the gated sub-boxes of all posted lanes as
+  units of 16 triangles, two units a step (a half-warp each). A lane with
+  a hit (t >= minT, t < the owner's entry t) merges it into its owner's
+  least (t, k) key, t's bits made order-preserving with -0 as +0; the
+  owner then takes that triangle's (t, u, v). An any-hit owner only needs
+  a hit at all.
+
+Why both return the plain walk's hits bit for bit: a lane sees the same
+nodes with the same t, and within a leaf the sequential strict-< scan
+keeps the least t among the hits below the entry t and the first k among
+equal t, which is the least (t, k) the warp merge computes; a NaN t never
+hits. The replays compute the leaf each in its own way (a running-minimum
+replay of the scan, a key merge) so that the tests hold each against the
+plain walk's own formulation.
+
+Each returns ((t, slot, u, v), counts): ``node_steps`` and ``tri_steps``
+summed over warps, and the plain walk's ``box_tests`` and ``tri_tests``
+(16 per gated sub-box). The lane fill is tri_tests / (32 x tri_steps).
+Kernel B4 counts the same two warp steps on the card (``trace_skip``'s
+``steps``), so ``warp_schedule``'s counts are the kernel's exactly.
+"""
+from __future__ import annotations
+
+import torch
+
+from vimg_tpu_torch.geometry.cluster_trace import (CLUSTER_K, N_SUB, ROW16,
+                                                   SUB, _slab, _walk_start)
+
+WARP = 32
+
+
+def _warps(n):
+    return -(-n // WARP)
+
+
+def _pad(x, n, fill):
+    """x padded to n entries along dim 0 with ``fill``."""
+    if x.shape[0] == n:
+        return x
+    pad = torch.full((n - x.shape[0],) + tuple(x.shape[1:]), fill,
+                     dtype=x.dtype, device=x.device)
+    return torch.cat([x, pad])
+
+
+def _start(ro, rd, minT, maxT, any_hit, mask):
+    """Padded walk state: ((t, slot, u, v), inverse directions, rays,
+    which lanes walk), N rounded up to whole warps."""
+    N = ro.shape[0]
+    M = _warps(N) * WARP
+    ro, rd = _pad(ro, M, 0.0), _pad(rd, M, 1.0)
+    minT, maxT = _pad(minT, M, 0.0), _pad(maxT, M, -float("inf"))
+    st, inv, act = _walk_start(ro, rd, minT, maxT, any_hit)
+    go = torch.zeros(M, dtype=torch.bool, device=ro.device)
+    go[act] = True
+    go[N:] = False
+    if mask is not None:
+        go[:N] &= mask
+    return st, inv, (ro, rd, minT, maxT), go
+
+
+def _tests(rows, o, d):
+    """The triangle test of every row: (t, u, v, geometric hit) with the
+    kernels' float32 expressions. rows (R, n, 16), o and d (R, 3)."""
+    ox, oy, oz = o[:, 0:1], o[:, 1:2], o[:, 2:3]
+    dx, dy, dz = d[:, 0:1], d[:, 1:2], d[:, 2:3]
+    q = [rows[..., j] for j in range(12)]
+    ro_n = ox * q[0] + oy * q[1] + oz * q[2]
+    rd_n = dx * q[0] + dy * q[1] + dz * q[2]
+    par = rd_n.abs() < 1e-22
+    t = (q[3] - ro_n) / torch.where(par, 1.0, rd_n)
+    u = (ox * q[4] + oy * q[5] + oz * q[6] - q[7]
+         + t * (dx * q[4] + dy * q[5] + dz * q[6]))
+    v = (ox * q[8] + oy * q[9] + oz * q[10] - q[11]
+         + t * (dx * q[8] + dy * q[9] + dz * q[10]))
+    geo = ~par & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
+    return t, u, v, geo
+
+
+def _leaf(tri, c, o, d, iv, mt, be):
+    """Gates at the entry t ``be`` and every triangle of the leaves ``c``:
+    (gate (R, 4), t, u, v, candidate (R, 64)); a candidate hits below the
+    entry t inside a gated sub-box."""
+    rows = tri.view(-1, CLUSTER_K, ROW16)[c]
+    gate = _slab(rows[:, 0:2 * N_SUB:2, 13:16], rows[:, 1:2 * N_SUB:2, 13:16],
+                 o[:, None], iv[:, None], mt[:, None], be[:, None])
+    t, u, v, geo = _tests(rows, o, d)
+    cand = (geo & (t >= mt[:, None]) & (t < be[:, None])
+            & gate.repeat_interleave(SUB, dim=1))
+    return gate, t, u, v, cand
+
+
+def _add(counts, key, x):
+    counts[key] += int(x)
+
+
+def _node_step(aabbs, cid, idx, node, t, rays, inv):
+    """Slab-test node[idx] at the lanes' current t: (live, cluster id)."""
+    ro, _, minT, _ = rays
+    n = node[idx]
+    b = aabbs.view(-1, 8)[n]
+    live = _slab(b[:, 0:3], b[:, 3:6], ro[idx], inv[idx], minT[idx], t[idx])
+    return live, cid[n].to(torch.int64)
+
+
+def lane_schedule(aabbs, cid, skip, tri, n_nodes, ro, rd, minT, maxT,
+                  any_hit, mask=None):
+    """The per-lane walk (leaf in one lane), warps in lockstep; see the
+    module docstring. ``mask``: (N,) bool, the lanes that walk (all by
+    default)."""
+    N = ro.shape[0]
+    (t, slot, u, v), inv, rays, go = _start(ro, rd, minT, maxT, any_hit,
+                                            mask)
+    ro_, rd_, mn_, _ = rays
+    dev = ro.device
+    counts = dict(node_steps=0, tri_steps=0, box_tests=0, tri_tests=0)
+    node = torch.zeros(t.shape[0], dtype=torch.int64, device=dev)
+    act = torch.nonzero(go)[:, 0]
+    pos = torch.arange(CLUSTER_K, device=dev)
+    while act.numel():
+        _add(counts, "node_steps", torch.unique(act // WARP).numel())
+        _add(counts, "box_tests", act.numel())
+        live, c = _node_step(aabbs, cid, act, node, t, rays, inv)
+        leaf = live & (c >= 0)
+        if bool(leaf.any()):
+            i, cl = act[leaf], c[leaf]
+            gate, tt, uu, vv, cand = _leaf(tri, cl, ro_[i], rd_[i], inv[i],
+                                           mn_[i], t[i])
+            _add(counts, "box_tests", gate.numel())
+            _add(counts, "tri_tests", SUB * gate.sum())
+            if any_hit:
+                # a lane returns at its first hit, in scan order
+                found = cand.any(1)
+                stop = torch.where(found, cand.to(torch.uint8).argmax(1),
+                                   CLUSTER_K)
+                # positions of sub-box s a lane executes
+                s0 = torch.arange(N_SUB, device=dev) * SUB
+                run = (torch.minimum(stop[:, None], s0 + SUB - 1) - s0 + 1)
+                run = torch.where(gate & (stop[:, None] >= s0), run, 0)
+                per = torch.zeros((_warps(t.shape[0]), N_SUB),
+                                  dtype=torch.int64, device=dev)
+                per.scatter_reduce_(0, (i // WARP)[:, None].expand(-1, N_SUB),
+                                    run, "amax")
+                _add(counts, "tri_steps", per.sum())
+                t[i[found]] = -float("inf")
+            else:
+                per = torch.zeros((_warps(t.shape[0]), N_SUB),
+                                  dtype=torch.int64, device=dev)
+                per.scatter_reduce_(0, (i // WARP)[:, None].expand(-1, N_SUB),
+                                    gate.to(torch.int64), "amax")
+                _add(counts, "tri_steps", SUB * per.sum())
+                # the scan: k updates the hit iff it is a candidate below
+                # the least candidate t before it
+                tm = torch.where(cand, tt, float("inf"))
+                before = torch.cat([torch.full_like(tm[:, :1], float("inf")),
+                                    tm[:, :-1]], 1).cummin(1).values
+                upd = cand & (tt < before)
+                found = upd.any(1)
+                k = torch.where(upd, pos, -1).amax(1, keepdim=True)
+                j = i[found]
+                kf = k[found]
+                t[j] = tt[found].gather(1, kf)[:, 0]
+                u[j] = uu[found].gather(1, kf)[:, 0]
+                v[j] = vv[found].gather(1, kf)[:, 0]
+                slot[j] = (cl[found] * CLUSTER_K + kf[:, 0]).to(torch.int32)
+        nxt = torch.where(live, node[act] + 1, skip[node[act]].to(torch.int64))
+        node[act] = nxt
+        keep = nxt < n_nodes
+        if any_hit:
+            keep &= t[act] != -float("inf")
+        act = act[keep]
+    return (t[:N], slot[:N], u[:N], v[:N]), counts
+
+
+def _ordered(t):
+    """Order-preserving int64 image of float32 t (-0 taken as +0)."""
+    b = torch.where(t == 0.0, 0.0, t).view(torch.int32).to(torch.int64)
+    b = b & 0xFFFFFFFF
+    return torch.where(b >= 0x80000000, b ^ 0xFFFFFFFF, b | 0x80000000)
+
+
+def warp_schedule(aabbs, cid, skip, tri, n_nodes, ro, rd, minT, maxT,
+                  any_hit, mask=None):
+    """The warp-cooperative walk of kernels B4 and B2; see the module
+    docstring. ``mask``: (N,) bool, the lanes that walk (all by
+    default)."""
+    N = ro.shape[0]
+    (t, slot, u, v), inv, rays, go = _start(ro, rd, minT, maxT, any_hit,
+                                            mask)
+    ro_, rd_, mn_, _ = rays
+    dev = ro.device
+    M = t.shape[0]
+    W = M // WARP
+    counts = dict(node_steps=0, tri_steps=0, box_tests=0, tri_tests=0)
+    node = torch.where(go, 0, n_nodes).to(torch.int64)
+    pos = torch.arange(CLUSTER_K, device=dev)
+    while True:
+        # node phase: each lane walks until it posts a live leaf or ends
+        post = torch.full((M,), -1, dtype=torch.int64, device=dev)
+        steps = torch.zeros(M, dtype=torch.int64, device=dev)
+        act = torch.nonzero(node < n_nodes)[:, 0]
+        while act.numel():
+            steps[act] += 1
+            _add(counts, "box_tests", act.numel())
+            live, c = _node_step(aabbs, cid, act, node, t, rays, inv)
+            leaf = live & (c >= 0)
+            post[act[leaf]] = c[leaf]
+            node[act] = torch.where(live, node[act] + 1,
+                                    skip[node[act]].to(torch.int64))
+            act = act[~leaf & (node[act] < n_nodes)]
+        _add(counts, "node_steps", steps.view(W, WARP).amax(1).sum())
+        i = torch.nonzero(post >= 0)[:, 0]
+        if not i.numel():
+            break
+        # leaf phase: gates, then units of 16 triangles two a step
+        cl = post[i]
+        gate, tt, uu, vv, cand = _leaf(tri, cl, ro_[i], rd_[i], inv[i],
+                                       mn_[i], t[i])
+        _add(counts, "box_tests", gate.numel())
+        _add(counts, "tri_tests", SUB * gate.sum())
+        units = torch.zeros(W, dtype=torch.int64, device=dev)
+        units.index_add_(0, i // WARP, gate.sum(1))
+        _add(counts, "tri_steps", ((units + 1) // 2).sum())
+        found = cand.any(1)
+        if any_hit:
+            t[i[found]] = -float("inf")
+            node[i[found]] = n_nodes
+            continue
+        key = torch.where(cand, _ordered(tt) * CLUSTER_K + pos,
+                          torch.iinfo(torch.int64).max)
+        k = key.argmin(1, keepdim=True) % CLUSTER_K
+        j, kf = i[found], k[found]
+        t[j] = tt[found].gather(1, kf)[:, 0]
+        u[j] = uu[found].gather(1, kf)[:, 0]
+        v[j] = vv[found].gather(1, kf)[:, 0]
+        slot[j] = (cl[found] * CLUSTER_K + kf[:, 0]).to(torch.int32)
+    return (t[:N], slot[:N], u[:N], v[:N]), counts

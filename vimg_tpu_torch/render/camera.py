@@ -60,8 +60,11 @@ def generate_rays(cam: Camera, px, py, lens_r1, lens_r2):
     img_h = 2.0 * torch.tan(theta / 2.0)
     img_w = img_h * (cam.width / cam.height)
 
-    x_dir = img_w * (px / cam.width) - img_w / 2.0
-    y_dir = img_h * (py / cam.height) - img_h / 2.0
+    # divided by tensors: PyTorch's CUDA division by a Python number
+    # multiplies by its float32 reciprocal, which differs from px / width
+    # in the last bit when the width is not a power of two
+    x_dir = img_w * (px / px.new_tensor(float(cam.width))) - img_w / 2.0
+    y_dir = img_h * (py / py.new_tensor(float(cam.height))) - img_h / 2.0
     ray_dir = normalize(torch.stack(
         [x_dir, y_dir, -torch.ones_like(x_dir)], dim=-1))
     origin = torch.zeros_like(ray_dir)

@@ -22,8 +22,8 @@ kernel (port of vimg_tpu.render.mega.kernel), in two modes:
 - ``LAUNCHES`` counts analytic-mode launches, ``LAUNCHES_MESH`` mesh-mode
   launches (plain renders count neither); ``LAST_COUNTS`` is the int64
   device tensor of the latest launch's counters: segments, shadow rays,
-  then warp steps (analytic mode) or box and triangle tests (mesh
-  mode).
+  then warp steps (analytic mode) or box and triangle tests and the
+  walk's warp node and triangle steps (mesh mode).
 
 Scene tables are numpy arrays packed on the host as vimg_tpu's
 ``_pack_scene`` packs them (triangle normals and areas in float32 with
@@ -404,7 +404,9 @@ def render_megakernel(scene: ir.Scene, settings: ir.RenderSettings,
     (CUDA scenes) or its plain version (CPU scenes). Returns the linear
     (H, W, 3) image on the scene's device, plus a stats dict (segments,
     shadow_rays, seconds; in analytic mode also warp_steps, in mesh mode
-    the walk's box_tests and tri_tests) with ``return_stats``."""
+    the walk's box_tests and tri_tests and its warp_node_steps and
+    warp_tri_steps: the lane fill is tri_tests / (32 x warp_tri_steps))
+    with ``return_stats``."""
     dev = scene.device
     if dev.type == "cpu":
         return render_megakernel_plain(scene, settings, sample_offset,
@@ -439,8 +441,13 @@ def _launch(scene, settings, sample_offset=0, return_stats=False,
     run = (W, H, spp, min(settings.max_depth, 2 ** 31 - 1),
            int(sample_offset), _flags(scene, settings))
     film = torch.empty((H * W, 3), dtype=torch.float32, device=dev)
+    if mesh:
+        # the walk reads node boxes and triangle rows 16 bytes at a time
+        for k in ("node_aabbs", "tri_rows"):
+            if tabs[k].data_ptr() % 16:
+                raise ValueError(f"{k}: not 16-byte aligned")
     # the kernel's counters, then its pixel-group counter (zeroed here)
-    counts = torch.zeros((5 if mesh else 4,), dtype=torch.int64, device=dev)
+    counts = torch.zeros((7 if mesh else 4,), dtype=torch.int64, device=dev)
     next_group = counts[-1:].view(torch.int32)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev)
@@ -480,7 +487,8 @@ def _launch(scene, settings, sample_offset=0, return_stats=False,
         return img
     stats = dict(segments=segs, shadow_rays=shadow, seconds=seconds)
     if mesh:
-        stats.update(box_tests=vals[2], tri_tests=vals[3])
+        stats.update(box_tests=vals[2], tri_tests=vals[3],
+                     warp_node_steps=vals[4], warp_tri_steps=vals[5])
     else:
         stats.update(warp_steps=vals[2])
     return img, stats

@@ -37,9 +37,10 @@ SIGNATURES = {
     # mesh, mis, per_sm, regs, local_bytes (host int*)
     "vimg_mega_occupancy": ([_I] * 2 + [_P] * 3, _I),
     # csrc/cluster_trace.cu: 4 tables, ro, rd, minT, maxT, n_rays,
-    # n_nodes (wide or binary), any_hit, t, slot, u, v, stream
+    # n_nodes (wide or binary), any_hit, t, slot, u, v, [skip: steps
+    # (device uint64[2] or null)], stream
     "vimg_cluster_wide": ([_P] * 8 + [_I] * 3 + [_P] * 5, _I),
-    "vimg_cluster_skip": ([_P] * 8 + [_I] * 3 + [_P] * 5, _I),
+    "vimg_cluster_skip": ([_P] * 8 + [_I] * 3 + [_P] * 6, _I),
     # csrc/packet_trace.cu: tri_t, meta, ro, rd, minT, maxT, n_rays, cp,
     # n_clusters, any_hit, f2b, unroll, entry_scale, scene box lo/hi (6),
     # t, code, steps (device uint64 or null), stream
