@@ -22,10 +22,11 @@ Phases:
  6. B3 and B4 against their plain walks on the card, on terrain_scene
     (100k and 500k triangles) with 131,072 camera, cosine-bounce and shadow
     rays each: zero mismatches, kernel vs plain and wide vs skip; kernel
-    times with CUDA events; the bound of each; B4's warp node and triangle
-    steps (one counted launch) equal to the replay of its schedule
-    (geometry/skip_schedule.py), and B4's leaf lane fill (needed triangle
-    tests / (32 x triangle steps));
+    times with CUDA events; the bound of each; B3's and B4's warp node
+    and triangle steps (one counted launch each) equal to the replay of
+    their schedules (geometry/skip_schedule.py), their leaf lane fill
+    (needed triangle tests / (32 x triangle steps)) side by side, and on
+    terrain 100k the lane fill of B3's first, per-lane leaf (replayed);
  7. main path 2: terrain 100k at 512x256 @ 64 spp, max_depth 64,
     batch 1<<17 -> render_frame -> finalize -> write_png through B3 (not
     B1), after the same frame at 1 spp through B3 and through the plain
@@ -48,16 +49,19 @@ Phases:
     the material integrator -> render_frame -> write_png through B2 only,
     its mean against the plain version's 4-spp frame; then the same launch
     alone between CUDA events, its bound and lane fill from its counters;
-12. kernel B5 (packet walk) against its plain walk on the card, on phase
-    6's terrain-100k camera, bounce and shadow rays in PacketTracer's own
-    order, variants slist and f2b: zero (t, code) mismatches; kernel and
-    cull times with CUDA events; the bound of each; B5's warp test steps
-    and lane fill (needed tests / (32 x steps)); closest() and
-    occluded() against B3's on the same rays (prim ids may differ only
-    where t ties exactly: counted and printed);
+12. kernels X1 (packet cull) and B5 (packet walk) against their plain
+    versions on the card, on phase 6's terrain-100k camera, bounce and
+    shadow rays in PacketTracer's own order, variants slist and f2b: the
+    cull's meta bit for bit against the plain cull's, zero (t, code)
+    mismatches for B5; kernel, plain cull and whole-trace times with CUDA
+    events; the bound of each; B5's warp test steps and lane fill (needed
+    tests / (32 x steps)); closest() and occluded() against B3's on the
+    same rays (prim ids may differ only where t ties exactly: counted and
+    printed);
 13. main path 6: terrain 100k at 512x256 @ 64 spp -> render_frame(...,
-    tracer_force="packet") -> finalize -> write_png through B5 only, after
-    the same frame at 1 spp through B5 and through the plain packet walk
+    tracer_force="packet") -> finalize -> write_png through X1 and B5 only
+    (one cull launch a walk launch, printed), after the same frame at 1
+    spp through the kernels and through the plain cull and packet walk
     agree per pixel; its mean against phase 7's B3 frame;
 14. kernel B6 (table-row gather) on a 24x256 table and 1,048,576 ids:
     bit for bit against its plain version and the table; timed beside
@@ -313,6 +317,7 @@ def zero_counts():
     ct.LAUNCHES_WIDE = 0
     ct.LAUNCHES_SKIP = 0
     pt.LAUNCHES = 0
+    pt.LAUNCHES_CULL = 0
     mxu_gather.LAUNCHES = 0
     for k in common.LAUNCHES:
         common.LAUNCHES[k] = 0
@@ -327,7 +332,8 @@ def read_counts():
     return dict(megakernel_analytic=kernel.LAUNCHES,
                 cluster_wide=ct.LAUNCHES_WIDE, cluster_skip=ct.LAUNCHES_SKIP,
                 megakernel_mesh=kernel.LAUNCHES_MESH,
-                packet_trace=pt.LAUNCHES, gather_row=mxu_gather.LAUNCHES,
+                packet_trace=pt.LAUNCHES, packet_cull=pt.LAUNCHES_CULL,
+                gather_row=mxu_gather.LAUNCHES,
                 **common.LAUNCHES)
 
 
@@ -412,23 +418,40 @@ def mismatches(a, b):
     return int(bad.sum()), err
 
 
-def skip_steps(tracer, rays, any_hit, st):
-    """B4's warp node and triangle steps (one counted launch, not timed),
-    held equal to the replay of its schedule on the same rays, and its
-    lane fill (the plain walk's triangle tests / (32 x triangle steps))."""
+def walk_steps(walk, tracer, rays, any_hit, st):
+    """B3's or B4's warp node and triangle steps (one counted launch, not
+    timed), held equal to the replay of its schedule on the same rays, and
+    its lane fill (the plain walk's triangle tests / (32 x triangle
+    steps))."""
     import torch
     from vimg_tpu_torch.geometry import cluster_trace as ct
     from vimg_tpu_torch.geometry import skip_schedule as ss
-    tabs = (*tracer.node_tables, tracer.tri_rows, tracer.data.n_nodes)
     steps = torch.zeros(2, dtype=torch.int64, device=rays[0].device)
-    ct.trace_skip(*tabs, *rays, any_hit, steps=steps)
+    if walk == "wide":
+        tabs = (*tracer.node_tables, tracer.tri_rows)
+        ct.trace_wide(*tabs, tracer.n_wide, tracer.max_stack, *rays, any_hit,
+                      steps=steps)
+        _, warp = ss.wide_warp_schedule(*tabs, tracer.max_stack, *rays,
+                                        any_hit)
+    else:
+        tabs = (*tracer.node_tables, tracer.tri_rows, tracer.data.n_nodes)
+        ct.trace_skip(*tabs, *rays, any_hit, steps=steps)
+        _, warp = ss.warp_schedule(*tabs, *rays, any_hit)
     node, tri = (int(x) for x in steps.cpu())
-    _, warp = ss.warp_schedule(*tabs, *rays, any_hit)
     if (warp["node_steps"], warp["tri_steps"]) != (node, tri):
-        fail(f"B4 warp steps {node}, {tri} differ from its schedule's "
+        fail(f"{walk} warp steps {node}, {tri} differ from its schedule's "
              f"{warp['node_steps']}, {warp['tri_steps']}")
     return dict(node_steps=node, tri_steps=tri,
                 fill=st["tri_tests"] / max(32 * tri, 1))
+
+
+def lane_fill(tracer, rays, any_hit, st):
+    """The lane fill of B3's first design (a lane runs its own leaves, the
+    warp in lockstep), replayed by skip_schedule.wide_lane_schedule."""
+    from vimg_tpu_torch.geometry import skip_schedule as ss
+    _, lane = ss.wide_lane_schedule(*tracer.node_tables, tracer.tri_rows,
+                                    tracer.max_stack, *rays, any_hit)
+    return st["tri_tests"] / max(32 * lane["tri_steps"], 1)
 
 
 def kernel_vs_plain(n_tris, scene):
@@ -486,12 +509,16 @@ def kernel_vs_plain(n_tris, scene):
                 bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 box_tests=st["box_tests"], tri_tests=st["tri_tests"])
-            if walk == "skip":
-                w = skip_steps(tr, rs, any_hit, st)
-                res[(walk, kind)].update(w)
-                log(f"  skip {kind:6s}: warp steps node {w['node_steps']} "
-                    f"tri {w['tri_steps']} (equal to the replay of its "
-                    f"schedule), leaf lane fill {w['fill']:.4f}")
+            w = walk_steps(walk, tr, rs, any_hit, st)
+            res[(walk, kind)].update(w)
+            per_lane = ""
+            if walk == "wide" and n_tris == TERRAINS[0][0]:
+                w["lane_fill"] = lane_fill(tr, rs, any_hit, st)
+                per_lane = (f" (its per-lane leaf, replayed: "
+                            f"{w['lane_fill']:.4f})")
+            log(f"  {walk:4s} {kind:6s}: warp steps node {w['node_steps']} "
+                f"tri {w['tri_steps']} (equal to the replay of its "
+                f"schedule), leaf lane fill {w['fill']:.4f}{per_lane}")
             log(f"  {walk:4s} {kind:6s}: {'occluded' if any_hit else 'hits'} "
                 f"{hits}/{N_RAYS}, kernel vs plain mismatches {bad} "
                 f"(max|d| {err:g}); kernel {ms:.3f} ms, plain "
@@ -503,7 +530,9 @@ def kernel_vs_plain(n_tris, scene):
             if bad:
                 fail(f"terrain {n_tris} {walk} {kind}: {bad} mismatches")
         ww, _ = mismatches(outs["wide"], outs["skip"])
-        log(f"  wide vs skip {kind}: {ww} mismatches")
+        log(f"  wide vs skip {kind}: {ww} mismatches; leaf lane fill B3 "
+            f"{res[('wide', kind)]['fill']:.4f}, B4 "
+            f"{res[('skip', kind)]['fill']:.4f}")
         if ww:
             fail(f"terrain {n_tris} {kind}: wide and skip walks differ")
     # the facade (sort, prim ids, barycentric convention) agrees too
@@ -801,13 +830,47 @@ def b2_phases(dev, png_dir, card):
 
 
 # ---------------------------------------------------------------------------
-# phases 12-14: kernel B5 (packet walk), main path 6, kernel B6
+# phases 12-14: kernels X1 (packet cull) and B5 (packet walk), main path 6,
+# kernel B6
 # ---------------------------------------------------------------------------
 
+def cull_vs_plain(tr, packed):
+    """X1 (through PacketTracer.cull, counted) against the plain cull on
+    the same packed rays: meta bit for bit, both timed, the bound from
+    this run's shapes. Returns (meta, its row of numbers)."""
+    import torch
+    from vimg_tpu_torch.geometry import cluster_trace as ct
+    from vimg_tpu_torch.geometry import packet_trace as pt
+    before = pt.LAUNCHES_CULL
+    meta = tr.cull(packed)
+    torch.cuda.synchronize()
+    if pt.LAUNCHES_CULL != before + 1:
+        fail("PacketTracer.cull did not launch X1")
+    pi = tr.pi if tr.variant == "f2b" else None
+
+    def plain():
+        return pt._cull_meta(*packed, tr.cl_lo, tr.cl_hi, tr.cp, pi,
+                             tr.entry_scale)
+    ref, plain_ms = event_ms(plain, 1)
+    bad = int((meta != ref).sum())
+    for _ in range(2):                                      # warm-up
+        tr.cull(packed)
+    _, ms = event_ms(lambda: tr.cull(packed), TIMED_LAUNCHES)
+    n_rays = packed[0].shape[0]
+    tests = (n_rays // pt.WG) * tr.data.n_clusters * pt.WG
+    nbytes = meta.numel() * 4 + n_rays * 32 + tr.data.n_clusters * 24
+    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    t_ops = 1e3 * tests * ct.BOX_TEST_OPS / FP32_OPS_PER_S
+    return meta, dict(mismatches=bad, ms=ms, plain_ms=plain_ms,
+                      bound_ms=max(t_bytes, t_ops), slab_tests=tests,
+                      bound_by="bytes" if t_bytes >= t_ops else "operations",
+                      t_bytes=t_bytes, t_ops=t_ops)
+
+
 def packet_vs_plain(scene, rays):
-    """Phase 12: B5 and its plain walk on the same packed rays and meta,
-    both variants, three ray kinds; then closest()/occluded() against
-    B3's."""
+    """Phase 12: X1 against the plain cull and B5 against its plain walk on
+    the same packed rays and meta, both variants, three ray kinds; then
+    closest()/occluded() against B3's."""
     import torch
     from vimg_tpu_torch.geometry import cluster_trace as ct
     from vimg_tpu_torch.geometry import packet_trace as pt
@@ -820,12 +883,21 @@ def packet_vs_plain(scene, rays):
         f"triangles, packed table {data.tri_rows_t.nbytes / 2 ** 20:.2f} MiB "
         f"(budget {pt.PacketTracer.VMEM_BUDGET_BYTES >> 20} MiB), cp "
         f"{tracers['slist'].cp}; host build {time.time() - t0:.2f}s")
-    res = {}
+    res, cull = {}, {}
     for kind, r in rays.items():
         any_hit = kind == "shadow"
         for variant, tr in tracers.items():
             _, packed = tr.pack(*r)
-            meta = tr.cull(packed)
+            meta, c = cull_vs_plain(tr, packed)
+            cull[(variant, kind)] = c
+            log(f"  X1 {variant:5s} {kind:6s}: meta vs the plain cull's "
+                f"mismatches {c['mismatches']}; kernel {c['ms']:.4f} ms, "
+                f"plain cull {c['plain_ms']:.3f} ms; {c['slab_tests']} slab "
+                f"tests -> bound {c['bound_ms']:.4f} ms ({c['bound_by']}: "
+                f"bytes {c['t_bytes']:.4f} ms, ops {c['t_ops']:.4f} ms)")
+            if c["mismatches"]:
+                fail(f"X1 {variant} {kind}: {c['mismatches']} meta slots "
+                     f"differ from the plain cull's")
             args = (tr.tri_t, meta, *packed, *tr.walk_args(any_hit))
             steps = torch.zeros(1, dtype=torch.int64, device=meta.device)
             got = pt.trace_packet(*args, steps=steps)
@@ -833,7 +905,7 @@ def packet_vs_plain(scene, rays):
             for _ in range(2):                              # warm-up
                 pt.trace_packet(*args)
             _, ms = event_ms(lambda: pt.trace_packet(*args), TIMED_LAUNCHES)
-            _, cull_ms = event_ms(lambda: tr.cull(packed), TIMED_LAUNCHES)
+            cull_ms = c["ms"]
             _, trace_ms = event_ms(lambda: tr._run(*r, any_hit),
                                    TIMED_LAUNCHES // 4)
             st = {}
@@ -858,7 +930,7 @@ def packet_vs_plain(scene, rays):
                 f"lane fill {fill_:.4f} (needed tests / (32 x steps))")
             log(f"  {variant:5s} {kind:6s}: {'occluded' if any_hit else 'hits'}"
                 f" {hits}/{r[0].shape[0]}, kernel vs plain (t, code) "
-                f"mismatches {bad}; B5 {ms:.3f} ms, cull {cull_ms:.3f} ms, "
+                f"mismatches {bad}; B5 {ms:.3f} ms, cull (X1) {cull_ms:.3f} ms, "
                 f"whole trace {trace_ms:.3f} ms (cull share "
                 f"{cull_ms / trace_ms:.1%}), plain walk {plain_ms:.1f} ms; "
                 f"candidates per workgroup mean {float(cands.mean()):.1f} max "
@@ -898,11 +970,11 @@ def packet_vs_plain(scene, rays):
             if t_bad or int(other.sum()) != ties:
                 fail(f"B5 {variant} {kind}: closest() differs from B3 "
                      f"beyond exact ties")
-    return res
+    return res, cull
 
 
 def packet_main_path(scene, b3_img, png_dir, card, dev):
-    """Phase 13: main path 6 through B5."""
+    """Phase 13: main path 6 through X1 and B5."""
     import numpy as np
     from vimg_tpu_torch.geometry import packet_trace as pt
     from vimg_tpu_torch.render import wavefront
@@ -937,8 +1009,10 @@ def packet_main_path(scene, b3_img, png_dir, card, dev):
     img_np = img.cpu().numpy()
     if img_np.shape != (MESH_H, MESH_W, 3) or not np.isfinite(img_np).all():
         fail(f"main path 6 image shape {img_np.shape} / non-finite")
-    if counts["packet_trace"] < 1 or any(
-            v for k, v in counts.items() if k != "packet_trace"):
+    ours = ("packet_trace", "packet_cull")
+    if (counts["packet_trace"] < 1
+            or counts["packet_cull"] != counts["packet_trace"]
+            or any(v for k, v in counts.items() if k not in ours)):
         fail(f"main path 6 launches {counts}")
     png = save_png(img, st.tonemap, "terrain100k_packet.png", png_dir)
     mean = img_np.reshape(-1, 3).mean(0)
@@ -954,25 +1028,36 @@ def packet_main_path(scene, b3_img, png_dir, card, dev):
         f"loop {stats['seconds']:.3f} s), {paths / secs / 1e6:.3f} Mpaths/s, "
         f"{rays / secs / 1e6:.2f} Mrays/s ({stats['segments']} segments + "
         f"{stats['shadow_rays']} shadow rays), {stats['supersteps']} "
-        f"supersteps, launches {counts}, on {card}")
-    return counts["packet_trace"], r["max"]
+        f"supersteps, launches {counts} (X1 {counts['packet_cull']}, B5 "
+        f"{counts['packet_trace']}), on {card}")
+    return counts, r["max"]
 
 
 def packet_phases(scene, rays, b3_img, png_dir, card, dev):
-    """Phases 12 and 13; returns B5's row of the kernels JSON (the slist
-    bounce launch, as the B3/B4 rows; launches over main path 6)."""
-    log(f"[12] B5 (packet walk) vs its plain walk, terrain 100k, phase 6's "
-        f"{N_RAYS} rays per kind, PacketTracer's order")
-    res = packet_vs_plain(scene, rays)
+    """Phases 12 and 13; returns B5's and X1's rows of the kernels JSON
+    (the slist bounce launch, as the B3/B4 rows; launches over main path
+    6)."""
+    log(f"[12] X1 (packet cull) and B5 (packet walk) vs their plain "
+        f"versions, terrain 100k, phase 6's {N_RAYS} rays per kind, "
+        f"PacketTracer's order")
+    res, cull = packet_vs_plain(scene, rays)
     log(f"[13] main path 6: terrain 100k -> render_frame ({MESH_W}x{MESH_H} "
         f"@ {MESH_SPP} spp, batch {MESH_BATCH}, tracer_force='packet') -> "
-        f"finalize -> write_png through B5")
-    launches, _ = packet_main_path(scene, b3_img, png_dir, card, dev)
+        f"finalize -> write_png through X1 and B5")
+    counts, _ = packet_main_path(scene, b3_img, png_dir, card, dev)
     c = res[("slist", "bounce")]
-    return dict(launches=launches,
-                max_abs_err=max(v["max_abs_err"] for v in res.values()),
-                ms=c["ms"], plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
-                bound_by=c["bound_by"], note=f"lane fill {c['fill']:.4f}")
+    b5 = dict(launches=counts["packet_trace"],
+              max_abs_err=max(v["max_abs_err"] for v in res.values()),
+              ms=c["ms"], plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
+              bound_by=c["bound_by"], note=f"lane fill {c['fill']:.4f}")
+    c = cull[("slist", "bounce")]
+    x1 = dict(launches=counts["packet_cull"], max_abs_err=0.0, ms=c["ms"],
+              plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
+              bound_by=c["bound_by"],
+              f2b_ms=cull[("f2b", "bounce")]["ms"],
+              camera_ms=cull[("slist", "camera")]["ms"],
+              shadow_ms=cull[("slist", "shadow")]["ms"])
+    return b5, x1
 
 
 def gather_phase(dev, card):
@@ -1833,8 +1918,8 @@ def main():
         f"{b1_report(scene, st)}")
 
     # ---- 5. the cluster kernels -----------------------------------------
-    log("[5] B3 (cluster_wide_kernel) and B4 (cluster_skip_kernel) are in "
-        "the library built in [2]")
+    log("[5] B3 (cluster_wide_kernel) and B4 (cluster_skip_kernel), both on "
+        "the warp's leaf round, are in the library built in [2]")
     for fn in ("vimg_cluster_wide", "vimg_cluster_skip"):
         getattr(lib, fn)
     for line in cuda.BUILD_INFO["log"].splitlines():
@@ -1864,7 +1949,7 @@ def main():
     b2 = b2_phases(dev, png_dir, card)
 
     # ---- 12-14. kernels B5, B6 and main path 6 -------------------------
-    b5 = packet_phases(*phase6[TERRAINS[0][0]], wf_img["cluster_wide"],
+    b5, x1 = packet_phases(*phase6[TERRAINS[0][0]], wf_img["cluster_wide"],
                        png_dir, card, dev)
     b6 = gather_phase(dev, card)
 
@@ -1914,10 +1999,9 @@ def main():
             "bound_by": c["bound_by"],
             "library_ms": None,
             "clock": "events",
-            **({"lane_fill": c["fill"], "camera_ms":
-                cmp[(n_tris, walk, "camera")]["ms"], "shadow_ms":
-                cmp[(n_tris, walk, "shadow")]["ms"]} if walk == "skip"
-               else {})})
+            "lane_fill": c["fill"],
+            "camera_ms": cmp[(n_tris, walk, "camera")]["ms"],
+            "shadow_ms": cmp[(n_tris, walk, "shadow")]["ms"]})
     rows.append({
         "name": "megakernel_mesh",
         "route": "cuda",
@@ -1937,6 +2021,11 @@ def main():
     rows.append(dict(b5, name="packet_trace", route="cuda",
                      source="vimg_tpu_torch/csrc/packet_trace.cu",
                      replaces="vimg_tpu/geometry/packet_trace.py:267",
+                     library_ms=None, clock="events"))
+    # X1 replaces an XLA function of vimg_tpu, not a Pallas kernel
+    rows.append(dict(x1, name="packet_cull", route="cuda",
+                     source="vimg_tpu_torch/csrc/packet_cull.cu",
+                     replaces="vimg_tpu/geometry/packet_trace.py:145",
                      library_ms=None, clock="events"))
     # the launcher of the device helper vimg_tpu_torch/csrc/gather_row.cuh
     rows.append(dict(b6, name="gather_row", route="cuda",

@@ -1,5 +1,6 @@
-"""Time this checkout's kernels B2-B5 and P19 and main paths 3 and 6
-against another checkout of the port, on one GPU, in turns.
+"""Time this checkout's kernels B2-B5, the packet cull and P19 and main
+paths 2, 3 and 6 against another checkout of the port, on one GPU, in
+turns.
 
 Unpack the other commit into a directory that .gitignore lists and run,
 from the repository root on a machine with an NVIDIA GPU:
@@ -13,11 +14,14 @@ other. A process makes chip_smoke.py's phase-6 rays with that checkout's
 own chip_smoke.py (terrain 100k, 131,072 camera, bounce and shadow rays),
 then:
 
-- B5: for each variant (slist, f2b) and ray kind, the rays in
-  PacketTracer's order and their meta, one launch kept for the
-  comparison, two warm-ups, then three readings of 20 launches between
-  CUDA events (chip_smoke.py's phase-12 clock); the warp test steps where
-  the checkout's trace_packet counts them;
+- the cull and B5: for each variant (slist, f2b) and ray kind, the rays
+  in PacketTracer's order and their meta from the checkout's
+  PacketTracer.cull (kernel X1 where the checkout has it, else the plain
+  cull), kept; three readings of 20 culls between CUDA events; then B5 on
+  that meta: one launch kept for the comparison, two warm-ups, three
+  readings of 20 launches between CUDA events (chip_smoke.py's phase-12
+  clock); the warp test steps where the checkout's trace_packet counts
+  them;
 - P19: the TF32 product of probe_r2c on its (256, 256) inputs, three
   readings of probes.common.device_ms (launches queued behind a spin);
 - main path 6: render_frame(..., tracer_force="packet") on terrain 100k
@@ -25,24 +29,24 @@ then:
 - B4 (skip walk) on terrain 500k's camera, bounce and shadow rays and B3
   (wide walk) on terrain 100k's, made as chip_smoke.py's phase 6 makes
   them, in the tracer's order: one launch kept, two warm-ups, three
-  readings of 20 launches between CUDA events; B4's warp steps where the
-  checkout's trace_skip counts them;
+  readings of 20 launches between CUDA events; B3's and B4's warp steps
+  where the checkout's trace_wide / trace_skip count them;
 - B2 at main paths 4 (terrain 100k, 4 spp MIS) and 5 (the smooth bumpy
   sphere 100k, 64 spp material), 512x256: one warm launch, then three
   launches each timed by the wrapper's CUDA events; the first one's film
   and counters (segments, shadow rays, box and triangle tests) kept;
-- main path 3: render_frame on terrain 500k at 512x256 @ 64 spp MIS
-  (the wavefront over B4) after a 1-spp warm-up frame, timed once;
+- main paths 2 and 3: render_frame on terrain 100k and 500k at 512x256 @
+  64 spp MIS (the wavefront over B3, over B4) after a 1-spp warm-up
+  frame, timed once each;
 - B1 on the flagship at 1800x800 @ 4 spp (its integrator body is B2's):
   one warm launch, three launches each timed by the wrapper's CUDA
   events, the first one's film and counters kept.
 
-Then it checks that every B3, B4 (t, slot, u, v) and B5 (t, code) is
-bit-equal across the four runs, that B1's and B2's films and counters are,
-that
-each P19 product is held by matmul_held, and that the wavefront frames
-agree (only the film's atomic index_add_ order may differ), prints the
-table and the card's name and power limit, and writes the readings as
+Then it checks that every meta, B3, B4 (t, slot, u, v) and B5 (t, code)
+is bit-equal across the four runs, that B1's and B2's films and counters
+are, that each P19 product is held by matmul_held, and that the wavefront
+frames agree (only the film's atomic index_add_ order may differ), prints
+the table and the card's name and power limit, and writes the readings as
 JSON. Exits non-zero on any failure.
 """
 import argparse
@@ -90,11 +94,15 @@ def worker(tree, out):
     tracers = {"slist": slist,
                "f2b": pt.PacketTracer(scene, variant="f2b", data=slist.data)}
     counts = "steps" in inspect.signature(pt.trace_packet).parameters
-    outs = {}
+    outs, metas = {}, {}
     for kind, r in rays.items():
         for variant, tr in tracers.items():
             _, packed = tr.pack(*r)
             meta = tr.cull(packed)
+            cull_ms = [cs.event_ms(lambda: tr.cull(packed),
+                                   cs.TIMED_LAUNCHES)[1]
+                       for _ in range(READINGS)]
+            metas[f"{variant}/{kind}"] = meta.cpu()
             args = (tr.tri_t, meta, *packed, *tr.walk_args(kind == "shadow"))
             steps = torch.zeros(1, dtype=torch.int64, device=dev)
             got = (pt.trace_packet(*args, steps=steps) if counts
@@ -105,7 +113,7 @@ def worker(tree, out):
                               cs.TIMED_LAUNCHES)[1] for _ in range(READINGS)]
             outs[f"{variant}/{kind}"] = [x.cpu() for x in got]
             res["b5"][f"{variant}/{kind}"] = dict(
-                ms=ms, steps=int(steps) if counts else None)
+                ms=ms, steps=int(steps) if counts else None, cull_ms=cull_ms)
     a, b = probe_r2c.matmul_inputs(dev)
     prod = probe_r2c.matmul(a, b, "default")
     res["p19"] = dict(
@@ -125,21 +133,24 @@ def worker(tree, out):
                         launches=pt.LAUNCHES - before)
     res["walks"], walk_outs = walk_readings(cs, scene, rays, dev)
     res["b2"], b2_outs = b2_readings(cs, dev)
-    res["frame3"], img3 = frame_readings(cs, dev)
-    torch.save({"b5": outs, "img": img.cpu(), "walks": walk_outs,
-                "b2": b2_outs, "img3": img3}, out + ".pt")
+    res["frame2"], img2 = frame_readings(cs, dev, 100_000, "LAUNCHES_WIDE")
+    res["frame3"], img3 = frame_readings(cs, dev, 500_000, "LAUNCHES_SKIP")
+    torch.save({"b5": outs, "meta": metas, "img": img.cpu(),
+                "walks": walk_outs, "b2": b2_outs, "img2": img2,
+                "img3": img3}, out + ".pt")
     with open(out, "w") as f:
         json.dump(res, f)
 
 
 def walk_readings(cs, scene100, rays100, dev):
     """B3 on terrain 100k's phase-6 rays and B4 on terrain 500k's: (t,
-    slot, u, v) of one launch, three readings of 20 launches, B4's warp
-    steps where trace_skip counts them."""
+    slot, u, v) of one launch, three readings of 20 launches, the warp
+    steps where the checkout's walk counts them."""
     import torch
     from vimg_tpu_torch.geometry import cluster_trace as ct
     from vimg_tpu_torch.scene.synthetic import terrain_scene
-    counts = "steps" in inspect.signature(ct.trace_skip).parameters
+    counts = {w: "steps" in inspect.signature(fn).parameters
+              for w, fn in (("b3", ct.trace_wide), ("b4", ct.trace_skip))}
     wide = ct.ClusterTracer(scene100, walk="wide")
     scene500 = terrain_scene(500_000, cs.MESH_W, cs.MESH_H, device=dev)
     data = ct.ClusterData(scene500)
@@ -160,10 +171,14 @@ def walk_readings(cs, scene100, rays100, dev):
                                            tr.data.n_nodes, *rs, any_hit)
             got = fn()
             steps = None
-            if walk == "b4" and counts:
+            if counts[walk]:
                 st = torch.zeros(2, dtype=torch.int64, device=dev)
-                ct.trace_skip(*tr.node_tables, tr.tri_rows, tr.data.n_nodes,
-                              *rs, any_hit, steps=st)
+                if walk == "b3":
+                    ct.trace_wide(*tr.node_tables, tr.tri_rows, tr.n_wide,
+                                  tr.max_stack, *rs, any_hit, steps=st)
+                else:
+                    ct.trace_skip(*tr.node_tables, tr.tri_rows,
+                                  tr.data.n_nodes, *rs, any_hit, steps=st)
                 steps = [int(x) for x in st.cpu()]
             for _ in range(2):
                 fn()
@@ -201,25 +216,26 @@ def b2_readings(cs, dev):
     return res, outs
 
 
-def frame_readings(cs, dev):
-    """Main path 3: terrain 500k at 512x256 @ 64 spp MIS through the
-    wavefront over B4, after a 1-spp warm-up frame, timed once."""
+def frame_readings(cs, dev, n_tris, counter):
+    """Main path 2 or 3: terrain ``n_tris`` at 512x256 @ 64 spp MIS through
+    the wavefront over B3 or B4 (``counter`` names its launch count),
+    after a 1-spp warm-up frame, timed once."""
     from vimg_tpu_torch.geometry import cluster_trace as ct
     from vimg_tpu_torch.render import wavefront
     from vimg_tpu_torch.render.render import render_frame
     from vimg_tpu_torch.scene import ir
     from vimg_tpu_torch.scene.synthetic import terrain_scene
-    scene = terrain_scene(500_000, cs.MESH_W, cs.MESH_H, device=dev)
+    scene = terrain_scene(n_tris, cs.MESH_W, cs.MESH_H, device=dev)
     st = ir.RenderSettings(cs.MESH_W, cs.MESH_H, spp=cs.MESH_SPP,
                            max_depth=64, integrator="mis", tonemap="agx",
                            batch_size=cs.MESH_BATCH)
     render_frame(scene, ir.RenderSettings(
         cs.MESH_W, cs.MESH_H, spp=1, max_depth=64, integrator="mis",
         tonemap="agx", batch_size=cs.MESH_BATCH))
-    before = ct.LAUNCHES_SKIP
+    before = getattr(ct, counter)
     img, secs = cs.timed(lambda: render_frame(scene, st))
     return dict(s=secs, loop_s=wavefront.LAST_STATS["seconds"],
-                launches=ct.LAUNCHES_SKIP - before), img.cpu()
+                launches=getattr(ct, counter) - before), img.cpu()
 
 
 def main():
@@ -265,6 +281,10 @@ def main():
                 bad.append(f"B5 {key} run {res['name']}: {n} rays differ")
         if res["p19"]["held"] > 1.0:
             bad.append(f"P19 run {res['name']}: gate {res['p19']['held']}")
+        for key, got in res["data"]["meta"].items():
+            n = int((got != ref["meta"][key]).sum())
+            if n:
+                bad.append(f"meta {key} run {res['name']}: {n} slots differ")
         for key, got in res["data"]["walks"].items():
             n = sum(int((a.view(torch.int32) != b.view(torch.int32)).sum())
                     for a, b in zip(got, ref["walks"][key]))
@@ -278,7 +298,8 @@ def main():
             if got["counts"] != want["counts"]:
                 bad.append(f"{key} run {res['name']}: counters "
                            f"{got['counts']} != {want['counts']}")
-        for name, key in (("main path 6", "img"), ("main path 3", "img3")):
+        for name, key in (("main path 6", "img"), ("main path 2", "img2"),
+                          ("main path 3", "img3")):
             r = cs.compare(f"{name}, {res['name']} vs this", ref[key],
                            res["data"][key])
             if not (r["mean"] < cs.WF_MEAN and r["corr"] > cs.WF_CORR):
@@ -288,11 +309,14 @@ def main():
         xs = [x for res in runs if res["name"] == key for x in get(res)]
         return f"{min(xs):.6f}-{max(xs):.6f}"
 
-    print(f"B5 ms (20 launches between CUDA events, {READINGS} readings a "
-          f"run; other runs 1 and 4, this runs 2 and 3):")
+    print(f"cull and B5 ms (20 calls between CUDA events, {READINGS} "
+          f"readings a run; other runs 1 and 4, this runs 2 and 3):")
     for key in runs[0]["b5"]:
         steps = runs[1]["b5"][key]["steps"]
-        print(f"  {key:13s} other {span('other', lambda r: r['b5'][key]['ms'])}"
+        print(f"  {key:13s} cull other "
+              f"{span('other', lambda r: r['b5'][key]['cull_ms'])}  this "
+              f"{span('this', lambda r: r['b5'][key]['cull_ms'])}; B5 other "
+              f"{span('other', lambda r: r['b5'][key]['ms'])}"
               f"  this {span('this', lambda r: r['b5'][key]['ms'])}"
               f"  warp test steps (this) {steps}")
     print(f"P19 TF32 ms (device time): other "
@@ -316,9 +340,10 @@ def main():
               f"{span('other', lambda r: r['b2'][key]['ms'])}  this "
               f"{span('this', lambda r: r['b2'][key]['ms'])}  lane fill "
               f"(this) {fill}")
-    print(f"main path 3 frame s (render loop s), in run order: " + ", ".join(
-        f"{r['name']} {r['frame3']['s']:.3f} ({r['frame3']['loop_s']:.3f})"
-        for r in runs))
+    for n, key in ((2, "frame2"), (3, "frame3")):
+        print(f"main path {n} frame s (render loop s), in run order: "
+              + ", ".join(f"{r['name']} {r[key]['s']:.3f} "
+                          f"({r[key]['loop_s']:.3f})" for r in runs))
     print(card)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
@@ -329,8 +354,8 @@ def main():
                 failures=bad), f, indent=1)
     if bad:
         sys.exit("FAIL: " + "; ".join(bad))
-    print("all B3, B4, B5 outputs and B1, B2 films and counters bit-equal "
-          "across the runs, P19 held, frames agree")
+    print("all meta, B3, B4, B5 outputs and B1, B2 films and counters "
+          "bit-equal across the runs, P19 held, frames agree")
 
 
 if __name__ == "__main__":

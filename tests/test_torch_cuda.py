@@ -1,8 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions, on the card:
 the megakernel (B1 analytic mode, B2 mesh mode), the cluster walks (B3
-wide, B4 skip), the packet walk (B5), the table-row gather (B6) and the
-probe kernels P1-P31 (vimg_tpu_torch/probes); and an s_normal frame on
-the card.
+wide, B4 skip), the packet cull (X1) and walk (B5), the table-row gather
+(B6) and the probe kernels P1-P31 (vimg_tpu_torch/probes); and an
+s_normal frame on the card.
 
 This file imports no JAX, so it also runs on the GPU machine, which has
 none: ``python3 -m pytest --noconftest tests/test_torch_cuda.py -q`` from
@@ -11,11 +11,10 @@ JAX). Without CUDA the card tests skip and only the dispatch checks run.
 Criteria: for B1 and B2, tests/test_megakernel.py's per-pixel bound at
 unit scale (mean|d| < 1e-4, < 1% of pixels with max|d| > 1e-5; the mesh
 scenes are unit scale too) and equal segment and shadow-ray counts; for
-B3, B4 and B5, bit-equality with their plain walks (B4 also with exact
-ties, and its warp steps equal to its schedule's replay); for B6 and
-P1-P31,
-bit-equality with their plain versions, except where the P12-P31 tests
-say otherwise.
+B3, B4 and B5, bit-equality with their plain walks (B3 and B4 also with
+exact ties, and their warp steps equal to their schedules' replays); for
+X1, B6 and P1-P31, bit-equality with their plain versions, except where
+the P12-P31 tests say otherwise.
 """
 import dataclasses
 
@@ -242,6 +241,193 @@ def test_skip_kernel_bit_equal_with_warp_steps(cuda, ties):
         assert [int(x) for x in steps.cpu()] == [counts["node_steps"],
                                                  counts["tri_steps"]]
         assert st["tri_tests"] / (32 * counts["tri_steps"]) > 0.5
+
+
+def _ray_kinds(scene, tracer, device):
+    """Camera rays (128x64 @ 1 spp), bounce rays from their hit points
+    (random upward directions) and shadow rays from the same points to a
+    point above the terrain (finite maxT)."""
+    from vimg_tpu_torch.render.integrators import _primary_rays
+    n = 128 * 64
+    ro, rd = _primary_rays(scene, ir.RenderSettings(width=128, height=64),
+                           torch.arange(n, device=device),
+                           torch.zeros(n, dtype=torch.int64, device=device))
+    mn = torch.full((n,), 1e-4, device=device)
+    inf = torch.full((n,), float("inf"), device=device)
+    hr = tracer.closest(scene, ro, rd, mn, inf)
+    idx = torch.nonzero(hr.hit)[:, 0]
+    p = (ro[idx] + rd[idx] * hr.t[idx, None]).contiguous()
+    r = np.random.default_rng(1)
+    d = r.normal(size=(idx.numel(), 3))
+    d[:, 1] = np.abs(d[:, 1])
+    d = torch.as_tensor(d / np.linalg.norm(d, axis=1, keepdims=True),
+                        dtype=torch.float32, device=device)
+    wl = torch.tensor([0.3, 4.0, -0.2], device=device) - p
+    dist = wl.norm(dim=1)
+    m = idx.numel()
+    return {"camera": (ro, rd, mn, inf),
+            "bounce": (p, d, mn[:m], inf[:m]),
+            "shadow": (p, (wl / dist[:, None]).contiguous(), mn[:m],
+                       dist * 0.999)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["camera", "bounce", "shadow", "ties"])
+def test_wide_kernel_bit_equal_with_warp_steps(cuda, kind):
+    """B3 (the 8-ary stack walk on the warp's leaf round) bit for bit
+    against wide_walk_plain on camera, bounce and shadow (any hit) rays,
+    and with exact ties on random rays (closest and any hit, idle lanes, a
+    ragged last warp); its warp node and triangle steps equal the replay
+    of its schedule (skip_schedule.wide_warp_schedule)."""
+    from vimg_tpu_torch.geometry import skip_schedule as ss
+    scene = terrain_scene(20_000, 128, 64, device=cuda)
+    tr = ct.ClusterTracer(scene, walk="wide")
+    if kind == "ties":
+        tri = _tied(tr.tri_rows)
+        cases = [(tuple(x[:16384 - 11] for x in _terrain_rays(cuda)), ah)
+                 for ah in (False, True)]
+    else:
+        tri = tr.tri_rows
+        cases = [(_ray_kinds(scene, tr, cuda)[kind], kind == "shadow")]
+    for rays, any_hit in cases:
+        order = tr.sort_order(rays[0], rays[1], rays[3])
+        rays = tuple(x[order].contiguous() for x in rays)
+        tabs = (*tr.node_tables, tri)
+        steps = torch.zeros(2, dtype=torch.int64, device=cuda)
+        before = ct.LAUNCHES_WIDE
+        got = ct.trace_wide(*tabs, tr.n_wide, tr.max_stack, *rays, any_hit,
+                            steps=steps)
+        assert ct.LAUNCHES_WIDE == before + 1
+        st = {}
+        ref = ct.wide_walk_plain(*tabs, tr.max_stack, *rays, any_hit,
+                                 stats=st)
+        for a, b in zip(got, ref):
+            assert torch.equal(_bits(a) if a.is_floating_point() else a,
+                               _bits(b) if b.is_floating_point() else b)
+        assert bool((ref[0] == -float("inf")).any() if any_hit
+                    else (ref[1] >= 0).any())
+        _, counts = ss.wide_warp_schedule(*tabs, tr.max_stack, *rays,
+                                          any_hit)
+        assert [int(x) for x in steps.cpu()] == [counts["node_steps"],
+                                                 counts["tri_steps"]]
+        assert st["tri_tests"] / (32 * counts["tri_steps"]) > 0.5
+
+
+@pytest.mark.cuda
+def test_wide_kernel_refuses_misaligned_tables(cuda):
+    """B3 reads wide boxes, refs, cluster boxes and triangle rows 16 bytes
+    at a time: a view of any of them that does not start 16-byte aligned
+    raises (no fallback)."""
+    scene = terrain_scene(2_000, 16, 8, device=cuda)
+    tr = ct.ClusterTracer(scene, walk="wide")
+    rays = _terrain_rays(cuda, n=256)
+    tabs = [*tr.node_tables, tr.tri_rows]
+    for k in range(4):
+        moved = list(tabs)
+        x = tabs[k]
+        moved[k] = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)[1:]
+        moved[k].copy_(x)
+        with pytest.raises(ValueError, match="16-byte"):
+            ct.trace_wide(*moved, tr.n_wide, tr.max_stack, *rays, False)
+
+
+def _cull_edge_rays(C, device, seed=0):
+    """tests/test_torch_packet.py's cull edge case (three workgroups, one
+    looking away; idle lanes; zero direction components) with two more:
+    a denormal direction component (1 / d = inf) on every 13th ray and
+    origins on a box's face (so (lo - o) * inf is NaN)."""
+    r = np.random.default_rng(seed)
+    ctr, half = r.random((C, 3)), 0.02 + 0.1 * r.random((C, 3))
+    if C == 1:
+        ctr, half = np.full((1, 3), 0.5), np.full((1, 3), 0.45)
+    lo, hi = (ctr - half).astype(np.float32), (ctr + half).astype(np.float32)
+    n = 3 * 128
+    ro = r.random((n, 3)).astype(np.float32)
+    ro[:, 1] += 1.5
+    rd = r.normal(size=(n, 3))
+    rd[:, 1] = -np.abs(rd[:, 1]) - 0.5
+    rd[128:256, 1] *= -1.0
+    rd[::5, 0] = 0.0
+    rd[::11, 2] = 0.0
+    rd = (rd / np.linalg.norm(rd, axis=1, keepdims=True)).astype(np.float32)
+    rd[3::13, 0] = 1e-40
+    ro[3::26, 0] = lo[0, 0]
+    mx = np.full(n, np.inf, np.float32)
+    mx[::3] = 2.0
+    mx[::7] = -np.inf
+    pi = np.stack([r.permutation(C) for _ in range(8)])
+    t = lambda x: torch.as_tensor(x, device=device)
+    return ((t(ro), t(rd), t(np.full(n, 1e-4, np.float32)), t(mx)), t(lo),
+            t(hi), t(pi))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["slist", "f2b"])
+def test_cull_kernel_bit_equal_to_plain(cuda, variant):
+    """X1 (packet_cull.cu, through cull_meta and PacketTracer.cull) against
+    the plain cull _cull_meta, meta bit for bit: on a 20k terrain's random
+    and camera rays, and on edge cases with 1, 127, 128 and 129 clusters
+    (every slot of the meta is the kernel's: it is allocated empty)."""
+    from vimg_tpu_torch.geometry import packet_trace as pt
+    scene = terrain_scene(20_000, 128, 64, device=cuda)
+    tr = pt.PacketTracer(scene, variant=variant)
+    f2b = variant == "f2b"
+    kinds = _ray_kinds(scene, ct.ClusterTracer(scene, walk="wide"), cuda)
+    for rays in (_terrain_rays(cuda), kinds["camera"], kinds["bounce"]):
+        _, packed = tr.pack(*rays)
+        before = pt.LAUNCHES_CULL
+        got = tr.cull(packed)
+        assert pt.LAUNCHES_CULL == before + 1
+        ref = pt._cull_meta(*packed, tr.cl_lo, tr.cl_hi, tr.cp,
+                            tr.pi if f2b else None, tr.entry_scale)
+        assert pt.LAUNCHES_CULL == before + 1
+        assert torch.equal(got, ref)
+        assert int(got.view(-1, 8, tr.cp)[:, 2, 0].sum()) > 0
+    for C in (1, 127, 128, 129):
+        rays, lo, hi, pi = _cull_edge_rays(C, cuda, seed=C)
+        cp = -(-(C + 1) // 128) * 128
+        args = (*rays, lo, hi, cp, pi if f2b else None, 3.0e5)
+        got, ref = pt.cull_meta(*args), pt._cull_meta(*args)
+        assert torch.equal(got, ref), C
+        assert int(got.view(-1, 8, cp)[1, 2, 0]) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["slist", "f2b"])
+def test_packet_tracer_launches_cull_and_walk(cuda, variant):
+    """A CUDA PacketTracer runs X1 and B5 once a trace, with the hits of a
+    plain=True tracer (plain cull and walk, no launch); a packet frame
+    through render_frame (the wavefront) moves both counters alike."""
+    from vimg_tpu_torch.geometry import packet_trace as pt
+    from vimg_tpu_torch.render.render import render_frame
+    scene = terrain_scene(20_000, 64, 32, device=cuda)
+    tr = pt.PacketTracer(scene, variant=variant)
+    plain = pt.PacketTracer(scene, variant=variant, plain=True, data=tr.data)
+    kinds = _ray_kinds(scene, ct.ClusterTracer(scene, walk="wide"), cuda)
+    for kind, rays in kinds.items():
+        before = (pt.LAUNCHES_CULL, pt.LAUNCHES)
+        if kind == "shadow":
+            got = tr.occluded(scene, *rays)
+            assert (pt.LAUNCHES_CULL, pt.LAUNCHES) == (before[0] + 1,
+                                                       before[1] + 1)
+            want = plain.occluded(scene, *rays)
+            assert torch.equal(got, want) and bool(got.any())
+        else:
+            h = tr.closest(scene, *rays)
+            assert (pt.LAUNCHES_CULL, pt.LAUNCHES) == (before[0] + 1,
+                                                       before[1] + 1)
+            hp = plain.closest(scene, *rays)
+            for f in ("t", "prim_type", "prim_id", "u", "v"):
+                assert torch.equal(getattr(h, f), getattr(hp, f)), f
+        assert (pt.LAUNCHES_CULL, pt.LAUNCHES) == (before[0] + 1,
+                                                   before[1] + 1)
+    before = (pt.LAUNCHES_CULL, pt.LAUNCHES)
+    # 8 spp: a mesh MIS frame below it goes to the megakernel B2
+    img = render_frame(scene, ir.RenderSettings(width=64, height=32, spp=8,
+                                                integrator="mis"),
+                       tracer_force="packet")
+    n_cull, n_walk = (pt.LAUNCHES_CULL - before[0], pt.LAUNCHES - before[1])
+    assert n_cull == n_walk > 0 and bool(torch.isfinite(img).all())
 
 
 @pytest.mark.cuda

@@ -7,8 +7,12 @@ Instead:
 
 - Tables: PacketData byte-identical to vimg_tpu's (native builder on a 2k
   terrain, numpy builder on a soup), octant orders equal.
-- Cull: ``_cull_meta`` bit-identical to vimg_tpu's XLA function (jitted)
-  on the same arrays, without and with the f2b orderings.
+- Cull: ``_cull_meta`` (kernel X1's plain version) bit-identical to
+  vimg_tpu's XLA function (jitted) on the same arrays, without and with
+  the f2b orderings, on a terrain's rays and on edge cases (1, 127, 128
+  and 129 clusters, a workgroup without a candidate, idle lanes, zero
+  direction components); ``PacketTracer.cull`` takes it on the CPU and
+  counts no kernel launch.
 - Plain walk: the same t bit for bit as the port's plain cluster walk
   (``ClusterTracer(walk="skip", plain=True)``), the same triangle except
   on exact ties in t (counted, at most 2); t within 1e-5 relative of
@@ -108,23 +112,104 @@ def test_tables_byte_identical(terrain, soup, case):
     assert np.array_equal(jd.octant_orders(), td.octant_orders())
 
 
-@pytest.mark.parametrize("variant", ["slist", "f2b"])
-def test_cull_bit_identical(terrain, variant):
-    js, ts, td = terrain
-    jt = jpt.PacketTracer(js)
-    tt = tpt.PacketTracer(ts, variant=variant, data=td)
-    assert tt.cp == jt.cp and tt.entry_scale == jt.entry_scale
-    assert tt.scene_bounds == jt._bounds_static
-    _, rays = tt.pack(*_t(*_rays(ts)))
+def _cull_edge_case(C, seed=0):
+    """Three workgroups against C random boxes in the unit cube:
+    workgroups 0 and 2 look down into the boxes, workgroup 1 looks away
+    (no candidate at all); every 7th lane is idle (maxT = -inf), every
+    3rd has a finite maxT, and direction components are exactly 0 on
+    every 5th (x) and 11th (z) ray. One cluster is a box of most of the
+    cube. Returns the rays, the boxes and 8 random per-octant
+    orderings."""
+    r = np.random.default_rng(seed)
+    ctr, half = r.random((C, 3)), 0.02 + 0.1 * r.random((C, 3))
+    if C == 1:
+        ctr, half = np.full((1, 3), 0.5), np.full((1, 3), 0.45)
+    lo, hi = (ctr - half).astype(np.float32), (ctr + half).astype(np.float32)
+    n = 3 * tpt.WG
+    ro = r.random((n, 3)).astype(np.float32)
+    ro[:, 1] += 1.5
+    rd = r.normal(size=(n, 3))
+    rd[:, 1] = -np.abs(rd[:, 1]) - 0.5
+    rd[128:256, 1] *= -1.0
+    rd[::5, 0] = 0.0
+    rd[::11, 2] = 0.0
+    rd = (rd / np.linalg.norm(rd, axis=1, keepdims=True)).astype(np.float32)
+    mx = np.full(n, np.inf, np.float32)
+    mx[::3] = 2.0
+    mx[::7] = -np.inf
+    pi = np.stack([r.permutation(C) for _ in range(8)])
+    return (ro, rd, np.full(n, 1e-4, np.float32), mx), lo, hi, pi
+
+
+CULL_CASES = ([("slist", None), ("f2b", None)]
+              + [(v, C) for C in (1, 127, 128, 129) for v in ("slist", "f2b")])
+
+
+@pytest.mark.parametrize(
+    "variant,clusters", CULL_CASES,
+    ids=[v if C is None else f"{v}-C{C}" for v, C in CULL_CASES])
+def test_cull_bit_identical(terrain, variant, clusters):
+    """The plain cull (kernel X1's reference) bit for bit against
+    vimg_tpu's jitted _cull_meta: on a terrain's rays, and on the edge
+    cases of _cull_edge_case with C clusters (one chunk of 128 or not,
+    cp one slot past C or a whole chunk past it)."""
     f2b = variant == "f2b"
-    cull = jax.jit(functools.partial(jpt._cull_meta, cp=jt.cp,
-                                     pi=jt.pi if f2b else None,
-                                     entry_scale=jt.entry_scale))
-    want = np.asarray(cull(*(jnp.asarray(x.numpy()) for x in rays),
-                           jt.cl_lo, jt.cl_hi))
-    got = tt.cull(rays).numpy()
+    if clusters is None:
+        js, ts, td = terrain
+        jt = jpt.PacketTracer(js)
+        tt = tpt.PacketTracer(ts, variant=variant, data=td)
+        assert tt.cp == jt.cp and tt.entry_scale == jt.entry_scale
+        assert tt.scene_bounds == jt._bounds_static
+        _, rays = tt.pack(*_t(*_rays(ts)))
+        cp, pi, scale = jt.cp, jt.pi, jt.entry_scale
+        boxes = (jt.cl_lo, jt.cl_hi)
+        got = tt.cull(rays).numpy()
+    else:
+        rays_np, lo, hi, pi_np = _cull_edge_case(clusters, seed=clusters)
+        rays = _t(*rays_np)
+        cp, scale = -(-(clusters + 1) // 128) * 128, 3.0e5
+        pi = jnp.asarray(pi_np.astype(np.int32))
+        boxes = (jnp.asarray(lo), jnp.asarray(hi))
+        got = tpt._cull_meta(*rays, *_t(lo, hi), cp,
+                             torch.from_numpy(pi_np) if f2b else None,
+                             scale).numpy()
+    cull = jax.jit(functools.partial(jpt._cull_meta, cp=cp,
+                                     pi=pi if f2b else None,
+                                     entry_scale=scale))
+    want = np.asarray(cull(*(jnp.asarray(x.numpy()) for x in rays), *boxes))
     assert got.dtype == want.dtype and np.array_equal(got, want)
-    assert (got.reshape(-1, 8, tt.cp)[:, 2, 0] > 0).all()
+    count = got.reshape(-1, 8, cp)[:, 2, 0]
+    if clusters is None:
+        assert (count > 0).all()
+    else:
+        assert count[1] == 0 and count[0] > 0 and count[2] > 0
+        assert (got.reshape(-1, 8, cp)[1, 0] == cp - 1).all()
+
+
+def test_cull_wiring_on_cpu(terrain, monkeypatch):
+    """PacketTracer.cull takes the plain cull for CPU tensors, with or
+    without plain=True, and never counts a kernel launch."""
+    _, ts, td = terrain
+    calls = []
+    plain_cull = tpt._cull_meta
+
+    def spy(*a, **k):
+        calls.append(a[0].device.type)
+        return plain_cull(*a, **k)
+
+    monkeypatch.setattr(tpt, "_cull_meta", spy)
+    before = tpt.LAUNCHES_CULL
+    for variant in ("slist", "f2b"):
+        metas = []
+        for plain in (False, True):
+            tr = tpt.PacketTracer(ts, variant=variant, plain=plain, data=td)
+            _, rays = tr.pack(*_t(*_rays(ts)))
+            metas.append(tr.cull(rays))
+        assert torch.equal(*metas)
+    assert calls == ["cpu"] * 4 and tpt.LAUNCHES_CULL == before
+    with pytest.raises(NotImplementedError, match="meta"):
+        tpt.cull_meta(*(x.to("meta") for x in rays), tr.cl_lo, tr.cl_hi,
+                      tr.cp)
 
 
 def test_plain_walk_matches_cluster_walk(terrain):

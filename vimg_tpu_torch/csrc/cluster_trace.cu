@@ -7,16 +7,17 @@
 // against the triangles of a mesh cut into 64-triangle clusters, walking
 // the SAH tree restricted to the clusters.
 //
-// Design. B3: one thread per ray, 128-thread blocks, every table in global
-// memory behind const __restrict__ pointers; the lane walks its own nodes
-// and scans its own leaves (cwalk::lane_leaf). B4: the warp-cooperative
-// walk of cluster_walk.cuh: nodes per lane as in B3, the leaves of a
-// warp's lanes run by the whole warp, 16-byte loads of node boxes and
-// triangle rows. The TPU kernels walk a whole ray tile in lockstep (a node
-// is visited if any lane of the tile touches it) because Mosaic has no
-// per-lane gather; the tile union, row-group gates, VMEM residency and DMA
-// streaming exist only for that. A GPU thread can load by index, so each
-// lane walks its own ray. The result is bit-equal to the tile walk: child
+// Design. Both walks are warp-cooperative (cluster_walk.cuh): each lane
+// walks its own ray's nodes, B3 with a per-lane stack of 8-ary node refs,
+// B4 stacklessly over the binary tree, until it reaches a live cluster and
+// posts it; the whole warp then runs the posted clusters of all its lanes
+// together, 32 triangles a step (cwalk::leaf_round), and every lane goes
+// on with its nodes. Node boxes and triangle rows are read 16 bytes at a
+// time, every table stays in global memory. The TPU kernels walk a whole
+// ray tile in lockstep (a node is visited if any lane of the tile touches
+// it) because Mosaic has no per-lane gather; the tile union, row-group
+// gates, VMEM residency and DMA streaming exist only for that. A GPU
+// thread can load by index, so each lane walks its own ray. The result is bit-equal to the tile walk: child
 // boxes are nested in their parents, the slab test is monotone in the box
 // bounds and a ray's best t only shrinks, so the per-ray preorder walk
 // tests exactly the (cluster, sub-box, triangle) candidates that the ray's
@@ -29,8 +30,8 @@
 //
 // Tables (flat row-major views of vimg_tpu's packed arrays; the binary
 // tree and triangle tables are described in cluster_walk.cuh, which holds
-// the slab tests, the leaf and the skip walk shared with the mesh-mode
-// megakernel B2):
+// the slab tests, the leaf round and the skip walk shared with the
+// mesh-mode megakernel B2):
 //   wide boxes  [w*64 + c*8 + j]   child c of wide node w: lo xyz, hi xyz
 //   wide refs   [w*8 + c]          >= 0 wide node, < 0 cluster -(cid+1),
 //                                  EMPTY for an unused slot
@@ -38,16 +39,20 @@
 //
 // What bounds it on this card: neither bytes nor flops. Each node step
 // loads a node that depends on the previous one (latency), and the rays of
-// a warp take different paths (divergence). In B3 a lane's leaf is up to 64
-// sequential triangle tests while the warp's other lanes wait; B4 runs a
-// warp's leaves 32 triangles a step (geometry/skip_schedule.py replays
-// both schedules and counts their warp steps). The tables of the 100k and
-// 500k terrains (9 and 45 MB) fit the 50 MB L2.
+// a warp take different paths (divergence): a round's node phase lasts as
+// long as its longest lane. The leaf, up to 64 sequential triangle tests
+// in one lane while the warp waited in the first design, runs a warp's
+// posted clusters 32 triangles a step (geometry/skip_schedule.py replays
+// both schedules of both walks and counts their warp steps). B3's node
+// phase then set its pace, so B3 reads a wide node's 8 child boxes and
+// refs as 16-byte rows and takes min / max in one instruction each
+// (wide_slab). The tables of the 100k and 500k terrains (9 and 45 MB)
+// fit the 50 MB L2.
 //
 // Launch contract: vimg_cluster_wide() / vimg_cluster_skip() launch on the
 // given stream, do not synchronise and allocate nothing; they return
-// cudaGetLastError(). vimg_cluster_skip() adds B4's warp node and triangle
-// steps to steps[0] and steps[1] when steps is not null.
+// cudaGetLastError(). Each adds its warp node and triangle steps to
+// steps[0] and steps[1] when steps is not null.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -60,10 +65,9 @@ namespace {
 using cwalk::Hit;
 using cwalk::Ray;
 using cwalk::Tests;
-using cwalk::slab;
 
 constexpr int BLOCK = 128;
-static_assert(BLOCK == 32 * cwalk::WALK_WARPS, "B4's warp scratch");
+static_assert(BLOCK == 32 * cwalk::WALK_WARPS, "the warp scratch");
 constexpr int FAN = 8;
 constexpr int EMPTY = 0x3FFFFFFF;
 constexpr int MAX_STACK = 128;  // geometry/cluster_trace.py WIDE_MAX_STACK
@@ -91,7 +95,70 @@ __device__ __forceinline__ void store(int i, const Hit& h, float* t_out,
   v_out[i] = h.v;
 }
 
-// B3: 8-ary stack walk
+// The ray of lane i, or a lane that takes part without one (past n_rays);
+// returns whether the lane walks
+__device__ __forceinline__ bool lane_ray(int i, int n_rays,
+                                         const float* __restrict__ ro,
+                                         const float* __restrict__ rd,
+                                         const float* __restrict__ minT,
+                                         const float* __restrict__ maxT,
+                                         bool any_hit, Ray& r, Hit& h) {
+  if (i < n_rays) return load_ray(i, ro, rd, minT, maxT, any_hit, r, h);
+  r = cwalk::make_ray(0.0f, 0.0f, 0.0f, 1.0f, 1.0f, 1.0f, 0.0f);
+  h.t = -INFINITY;
+  return false;
+}
+
+__device__ __forceinline__ void add_steps(const cwalk::Steps& steps,
+                                          unsigned long long* steps_out) {
+  if ((threadIdx.x & 31) == 0) {
+    atomicAdd(steps_out, (unsigned long long)steps.node);
+    atomicAdd(steps_out + 1, (unsigned long long)steps.tri);
+  }
+}
+
+// B3's slab test of a wide child or cluster box (lo xyz, hi xyz at b[0..5],
+// the row 16-byte aligned): cwalk::slab6's arithmetic, with min / max that
+// return NaN when either input is NaN in one instruction each (PTX
+// min.NaN / max.NaN, sm_80+) where jmin / jmax take three. Only the
+// comparison tin <= tout leaves it, so a NaN's bits and the sign of a
+// zero do not matter: the result is slab6's.
+__device__ __forceinline__ float nmin(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+__device__ __forceinline__ float nmax(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+__device__ __forceinline__ bool wide_slab(const float* __restrict__ b,
+                                          const Ray& r, float bt) {
+  const float4 p = cwalk::ldg4(b), q = cwalk::ldg4(b + 4);
+  const float t0x = (p.x - r.ox) * r.ix;
+  const float t1x = (p.w - r.ox) * r.ix;
+  const float t0y = (p.y - r.oy) * r.iy;
+  const float t1y = (q.x - r.oy) * r.iy;
+  const float t0z = (p.z - r.oz) * r.iz;
+  const float t1z = (q.y - r.oz) * r.iz;
+  const float tin = nmax(nmax(nmin(t0x, t1x), nmin(t0y, t1y)),
+                         nmax(nmin(t0z, t1z), r.minT));
+  const float tout = nmin(nmin(nmax(t0x, t1x), nmax(t0y, t1y)),
+                          nmin(nmax(t0z, t1z), bt));
+  return tin <= tout;
+}
+
+// B3: the 8-ary stack walk on the warp's leaf round. A round's node phase:
+// pop a ref; a wide node slab-tests its children at the current t and
+// pushes the live, non-EMPTY ones in reverse (child 0 is popped first); a
+// cluster ref is slab-tested against its cluster box at the current t and,
+// if live, posted. Then the warp runs the posted clusters
+// (cwalk::leaf_round); an any-hit owner empties its stack. Every lane of a
+// warp with a ray takes part; lanes past n_rays and rays that do not walk
+// take part without a ray. kSteps: count the warp steps into
+// steps_out[0..1] (node steps: pops).
+template <bool kSteps>
 __global__ void __launch_bounds__(BLOCK)
     cluster_wide_kernel(const float* __restrict__ wbox,
                         const int* __restrict__ wref,
@@ -103,36 +170,52 @@ __global__ void __launch_bounds__(BLOCK)
                         const float* __restrict__ maxT, int n_rays,
                         int any_hit, float* __restrict__ t_out,
                         int* __restrict__ slot_out, float* __restrict__ u_out,
-                        float* __restrict__ v_out) {
-  int i = blockIdx.x * BLOCK + threadIdx.x;
-  if (i >= n_rays) return;
+                        float* __restrict__ v_out,
+                        unsigned long long* __restrict__ steps_out) {
+  const int i = blockIdx.x * BLOCK + threadIdx.x;
+  if (i - (int)(threadIdx.x & 31) >= n_rays) return;  // the whole warp
   Ray r;
   Hit h;
-  if (load_ray(i, ro, rd, minT, maxT, any_hit, r, h)) {
-    Tests none = {0u, 0u};
-    int stack[MAX_STACK];
-    int sp = 0;
-    stack[sp++] = 0;  // the root wide node
+  const bool go = lane_ray(i, n_rays, ro, rd, minT, maxT, any_hit, r, h);
+  Tests none = {0u, 0u};
+  cwalk::Steps steps = {0u, 0u};
+  int stack[MAX_STACK];
+  int sp = 0;
+  if (go) stack[sp++] = 0;  // the root wide node
+  for (;;) {
+    // ---- node phase ----
+    int c = -1;
+    unsigned it = 0;
     while (sp > 0) {
-      int ref = stack[--sp];
+      const int ref = stack[--sp];
+      ++it;
       if (ref < 0) {
-        int c = -ref - 1;
-        if (slab(clbox + (size_t)c * 8, r, h.t) &&
-            cwalk::lane_leaf<false>(tri, c, r, h, any_hit, none))
+        const int cc = -ref - 1;
+        if (wide_slab(clbox + (size_t)cc * 8, r, h.t)) {
+          c = cc;
           break;
+        }
       } else {
         const float* b = wbox + (size_t)ref * (FAN * 8);
-        const int* kids = wref + (size_t)ref * FAN;
-        // push live children in reverse: child 0 is popped first
+        const int4* k4 = reinterpret_cast<const int4*>(wref) + 2 * ref;
+        const int4 ka = __ldg(k4), kb = __ldg(k4 + 1);
+        const int kids[FAN] = {ka.x, ka.y, ka.z, ka.w, kb.x, kb.y, kb.z, kb.w};
 #pragma unroll
         for (int ci = FAN - 1; ci >= 0; ci--) {
-          int kid = kids[ci];
-          if (kid != EMPTY && slab(b + ci * 8, r, h.t)) stack[sp++] = kid;
+          if (kids[ci] != EMPTY && wide_slab(b + ci * 8, r, h.t))
+            stack[sp++] = kids[ci];
         }
       }
     }
+    cwalk::count_node_steps<kSteps>(it, steps);
+    bool stop = false;
+    if (!cwalk::leaf_round<false, kSteps>(tri, c, r, h, any_hit, none, steps,
+                                          stop))
+      break;
+    if (stop) sp = 0;
   }
-  store(i, h, t_out, slot_out, u_out, v_out);
+  if (i < n_rays) store(i, h, t_out, slot_out, u_out, v_out);
+  if (kSteps) add_steps(steps, steps_out);
 }
 
 // B4: stackless skip-link walk, n = live ? n + 1 : skip[n], its leaves run
@@ -155,25 +238,15 @@ __global__ void __launch_bounds__(BLOCK)
                         unsigned long long* __restrict__ steps_out) {
   const int i = blockIdx.x * BLOCK + threadIdx.x;
   if (i - (int)(threadIdx.x & 31) >= n_rays) return;  // the whole warp
-  const bool in = i < n_rays;
   Ray r;
   Hit h;
-  bool go = false;
-  if (in) {
-    go = load_ray(i, ro, rd, minT, maxT, any_hit, r, h);
-  } else {
-    r = cwalk::make_ray(0.0f, 0.0f, 0.0f, 1.0f, 1.0f, 1.0f, 0.0f);
-    h.t = -INFINITY;
-  }
+  const bool go = lane_ray(i, n_rays, ro, rd, minT, maxT, any_hit, r, h);
   Tests none = {0u, 0u};
   cwalk::Steps steps = {0u, 0u};
   cwalk::warp_skip_walk<false, kSteps>(aabb, cid, skip, tri, n_nodes, r, h,
                                        any_hit, go, none, steps);
-  if (in) store(i, h, t_out, slot_out, u_out, v_out);
-  if (kSteps && (threadIdx.x & 31) == 0) {
-    atomicAdd(steps_out, (unsigned long long)steps.node);
-    atomicAdd(steps_out + 1, (unsigned long long)steps.tri);
-  }
+  if (i < n_rays) store(i, h, t_out, slot_out, u_out, v_out);
+  if (kSteps) add_steps(steps, steps_out);
 }
 
 }  // namespace
@@ -184,12 +257,18 @@ extern "C" int vimg_cluster_wide(const float* wbox, const int* wref,
                                  const float* minT, const float* maxT,
                                  int n_rays, int n_wide, int any_hit,
                                  float* t_out, int* slot_out, float* u_out,
-                                 float* v_out, void* stream) {
+                                 float* v_out, unsigned long long* steps,
+                                 void* stream) {
   (void)n_wide;  // the refs bound the walk; checked by the wrapper
   int blocks = (n_rays + BLOCK - 1) / BLOCK;
-  cluster_wide_kernel<<<blocks, BLOCK, 0, (cudaStream_t)stream>>>(
-      wbox, wref, clbox, tri, ro, rd, minT, maxT, n_rays, any_hit, t_out,
-      slot_out, u_out, v_out);
+  if (steps != nullptr)
+    cluster_wide_kernel<true><<<blocks, BLOCK, 0, (cudaStream_t)stream>>>(
+        wbox, wref, clbox, tri, ro, rd, minT, maxT, n_rays, any_hit, t_out,
+        slot_out, u_out, v_out, steps);
+  else
+    cluster_wide_kernel<false><<<blocks, BLOCK, 0, (cudaStream_t)stream>>>(
+        wbox, wref, clbox, tri, ro, rd, minT, maxT, n_rays, any_hit, t_out,
+        slot_out, u_out, v_out, steps);
   return (int)cudaGetLastError();
 }
 

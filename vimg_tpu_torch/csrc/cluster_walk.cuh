@@ -1,8 +1,8 @@
 // Device code of the cluster-tree walks, shared by kernels B3/B4
 // (cluster_trace.cu) and the mesh mode of the megakernel B2
-// (megakernel.cu): the ray record, the slab tests, the triangle test and
-// B3's per-lane leaf, and the warp-cooperative skip-link walk of the binary
-// cluster tree (B4, B2).
+// (megakernel.cu): the ray record, the slab tests, the triangle test, the
+// warp-cooperative leaf round (B3, B4, B2) and the skip-link walk of the
+// binary cluster tree that runs on it (B4, B2).
 //
 // Everything lives in namespace cwalk so that the including file's own
 // Hit / jmin / jmax do not clash. The arithmetic is the plain walks'
@@ -108,75 +108,6 @@ __device__ __forceinline__ bool slab6(float lox, float loy, float loz,
   return tin <= tout;
 }
 
-// slab test of box b[0..5] over [minT, bt]
-__device__ __forceinline__ bool slab(const float* __restrict__ b,
-                                     const Ray& r, float bt) {
-  return slab6(b[0], b[1], b[2], b[3], b[4], b[5], r, bt);
-}
-
-// slab test of sub-box s of a cluster: lo in row 2s, hi in row 2s+1,
-// slots 13..15
-__device__ __forceinline__ bool sub_slab(const float* __restrict__ rows,
-                                         int s, const Ray& r, float bt) {
-  const float* lo = rows + (2 * s) * ROW + 13;
-  const float* hi = rows + (2 * s + 1) * ROW + 13;
-  return slab6(lo[0], lo[1], lo[2], hi[0], hi[1], hi[2], r, bt);
-}
-
-// B3's leaf: the 64 triangles of cluster c in one lane (the per-lane
-// design, which B4 and B2 no longer use); the ray is already live against
-// the cluster box at its current t. Sub-box gates use the t at leaf entry;
-// the triangle tests use the running t (strict <: the first of equal t
-// wins). Returns true on an any-hit (t set to -inf). B3 instantiates it
-// without counters; kCount and n stay because with them B3's machine code
-// is instruction for instruction what it was before the warp walk (a
-// leaner signature reorders it, and B3 measured 2-3% slower).
-template <bool kCount>
-__device__ __forceinline__ bool lane_leaf(const float* __restrict__ tri, int c,
-                                          const Ray& r, Hit& h, bool any_hit,
-                                          Tests& n) {
-  const float* rows = tri + (size_t)c * (K * ROW);
-  const float be = h.t;
-  unsigned gate = 0;
-#pragma unroll
-  for (int s = 0; s < N_SUB; s++) gate |= (unsigned)sub_slab(rows, s, r, be) << s;
-  if (kCount) {
-    n.box += N_SUB;
-    n.tri += SUB * __popc(gate);
-  }
-  for (int s = 0; s < N_SUB; s++) {
-    if (!((gate >> s) & 1u)) continue;
-#pragma unroll 4
-    for (int k = s * SUB; k < (s + 1) * SUB; k++) {
-      const float* q = rows + k * ROW;
-      float nx = q[0], ny = q[1], nz = q[2], d0 = q[3];
-      float m1x = q[4], m1y = q[5], m1z = q[6], c1 = q[7];
-      float m2x = q[8], m2y = q[9], m2z = q[10], c2 = q[11];
-      float ro_n = r.ox * nx + r.oy * ny + r.oz * nz;
-      float rd_n = r.dx * nx + r.dy * ny + r.dz * nz;
-      bool par = fabsf(rd_n) < 1e-22f;
-      float t = (d0 - ro_n) / (par ? 1.0f : rd_n);
-      float u = r.ox * m1x + r.oy * m1y + r.oz * m1z - c1
-                + t * (r.dx * m1x + r.dy * m1y + r.dz * m1z);
-      float v = r.ox * m2x + r.oy * m2y + r.oz * m2z - c2
-                + t * (r.dx * m2x + r.dy * m2y + r.dz * m2z);
-      bool hit = !par && u >= 0.0f && v >= 0.0f && u + v <= 1.0f &&
-                 t >= r.minT && t < h.t;
-      if (hit) {
-        if (any_hit) {
-          h.t = -INFINITY;
-          return true;
-        }
-        h.t = t;
-        h.u = u;
-        h.v = v;
-        h.slot = c * K + k;
-      }
-    }
-  }
-  return false;
-}
-
 __device__ __forceinline__ float4 ldg4(const float* __restrict__ p) {
   return __ldg(reinterpret_cast<const float4*>(p));
 }
@@ -223,35 +154,157 @@ __device__ __forceinline__ WarpScratch& warp_scratch() {
   return scratch[threadIdx.x >> 5];
 }
 
+// The leaf round of the warp walks (B3, B4, B2): every lane of the warp
+// calls it together, after its node phase, with c the cluster it posts (-1
+// for none). Returns false, for the whole warp, when no lane posted: the
+// warp's walk is over. Otherwise the warp runs the posted leaves: groups
+// of 4 lanes gate a posted leaf's 4 sub-boxes at its entry t (8 leaves a
+// pass); the gated sub-boxes of all posted lanes become units of 16
+// triangles, two units a step, a lane a triangle. A lane with a hit (t >=
+// minT, t < the entry t) merges it into the owner's key by a
+// shared-memory atomicMin (any hit: the key is set). The owner takes the
+// least (t, k) and recomputes that triangle's t, u, v, bit for bit what
+// the hitting lane computed. That is the sequential scan's answer: strict
+// < keeps the least t below the entry t and the first k of equal t; a NaN
+// t never hits. An any-hit owner gets t = -inf and stop = true (its walk
+// must end, but it still joins the warp's later rounds).
+template <bool kCount, bool kSteps>
+__device__ __forceinline__ bool leaf_round(const float* __restrict__ tri,
+                                           int c, const Ray& r, Hit& h,
+                                           bool any_hit, Tests& n,
+                                           Steps& steps, bool& stop) {
+  WarpScratch& ws = warp_scratch();
+  const int lane = threadIdx.x & 31;
+  const unsigned lt = (1u << lane) - 1u;
+  const unsigned posted = __ballot_sync(FULL, c >= 0);
+  if (posted == 0u) return false;
+  if (c >= 0) {
+    ws.rec[lane][0] = make_float4(r.ox, r.oy, r.oz, r.minT);
+    ws.rec[lane][1] = make_float4(r.dx, r.dy, r.dz, h.t);
+    ws.rec[lane][2] = make_float4(r.ix, r.iy, r.iz, __int_as_float(c));
+    ws.key[lane] = ~0ull;
+  }
+  __syncwarp();
+  // ---- gates: lanes 4q..4q+3 test sub-boxes 0..3 of the q-th leaf ----
+  unsigned gate = 0u;
+  const int q = lane >> 2, s = lane & 3;
+  for (unsigned rem = posted; rem != 0u;) {
+    unsigned m = rem;
+    for (int j = 0; j < q && m != 0u; ++j) m &= m - 1u;
+    bool g = false;
+    if (m != 0u) {
+      const int src = __ffs(m) - 1;
+      const float4 o = ws.rec[src][0], d = ws.rec[src][1];
+      const float4 iv = ws.rec[src][2];
+      Ray rr;
+      rr.ox = o.x;
+      rr.oy = o.y;
+      rr.oz = o.z;
+      rr.ix = iv.x;
+      rr.iy = iv.y;
+      rr.iz = iv.z;
+      rr.minT = o.w;
+      const float* rows =
+          tri + (size_t)__float_as_int(iv.w) * (K * ROW) + 12;
+      const float4 lo = ldg4(rows + (2 * s) * ROW);
+      const float4 hi = ldg4(rows + (2 * s + 1) * ROW);
+      g = slab6(lo.y, lo.z, lo.w, hi.y, hi.z, hi.w, rr, d.w);
+    }
+    const unsigned bal = __ballot_sync(FULL, g);
+    if ((rem >> lane) & 1u) {
+      const int rank = __popc(rem & lt);
+      if (rank < 8) gate = (bal >> (4 * rank)) & 0xFu;
+    }
+    for (int j = 0; j < 8 && rem != 0u; ++j) rem &= rem - 1u;
+  }
+  // ---- units: the gated sub-boxes in lane order ----
+  const int cnt = __popc(gate);
+  const unsigned b0 = __ballot_sync(FULL, cnt & 1);
+  const unsigned b1 = __ballot_sync(FULL, cnt & 2);
+  const unsigned b2 = __ballot_sync(FULL, cnt & 4);
+  const int total = __popc(b0) + 2 * __popc(b1) + 4 * __popc(b2);
+  if (c >= 0) {
+    if (kCount) {
+      n.box += N_SUB;
+      n.tri += SUB * cnt;
+    }
+    int e = __popc(b0 & lt) + 2 * __popc(b1 & lt) + 4 * __popc(b2 & lt);
+    for (int j = 0; j < N_SUB; ++j)
+      if ((gate >> j) & 1u)
+        ws.unit[e++] = ((unsigned)lane << 24) | (unsigned)(c * K + j * SUB);
+  }
+  __syncwarp();
+  // ---- triangle steps: half-warp h takes unit base + h ----
+  for (int base = 0; base < total; base += 2) {
+    const int un = base + (lane >> 4);
+    if (un < total) {
+      const unsigned e = ws.unit[un];
+      const int owner = (int)(e >> 24);
+      const int row = (int)(e & 0xFFFFFFu) + (lane & 15);
+      const float4 o = ws.rec[owner][0], d = ws.rec[owner][1];
+      float t, u, v;
+      if (tri_test(tri + (size_t)row * ROW, o.x, o.y, o.z, d.x, d.y, d.z,
+                   t, u, v) &&
+          t >= o.w && t < d.w) {
+        if (any_hit)
+          ws.key[owner] = 0ull;
+        else
+          atomicMin(&ws.key[owner], hit_key(t, row & (K - 1)));
+      }
+    }
+  }
+  if (kSteps && lane == 0) steps.tri += (unsigned)((total + 1) >> 1);
+  __syncwarp();
+  if (c >= 0) {
+    const unsigned long long key = ws.key[lane];
+    if (key != ~0ull) {
+      if (any_hit) {
+        h.t = -INFINITY;
+        stop = true;
+      } else {
+        const int k = (int)(key & (K - 1));
+        float t, u, v;
+        tri_test(tri + ((size_t)c * K + k) * ROW, r.ox, r.oy, r.oz, r.dx,
+                 r.dy, r.dz, t, u, v);
+        h.t = t;
+        h.u = u;
+        h.v = v;
+        h.slot = c * K + k;
+      }
+    }
+  }
+  __syncwarp();  // the next round rewrites the scratch
+  return true;
+}
+
+// The node phase's step count of a round: the most any lane of the warp
+// took, kept by lane 0
+template <bool kSteps>
+__device__ __forceinline__ void count_node_steps(unsigned it, Steps& steps) {
+  if (kSteps) {
+    const unsigned most = __reduce_max_sync(FULL, it);
+    if ((threadIdx.x & 31) == 0) steps.node += most;
+  }
+}
+
 // Stackless skip-link walk of the binary cluster tree, n = live ? n + 1 :
-// skip[n], with the leaves run by the whole warp.
+// skip[n], with the leaves run by the whole warp (leaf_round).
 //
 // Every lane of the warp calls it together (the same call, the same number
 // of times); lanes with go = false take part without a ray. h holds maxT
 // on entry and the best hit on exit (t = -inf for an any-hit).
 //
 // A round: each lane walks its own nodes, exactly as a per-lane walk,
-// until it reaches a live leaf (it posts the leaf and waits) or the end.
-// Then the warp runs the posted leaves: groups of 4 lanes gate a posted
-// leaf's 4 sub-boxes at its entry t (8 leaves a pass); the gated
-// sub-boxes of all posted lanes become units of 16 triangles, two units a
-// step, a lane a triangle. A lane with a hit (t >= minT, t < the entry t)
-// merges it into the owner's key by a shared-memory atomicMin (any hit:
-// the key is set). The owner takes the least (t, k) and recomputes that
-// triangle's t, u, v, bit for bit what the hitting lane computed. That is
-// the sequential scan's answer: strict < keeps the least t below the
-// entry t and the first k of equal t; a NaN t never hits. The owner's
-// next node sees the same t, so every lane's node sequence and (t, slot,
-// u, v) are a per-lane walk's.
+// until it reaches a live leaf (it posts the leaf and waits) or the end;
+// then the warp runs the posted leaves. The owner's next node sees the
+// t that a per-lane walk would, so every lane's node sequence and (t,
+// slot, u, v) are a per-lane walk's.
 template <bool kCount, bool kSteps>
 __device__ __forceinline__ void warp_skip_walk(
     const float* __restrict__ aabb, const int* __restrict__ cid,
     const int* __restrict__ skip, const float* __restrict__ tri,
     int n_nodes, const Ray& r, Hit& h, bool any_hit, bool go, Tests& n,
     Steps& steps) {
-  WarpScratch& ws = warp_scratch();
-  const int lane = threadIdx.x & 31;
-  const unsigned lt = (1u << lane) - 1u;
   int node = go ? 0 : n_nodes;
   for (;;) {
     // ---- node phase ----
@@ -271,108 +324,11 @@ __device__ __forceinline__ void warp_skip_walk(
       node = live ? node + 1 : __ldg(skip + node);
     }
     if (kCount) n.box += it;
-    if (kSteps) {
-      const unsigned most = __reduce_max_sync(FULL, it);
-      if (lane == 0) steps.node += most;
-    }
-    const unsigned posted = __ballot_sync(FULL, c >= 0);
-    if (posted == 0u) return;
-    if (c >= 0) {
-      ws.rec[lane][0] = make_float4(r.ox, r.oy, r.oz, r.minT);
-      ws.rec[lane][1] = make_float4(r.dx, r.dy, r.dz, h.t);
-      ws.rec[lane][2] = make_float4(r.ix, r.iy, r.iz, __int_as_float(c));
-      ws.key[lane] = ~0ull;
-    }
-    __syncwarp();
-    // ---- gates: lanes 4q..4q+3 test sub-boxes 0..3 of the q-th leaf ----
-    unsigned gate = 0u;
-    const int q = lane >> 2, s = lane & 3;
-    for (unsigned rem = posted; rem != 0u;) {
-      unsigned m = rem;
-      for (int j = 0; j < q && m != 0u; ++j) m &= m - 1u;
-      bool g = false;
-      if (m != 0u) {
-        const int src = __ffs(m) - 1;
-        const float4 o = ws.rec[src][0], d = ws.rec[src][1];
-        const float4 iv = ws.rec[src][2];
-        Ray rr;
-        rr.ox = o.x;
-        rr.oy = o.y;
-        rr.oz = o.z;
-        rr.ix = iv.x;
-        rr.iy = iv.y;
-        rr.iz = iv.z;
-        rr.minT = o.w;
-        const float* rows =
-            tri + (size_t)__float_as_int(iv.w) * (K * ROW) + 12;
-        const float4 lo = ldg4(rows + (2 * s) * ROW);
-        const float4 hi = ldg4(rows + (2 * s + 1) * ROW);
-        g = slab6(lo.y, lo.z, lo.w, hi.y, hi.z, hi.w, rr, d.w);
-      }
-      const unsigned bal = __ballot_sync(FULL, g);
-      if ((rem >> lane) & 1u) {
-        const int rank = __popc(rem & lt);
-        if (rank < 8) gate = (bal >> (4 * rank)) & 0xFu;
-      }
-      for (int j = 0; j < 8 && rem != 0u; ++j) rem &= rem - 1u;
-    }
-    // ---- units: the gated sub-boxes in lane order ----
-    const int cnt = __popc(gate);
-    const unsigned b0 = __ballot_sync(FULL, cnt & 1);
-    const unsigned b1 = __ballot_sync(FULL, cnt & 2);
-    const unsigned b2 = __ballot_sync(FULL, cnt & 4);
-    const int total = __popc(b0) + 2 * __popc(b1) + 4 * __popc(b2);
-    if (c >= 0) {
-      if (kCount) {
-        n.box += N_SUB;
-        n.tri += SUB * cnt;
-      }
-      int e = __popc(b0 & lt) + 2 * __popc(b1 & lt) + 4 * __popc(b2 & lt);
-      for (int j = 0; j < N_SUB; ++j)
-        if ((gate >> j) & 1u)
-          ws.unit[e++] = ((unsigned)lane << 24) | (unsigned)(c * K + j * SUB);
-    }
-    __syncwarp();
-    // ---- triangle steps: half-warp h takes unit base + h ----
-    for (int base = 0; base < total; base += 2) {
-      const int un = base + (lane >> 4);
-      if (un < total) {
-        const unsigned e = ws.unit[un];
-        const int owner = (int)(e >> 24);
-        const int row = (int)(e & 0xFFFFFFu) + (lane & 15);
-        const float4 o = ws.rec[owner][0], d = ws.rec[owner][1];
-        float t, u, v;
-        if (tri_test(tri + (size_t)row * ROW, o.x, o.y, o.z, d.x, d.y, d.z,
-                     t, u, v) &&
-            t >= o.w && t < d.w) {
-          if (any_hit)
-            ws.key[owner] = 0ull;
-          else
-            atomicMin(&ws.key[owner], hit_key(t, row & (K - 1)));
-        }
-      }
-    }
-    if (kSteps && lane == 0) steps.tri += (unsigned)((total + 1) >> 1);
-    __syncwarp();
-    if (c >= 0) {
-      const unsigned long long key = ws.key[lane];
-      if (key != ~0ull) {
-        if (any_hit) {
-          h.t = -INFINITY;
-          node = n_nodes;
-        } else {
-          const int k = (int)(key & (K - 1));
-          float t, u, v;
-          tri_test(tri + ((size_t)c * K + k) * ROW, r.ox, r.oy, r.oz, r.dx,
-                   r.dy, r.dz, t, u, v);
-          h.t = t;
-          h.u = u;
-          h.v = v;
-          h.slot = c * K + k;
-        }
-      }
-    }
-    __syncwarp();  // the next round rewrites the scratch
+    count_node_steps<kSteps>(it, steps);
+    bool stop = false;
+    if (!leaf_round<kCount, kSteps>(tri, c, r, h, any_hit, n, steps, stop))
+      return;
+    if (stop) node = n_nodes;
   }
 }
 

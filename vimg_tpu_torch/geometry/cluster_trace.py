@@ -12,10 +12,12 @@ kept two ways: a binary tree threaded with skip links (``node_aabbs``,
 Device half: closest or any hit of each ray against one of the two trees.
 
 - ``trace_wide`` (kernel B3, ``csrc/cluster_trace.cu``) walks the 8-ary tree
-  with a per-thread stack; ``trace_skip`` (kernel B4) walks the binary tree
-  stacklessly (``n = live ? n + 1 : skip[n]``). Each wrapper launches its
-  CUDA kernel for CUDA tensors, counts the launch in ``LAUNCHES_WIDE`` /
-  ``LAUNCHES_SKIP``, and takes the plain version for CPU tensors only.
+  with a per-lane stack; ``trace_skip`` (kernel B4) walks the binary tree
+  stacklessly (``n = live ? n + 1 : skip[n]``); in both the warp runs the
+  clusters its lanes reach together (``csrc/cluster_walk.cuh``,
+  ``leaf_round``). Each wrapper launches its CUDA kernel for CUDA tensors,
+  counts the launch in ``LAUNCHES_WIDE`` / ``LAUNCHES_SKIP``, and takes
+  the plain version for CPU tensors only.
 - ``wide_walk_plain`` and ``skip_walk_plain`` are the plain versions: the
   same per-ray walks vectorised over rays in PyTorch, with the same float32
   operations in the same order, so kernel and plain walk agree bit for bit.
@@ -606,16 +608,23 @@ def _device_of(ro):
 
 
 def trace_wide(boxes, refs, cl_boxes, tri, n_wide, max_stack, ro, rd, minT,
-               maxT, any_hit):
+               maxT, any_hit, steps=None):
     """Kernel B3 (CUDA tensors) or wide_walk_plain (CPU tensors).
 
     Replaces vimg_tpu/geometry/cluster_trace.py::_make_wide_kernel, the
-    TPU tile walk with an SMEM stack. Here one thread walks one ray with a
-    local-memory stack of at most WIDE_MAX_STACK refs; every table stays
-    in global memory. What bounds it on this card: latency of dependent
-    table loads and warp divergence (rays of a warp visit different
-    nodes), not bytes or flops; the Morton ray sort in ClusterTracer keeps
-    warps coherent. See csrc/cluster_trace.cu."""
+    TPU tile walk with an SMEM stack. Here a lane walks its ray's 8-ary
+    nodes with a local-memory stack of at most WIDE_MAX_STACK refs and
+    posts each live cluster; the warp runs its lanes' posted clusters
+    together, 32 triangles a step (``csrc/cluster_walk.cuh``,
+    ``leaf_round``, B4's leaf). Every table stays in global memory and is
+    read 16 bytes at a time, so each must start 16-byte aligned (a
+    misaligned view raises). What bounds it on this card: latency of
+    dependent table loads and warp divergence (rays of a warp visit
+    different nodes), not bytes or flops; the Morton ray sort in
+    ClusterTracer keeps warps coherent. ``steps``, a (2,) int64 CUDA
+    tensor, gets the warp node steps (pops) and warp triangle steps added
+    to it (``skip_schedule.wide_warp_schedule`` replays the same counts).
+    See csrc/cluster_trace.cu."""
     global LAUNCHES_WIDE
     if _device_of(ro).type == "cpu":
         return wide_walk_plain(boxes, refs, cl_boxes, tri, max_stack, ro, rd,
@@ -629,10 +638,28 @@ def trace_wide(boxes, refs, cl_boxes, tri, n_wide, max_stack, ro, rd, minT,
              ("tri", torch.float32, tri.numel()))
     if boxes.numel() < 64 * n_wide or refs.numel() < FAN * n_wide:
         raise ValueError(f"wide tables smaller than {n_wide} wide nodes")
+    for x, name in ((boxes, "boxes"), (refs, "refs"), (cl_boxes, "cl_boxes"),
+                    (tri, "tri")):
+        _check_aligned(x, name, "B3")
     out, launched = _launch("vimg_cluster_wide", (boxes, refs, cl_boxes, tri),
-                            specs, n_wide, ro, rd, minT, maxT, any_hit)
+                            specs, n_wide, ro, rd, minT, maxT, any_hit,
+                            _steps_arg(steps, ro))
     LAUNCHES_WIDE += launched
     return out
+
+
+def _check_aligned(x, name, kernel):
+    if x.data_ptr() % 16:
+        raise ValueError(f"{name}: kernel {kernel} reads 16-byte rows, the "
+                         f"tensor must start 16-byte aligned")
+
+
+def _steps_arg(steps, ro):
+    """The launcher's steps pointer: a checked (2,) int64 tensor or null."""
+    if steps is None:
+        return (None,)
+    _check(steps, "steps", torch.int64, (2,), ro.device)
+    return (steps.data_ptr(),)
 
 
 def trace_skip(aabbs, cid, skip, tri, n_nodes, ro, rd, minT, maxT, any_hit,
@@ -662,16 +689,10 @@ def trace_skip(aabbs, cid, skip, tri, n_nodes, ro, rd, minT, maxT, any_hit,
     if aabbs.numel() < 8 * n_nodes or cid.numel() < n_nodes:
         raise ValueError(f"node tables smaller than {n_nodes} nodes")
     for x, name in ((aabbs, "aabbs"), (tri, "tri")):
-        if x.data_ptr() % 16:
-            raise ValueError(f"{name}: kernel B4 reads 16-byte rows, the "
-                             f"tensor must start 16-byte aligned")
-    extra = (None,)
-    if steps is not None:
-        _check(steps, "steps", torch.int64, (2,), ro.device)
-        extra = (steps.data_ptr(),)
+        _check_aligned(x, name, "B4")
     out, launched = _launch("vimg_cluster_skip", (aabbs, cid, skip, tri),
                             specs, n_nodes, ro, rd, minT, maxT, any_hit,
-                            extra)
+                            _steps_arg(steps, ro))
     LAUNCHES_SKIP += launched
     return out
 

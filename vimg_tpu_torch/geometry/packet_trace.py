@@ -5,12 +5,15 @@ PACKETS of 8 rays; the triangles are ClusterData's SAH tree cut into
 clusters of up to 128 triangles, packed transposed (row j of cluster c holds
 constant j of its 128 triangles). Two passes per trace:
 
-- the cull (``_cull_meta``, plain PyTorch as vimg_tpu's is XLA): exact
-  per-ray slab tests against every cluster box, reduced to 16 liveness bits
-  per (workgroup, cluster) and a per-workgroup chain of candidate clusters
-  (a next-pointer row built with a reverse cumulative minimum); with the
-  per-octant orderings ``pi`` the chain runs front to back and carries
-  quantised entry distances for an early exit (variant ``f2b``);
+- the cull (``cull_meta``): exact per-ray slab tests against every cluster
+  box, reduced to 16 liveness bits per (workgroup, cluster) and a
+  per-workgroup chain of candidate clusters (a next-pointer row, the
+  suffix minimum of the candidate indices); with the per-octant orderings
+  ``pi`` the chain runs front to back and carries quantised entry
+  distances for an early exit (variant ``f2b``). Kernel X1
+  (``csrc/packet_cull.cu``) for CUDA tensors, counted in
+  ``LAUNCHES_CULL``; its plain version ``_cull_meta`` (vimg_tpu's is XLA)
+  for CPU tensors only;
 - the walk (``trace_packet``): kernel B5 (``csrc/packet_trace.cu``) for
   CUDA tensors, counted in ``LAUNCHES``; ``packet_walk_plain`` for CPU
   tensors only. Each ray tests all 128 triangles of every candidate cluster
@@ -45,6 +48,7 @@ META_ROWS = 8            # int32 rows of the cull's output per workgroup
 VARIANTS = ("slist", "chase", "prefetch", "f2b")
 
 LAUNCHES = 0
+LAUNCHES_CULL = 0
 
 
 class PacketData:
@@ -121,10 +125,21 @@ class PacketData:
 # the cull: per-packet liveness bits + per-workgroup candidate chains
 # ---------------------------------------------------------------------------
 
+def _octants(rd):
+    """(W,) majority direction octant of each workgroup (f2b): the sign of
+    the float32 sum of its 128 directions per axis. The order of that sum
+    decides a sign near zero, so kernel and plain cull share this one
+    expression."""
+    sgn = rd.reshape(-1, WG, 3).sum(dim=1) < 0.0
+    return (sgn[:, 0].long() + 2 * sgn[:, 1].long()
+            + 4 * sgn[:, 2].long())
+
+
 def _cull_meta(ro, rd, mn, mx, cl_lo, cl_hi, cp, pi=None, entry_scale=None):
-    """Exact per-ray slab tests against every cluster box, reduced to
-    per-packet bits and a per-workgroup next-pointer chain, in 128-cluster
-    chunks. Rays are (B, 3) / (B,) with B a multiple of 128.
+    """Plain version of kernel X1: exact per-ray slab tests against every
+    cluster box, reduced to per-packet bits and a per-workgroup
+    next-pointer chain, in 128-cluster chunks. Rays are (B, 3) / (B,) with
+    B a multiple of 128.
 
     Returns meta (W*8, cp) int32; per workgroup w the (8, cp) block is:
       row 0: nxt[j] = smallest candidate index >= j (cp-1 sentinel)
@@ -149,10 +164,7 @@ def _cull_meta(ro, rd, mn, mx, cl_lo, cl_hi, cp, pi=None, entry_scale=None):
     if pi is not None:
         # majority direction octant of each workgroup -> its ordering; the
         # boxes are taken in that permuted index space
-        sgn = rd.reshape(W, WG, 3).sum(dim=1) < 0.0
-        octs = (sgn[:, 0].long() + 2 * sgn[:, 1].long()
-                + 4 * sgn[:, 2].long())
-        idx = pi[octs]                                   # (W, C)
+        idx = pi[_octants(rd)]                           # (W, C)
         lo_t, hi_t = cl_lo[idx], cl_hi[idx]              # (W, C, 3)
 
     bits, entries = [], []
@@ -202,6 +214,56 @@ def _cull_meta(ro, rd, mn, mx, cl_lo, cl_hi, cp, pi=None, entry_scale=None):
 
 def _reverse_cummin(x):
     return torch.cummin(x.flip(1), dim=1).values.flip(1)
+
+
+def cull_meta(ro, rd, mn, mx, cl_lo, cl_hi, cp, pi=None, entry_scale=None):
+    """Kernel X1 (CUDA tensors) or _cull_meta (CPU tensors), the same meta
+    bit for bit.
+
+    Replaces vimg_tpu/geometry/packet_trace.py::_cull_meta, an XLA
+    function (no Pallas kernel; its plain PyTorch version ran 20 eager ops
+    a 128-cluster chunk over (W, 16, 8, 128) temporaries). One block a
+    workgroup, a thread a cluster: the workgroup's rays in shared memory,
+    the 128 slab tests of a cluster and its 16 packet bits in one thread,
+    rows 0 and 3 by a block suffix-minimum scan, every slot of the meta
+    written by the kernel. What bounds it on this card: the float32
+    operations of the W x C x 128 slab tests. The f2b octants stay the
+    PyTorch expression ``_octants`` that the plain version uses. See
+    csrc/packet_cull.cu."""
+    global LAUNCHES_CULL
+    dev = _device_of(ro)
+    if dev.type == "cpu":
+        return _cull_meta(ro, rd, mn, mx, cl_lo, cl_hi, cp, pi, entry_scale)
+    from vimg_tpu_torch.runtime.cuda import check, load_library
+    B, C = ro.shape[0], cl_lo.shape[0]
+    if B % WG:
+        raise ValueError(f"{B} rays: the cull takes whole workgroups of {WG}")
+    if cp % 128 or cp <= C:
+        raise ValueError(f"cp {cp}: a multiple of 128 above {C} clusters")
+    W = B // WG
+    _check(ro, "ro", torch.float32, (B, 3), dev)
+    _check(rd, "rd", torch.float32, (B, 3), dev)
+    _check(mn, "minT", torch.float32, (B,), dev)
+    _check(mx, "maxT", torch.float32, (B,), dev)
+    _check(cl_lo, "cl_lo", torch.float32, (C, 3), dev)
+    _check(cl_hi, "cl_hi", torch.float32, (C, 3), dev)
+    pi_ptr = oct_ptr = None
+    if pi is not None:
+        _check(pi, "pi", torch.int64, (8, C), dev)
+        octs = _octants(rd).to(torch.int32)
+        pi_ptr, oct_ptr = pi.data_ptr(), octs.data_ptr()
+    meta = torch.empty((W * META_ROWS, cp), dtype=torch.int32, device=dev)
+    lib = load_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.vimg_packet_cull(
+            ro.data_ptr(), rd.data_ptr(), mn.data_ptr(), mx.data_ptr(),
+            cl_lo.data_ptr(), cl_hi.data_ptr(), pi_ptr, oct_ptr, W, C, cp,
+            1.0 if entry_scale is None else entry_scale, meta.data_ptr(),
+            stream)
+    check(rc, "vimg_packet_cull")
+    LAUNCHES_CULL += W > 0
+    return meta
 
 
 # ---------------------------------------------------------------------------
@@ -414,14 +476,14 @@ def trace_packet(tri_t, meta, ro, rd, minT, maxT, n_clusters, any_hit,
 # ---------------------------------------------------------------------------
 
 class PacketTracer:
-    """Mesh tracer: the cull and kernel B5 (its plain version on the CPU)
-    for the triangles, plus a dense test of the scene's spheres, merged by
-    least t. Same contract as ClusterTracer; arguments as vimg_tpu's
-    PacketTracer, plus ``plain=True`` (the plain walk on any device: the
-    kernel's reference on the card) and ``data`` (the PacketData of another
-    tracer of the same scene). Scenes whose packed triangle table exceeds
-    VMEM_BUDGET_BYTES are refused, as vimg_tpu refuses them, so both
-    packages accept the same scenes."""
+    """Mesh tracer: the cull X1 and kernel B5 (their plain versions on the
+    CPU) for the triangles, plus a dense test of the scene's spheres,
+    merged by least t. Same contract as ClusterTracer; arguments as
+    vimg_tpu's PacketTracer, plus ``plain=True`` (the plain cull and walk
+    on any device: the kernels' reference on the card) and ``data`` (the
+    PacketData of another tracer of the same scene). Scenes whose packed
+    triangle table exceeds VMEM_BUDGET_BYTES are refused, as vimg_tpu
+    refuses them, so both packages accept the same scenes."""
 
     VMEM_BUDGET_BYTES = 10 * 2 ** 20
     # traversal inputs are detached (zero-tangent semantics)
@@ -490,11 +552,13 @@ class PacketTracer:
                        pad(maxT, -float("inf")))
 
     def cull(self, rays):
-        """meta of the packed rays for this tracer's variant."""
+        """meta of the packed rays for this tracer's variant: kernel X1
+        (``cull_meta``) on CUDA, the plain cull on the CPU and whenever
+        ``plain=True``."""
         f2b = self.variant == "f2b"
-        return _cull_meta(*rays, self.cl_lo, self.cl_hi, self.cp,
-                          pi=self.pi if f2b else None,
-                          entry_scale=self.entry_scale)
+        fn = _cull_meta if self.plain else cull_meta
+        return fn(*rays, self.cl_lo, self.cl_hi, self.cp,
+                  pi=self.pi if f2b else None, entry_scale=self.entry_scale)
 
     def walk_args(self, any_hit):
         """Arguments of trace_packet / packet_walk_plain after the rays."""

@@ -1,52 +1,57 @@
-"""Warp schedules of the binary skip walk (kernel B4 and the mesh mode of
-the megakernel B2), replayed in plain PyTorch.
+"""Warp schedules of the cluster-tree walks, replayed in plain PyTorch:
+the binary skip walk (kernel B4 and the mesh mode of the megakernel B2)
+and the 8-ary stack walk (kernel B3).
 
-Both replays group the rays 32 to a warp, in order (a ragged last warp is
-padded with lanes that do not walk), run the per-ray skip walk of
-``cluster_trace.skip_walk_plain`` and count what a warp of the kernel
-executes:
+The replays group the rays 32 to a warp, in order (a ragged last warp is
+padded with lanes that do not walk), run the per-ray walk of
+``cluster_trace.skip_walk_plain`` or ``wide_walk_plain`` and count what a
+warp of the kernel executes. A node step is one node a lane tests: a
+binary node of the skip walk, a popped ref of the stack walk (a wide node
+with its children's slab tests and pushes, or a cluster box).
 
-- ``lane_schedule``: one lane a ray for the whole walk, leaf included (the
-  design before the warp-cooperative leaf, still B3's leaf). The warp runs
-  its lanes in lockstep: an iteration tests one node on every lane still
-  walking, and the lanes whose node is a live leaf scan its gated
-  triangles in order (sub-box s, then k), strict < on the running t, so
-  the first of equal t stays. A warp triangle step is a (sub-box,
+- ``lane_schedule`` / ``wide_lane_schedule``: one lane a ray for the whole
+  walk, leaf included (the first design of B4, B2 and B3). The warp runs
+  its lanes in lockstep: an iteration takes one node step on every lane
+  still walking, and the lanes whose step reaches a live leaf scan its
+  gated triangles in order (sub-box s, then k), strict < on the running
+  t, so the first of equal t stays. A warp triangle step is a (sub-box,
   triangle) position that some lane of the warp executes: 16 for each
   sub-box that a leaf lane gates, fewer for an any-hit lane that returns
   at its first hit.
-- ``warp_schedule``: kernel B4's and B2's walk (``csrc/cluster_walk.cuh``,
-  ``warp_skip_walk``). Nodes stay per lane: in a round every lane walks
-  until it reaches a live leaf (it posts the leaf and waits) or the end of
-  the tree; the round's node steps are the most any lane took. Then the
-  warp runs the posted leaves together: each posted lane's four sub-box
-  gates at its entry t, then the gated sub-boxes of all posted lanes as
-  units of 16 triangles, two units a step (a half-warp each). A lane with
-  a hit (t >= minT, t < the owner's entry t) merges it into its owner's
-  least (t, k) key, t's bits made order-preserving with -0 as +0; the
-  owner then takes that triangle's (t, u, v). An any-hit owner only needs
-  a hit at all.
+- ``warp_schedule`` / ``wide_warp_schedule``: the kernels' walk
+  (``csrc/cluster_walk.cuh``, ``leaf_round``). Nodes stay per lane: in a
+  round every lane walks until it reaches a live leaf (it posts the leaf
+  and waits) or the end of its walk; the round's node steps are the most
+  any lane took. Then the warp runs the posted leaves together: each
+  posted lane's four sub-box gates at its entry t, then the gated
+  sub-boxes of all posted lanes as units of 16 triangles, two units a
+  step (a half-warp each). A lane with a hit (t >= minT, t < the owner's
+  entry t) merges it into its owner's least (t, k) key, t's bits made
+  order-preserving with -0 as +0; the owner then takes that triangle's
+  (t, u, v). An any-hit owner only needs a hit at all, and its walk ends.
 
-Why both return the plain walk's hits bit for bit: a lane sees the same
-nodes with the same t, and within a leaf the sequential strict-< scan
-keeps the least t among the hits below the entry t and the first k among
-equal t, which is the least (t, k) the warp merge computes; a NaN t never
-hits. The replays compute the leaf each in its own way (a running-minimum
-replay of the scan, a key merge) so that the tests hold each against the
-plain walk's own formulation.
+Why all four return the plain walk's hits bit for bit: a lane sees the
+same nodes with the same t, and within a leaf the sequential strict-<
+scan keeps the least t among the hits below the entry t and the first k
+among equal t, which is the least (t, k) the warp merge computes; a NaN t
+never hits. The replays compute the leaf each in its own way (a
+running-minimum replay of the scan, a key merge) so that the tests hold
+each against the plain walk's own formulation.
 
 Each returns ((t, slot, u, v), counts): ``node_steps`` and ``tri_steps``
 summed over warps, and the plain walk's ``box_tests`` and ``tri_tests``
 (16 per gated sub-box). The lane fill is tri_tests / (32 x tri_steps).
-Kernel B4 counts the same two warp steps on the card (``trace_skip``'s
-``steps``), so ``warp_schedule``'s counts are the kernel's exactly.
+Kernels B4 and B3 count the same two warp steps on the card
+(``trace_skip``'s and ``trace_wide``'s ``steps``), so the warp
+schedules' counts are the kernels' exactly.
 """
 from __future__ import annotations
 
 import torch
 
-from vimg_tpu_torch.geometry.cluster_trace import (CLUSTER_K, N_SUB, ROW16,
-                                                   SUB, _slab, _walk_start)
+from vimg_tpu_torch.geometry.cluster_trace import (CLUSTER_K, EMPTY, FAN,
+                                                   N_SUB, ROW16, SUB, _slab,
+                                                   _walk_start)
 
 WARP = 32
 
@@ -115,34 +120,104 @@ def _add(counts, key, x):
     counts[key] += int(x)
 
 
-def _node_step(aabbs, cid, idx, node, t, rays, inv):
-    """Slab-test node[idx] at the lanes' current t: (live, cluster id)."""
-    ro, _, minT, _ = rays
-    n = node[idx]
-    b = aabbs.view(-1, 8)[n]
-    live = _slab(b[:, 0:3], b[:, 3:6], ro[idx], inv[idx], minT[idx], t[idx])
-    return live, cid[n].to(torch.int64)
+class _SkipWalk:
+    """A lane's state in the stackless skip walk: its next node
+    (n_nodes once it is done)."""
+
+    def __init__(self, aabbs, cid, skip, n_nodes, go):
+        self.box, self.cid, self.skip = aabbs.view(-1, 8), cid, skip
+        self.n_nodes = n_nodes
+        self.node = torch.where(go, 0, n_nodes).to(torch.int64)
+
+    def walking(self, idx):
+        return self.node[idx] < self.n_nodes
+
+    def stop(self, idx):
+        self.node[idx] = self.n_nodes
+
+    def step(self, act, t, rays, inv, counts):
+        """One node step of the lanes ``act`` at their current t: (whether
+        the node is a live leaf, its cluster id)."""
+        ro, _, minT, _ = rays
+        n = self.node[act]
+        b = self.box[n]
+        live = _slab(b[:, 0:3], b[:, 3:6], ro[act], inv[act], minT[act],
+                     t[act])
+        _add(counts, "box_tests", act.numel())
+        c = self.cid[n].to(torch.int64)
+        self.node[act] = torch.where(live, n + 1,
+                                     self.skip[n].to(torch.int64))
+        return live & (c >= 0), c
 
 
-def lane_schedule(aabbs, cid, skip, tri, n_nodes, ro, rd, minT, maxT,
-                  any_hit, mask=None):
-    """The per-lane walk (leaf in one lane), warps in lockstep; see the
-    module docstring. ``mask``: (N,) bool, the lanes that walk (all by
-    default)."""
+class _WideWalk:
+    """A lane's state in the 8-ary stack walk: its stack of refs (a wide
+    node >= 0, a cluster -(cid + 1)) and stack pointer (0 once done)."""
+
+    def __init__(self, boxes, refs, cl_boxes, max_stack, go):
+        self.wbox = boxes.view(-1, FAN, 8)
+        self.wref = refs.view(-1, FAN).to(torch.int64)
+        self.cbox = cl_boxes.view(-1, 8)
+        self.stack = torch.zeros((go.shape[0], max_stack), dtype=torch.int64,
+                                 device=go.device)
+        self.sp = go.to(torch.int64)          # the root wide node 0 pushed
+
+    def walking(self, idx):
+        return self.sp[idx] > 0
+
+    def stop(self, idx):
+        self.sp[idx] = 0
+
+    def step(self, act, t, rays, inv, counts):
+        """Pop a ref on each lane of ``act``: a cluster is slab-tested at
+        the lane's current t (a live one is returned as a leaf); a wide
+        node pushes its live non-empty children in reverse."""
+        ro, _, minT, _ = rays
+        self.sp[act] -= 1
+        top = self.stack[act, self.sp[act]]
+        is_cl = top < 0
+        leaf = torch.zeros_like(is_cl)
+        c = torch.where(is_cl, -top - 1, -1)
+        if bool(is_cl.any()):
+            i = act[is_cl]
+            b = self.cbox[c[is_cl]]
+            leaf[is_cl] = _slab(b[:, 0:3], b[:, 3:6], ro[i], inv[i], minT[i],
+                                t[i])
+            _add(counts, "box_tests", i.numel())
+        if not bool(is_cl.all()):
+            i = act[~is_cl]
+            w = top[~is_cl]
+            b, r = self.wbox[w], self.wref[w]
+            filled = r != EMPTY
+            live = _slab(b[..., 0:3], b[..., 3:6], ro[i][:, None],
+                         inv[i][:, None], minT[i][:, None],
+                         t[i][:, None]) & filled
+            _add(counts, "box_tests", filled.sum())
+            # child ci lands above every live child of higher index
+            li = live.to(torch.int64)
+            above = li.flip(1).cumsum(1).flip(1) - li
+            pos = self.sp[i][:, None] + above
+            rr, cc = torch.nonzero(live, as_tuple=True)
+            self.stack[i[rr], pos[rr, cc]] = r[rr, cc]
+            self.sp[i] += li.sum(1)
+        return leaf, c
+
+
+def _lane_run(walk, tri, ro, rd, minT, maxT, any_hit, mask):
+    """The per-lane walk (leaf in one lane), warps in lockstep; ``walk``
+    makes the walk state from the lanes that walk."""
     N = ro.shape[0]
     (t, slot, u, v), inv, rays, go = _start(ro, rd, minT, maxT, any_hit,
                                             mask)
     ro_, rd_, mn_, _ = rays
     dev = ro.device
     counts = dict(node_steps=0, tri_steps=0, box_tests=0, tri_tests=0)
-    node = torch.zeros(t.shape[0], dtype=torch.int64, device=dev)
+    w = walk(go)
     act = torch.nonzero(go)[:, 0]
     pos = torch.arange(CLUSTER_K, device=dev)
     while act.numel():
         _add(counts, "node_steps", torch.unique(act // WARP).numel())
-        _add(counts, "box_tests", act.numel())
-        live, c = _node_step(aabbs, cid, act, node, t, rays, inv)
-        leaf = live & (c >= 0)
+        leaf, c = w.step(act, t, rays, inv, counts)
         if bool(leaf.any()):
             i, cl = act[leaf], c[leaf]
             gate, tt, uu, vv, cand = _leaf(tri, cl, ro_[i], rd_[i], inv[i],
@@ -184,9 +259,7 @@ def lane_schedule(aabbs, cid, skip, tri, n_nodes, ro, rd, minT, maxT,
                 u[j] = uu[found].gather(1, kf)[:, 0]
                 v[j] = vv[found].gather(1, kf)[:, 0]
                 slot[j] = (cl[found] * CLUSTER_K + kf[:, 0]).to(torch.int32)
-        nxt = torch.where(live, node[act] + 1, skip[node[act]].to(torch.int64))
-        node[act] = nxt
-        keep = nxt < n_nodes
+        keep = w.walking(act)
         if any_hit:
             keep &= t[act] != -float("inf")
         act = act[keep]
@@ -200,11 +273,10 @@ def _ordered(t):
     return torch.where(b >= 0x80000000, b ^ 0xFFFFFFFF, b | 0x80000000)
 
 
-def warp_schedule(aabbs, cid, skip, tri, n_nodes, ro, rd, minT, maxT,
-                  any_hit, mask=None):
-    """The warp-cooperative walk of kernels B4 and B2; see the module
-    docstring. ``mask``: (N,) bool, the lanes that walk (all by
-    default)."""
+def _warp_run(walk, tri, ro, rd, minT, maxT, any_hit, mask):
+    """The warp-cooperative walk: rounds of per-lane node phases and the
+    warp's leaf round; ``walk`` makes the walk state from the lanes that
+    walk."""
     N = ro.shape[0]
     (t, slot, u, v), inv, rays, go = _start(ro, rd, minT, maxT, any_hit,
                                             mask)
@@ -213,27 +285,24 @@ def warp_schedule(aabbs, cid, skip, tri, n_nodes, ro, rd, minT, maxT,
     M = t.shape[0]
     W = M // WARP
     counts = dict(node_steps=0, tri_steps=0, box_tests=0, tri_tests=0)
-    node = torch.where(go, 0, n_nodes).to(torch.int64)
+    w = walk(go)
+    every = torch.arange(M, device=dev)
     pos = torch.arange(CLUSTER_K, device=dev)
     while True:
         # node phase: each lane walks until it posts a live leaf or ends
         post = torch.full((M,), -1, dtype=torch.int64, device=dev)
         steps = torch.zeros(M, dtype=torch.int64, device=dev)
-        act = torch.nonzero(node < n_nodes)[:, 0]
+        act = every[w.walking(every)]
         while act.numel():
             steps[act] += 1
-            _add(counts, "box_tests", act.numel())
-            live, c = _node_step(aabbs, cid, act, node, t, rays, inv)
-            leaf = live & (c >= 0)
+            leaf, c = w.step(act, t, rays, inv, counts)
             post[act[leaf]] = c[leaf]
-            node[act] = torch.where(live, node[act] + 1,
-                                    skip[node[act]].to(torch.int64))
-            act = act[~leaf & (node[act] < n_nodes)]
+            act = act[~leaf & w.walking(act)]
         _add(counts, "node_steps", steps.view(W, WARP).amax(1).sum())
         i = torch.nonzero(post >= 0)[:, 0]
         if not i.numel():
             break
-        # leaf phase: gates, then units of 16 triangles two a step
+        # leaf round: gates, then units of 16 triangles two a step
         cl = post[i]
         gate, tt, uu, vv, cand = _leaf(tri, cl, ro_[i], rd_[i], inv[i],
                                        mn_[i], t[i])
@@ -245,7 +314,7 @@ def warp_schedule(aabbs, cid, skip, tri, n_nodes, ro, rd, minT, maxT,
         found = cand.any(1)
         if any_hit:
             t[i[found]] = -float("inf")
-            node[i[found]] = n_nodes
+            w.stop(i[found])
             continue
         key = torch.where(cand, _ordered(tt) * CLUSTER_K + pos,
                           torch.iinfo(torch.int64).max)
@@ -256,3 +325,40 @@ def warp_schedule(aabbs, cid, skip, tri, n_nodes, ro, rd, minT, maxT,
         v[j] = vv[found].gather(1, kf)[:, 0]
         slot[j] = (cl[found] * CLUSTER_K + kf[:, 0]).to(torch.int32)
     return (t[:N], slot[:N], u[:N], v[:N]), counts
+
+
+def lane_schedule(aabbs, cid, skip, tri, n_nodes, ro, rd, minT, maxT,
+                  any_hit, mask=None):
+    """The per-lane skip walk (leaf in one lane), warps in lockstep; see
+    the module docstring. ``mask``: (N,) bool, the lanes that walk (all by
+    default)."""
+    return _lane_run(lambda go: _SkipWalk(aabbs, cid, skip, n_nodes, go),
+                     tri, ro, rd, minT, maxT, any_hit, mask)
+
+
+def warp_schedule(aabbs, cid, skip, tri, n_nodes, ro, rd, minT, maxT,
+                  any_hit, mask=None):
+    """The warp-cooperative skip walk of kernels B4 and B2; see the module
+    docstring. ``mask``: (N,) bool, the lanes that walk (all by
+    default)."""
+    return _warp_run(lambda go: _SkipWalk(aabbs, cid, skip, n_nodes, go),
+                     tri, ro, rd, minT, maxT, any_hit, mask)
+
+
+def wide_lane_schedule(boxes, refs, cl_boxes, tri, max_stack, ro, rd, minT,
+                       maxT, any_hit, mask=None):
+    """The per-lane 8-ary stack walk (kernel B3's first design), warps in
+    lockstep; arguments as ``wide_walk_plain``, ``mask`` as
+    ``lane_schedule``'s."""
+    return _lane_run(
+        lambda go: _WideWalk(boxes, refs, cl_boxes, max_stack, go),
+        tri, ro, rd, minT, maxT, any_hit, mask)
+
+
+def wide_warp_schedule(boxes, refs, cl_boxes, tri, max_stack, ro, rd, minT,
+                       maxT, any_hit, mask=None):
+    """The 8-ary stack walk on the warp's leaf round (kernel B3);
+    arguments as ``wide_walk_plain``, ``mask`` as ``lane_schedule``'s."""
+    return _warp_run(
+        lambda go: _WideWalk(boxes, refs, cl_boxes, max_stack, go),
+        tri, ro, rd, minT, maxT, any_hit, mask)

@@ -37,14 +37,18 @@ SIGNATURES = {
     # mesh, mis, per_sm, regs, local_bytes (host int*)
     "vimg_mega_occupancy": ([_I] * 2 + [_P] * 3, _I),
     # csrc/cluster_trace.cu: 4 tables, ro, rd, minT, maxT, n_rays,
-    # n_nodes (wide or binary), any_hit, t, slot, u, v, [skip: steps
-    # (device uint64[2] or null)], stream
-    "vimg_cluster_wide": ([_P] * 8 + [_I] * 3 + [_P] * 5, _I),
+    # n_nodes (wide or binary), any_hit, t, slot, u, v, steps (device
+    # uint64[2] or null), stream
+    "vimg_cluster_wide": ([_P] * 8 + [_I] * 3 + [_P] * 6, _I),
     "vimg_cluster_skip": ([_P] * 8 + [_I] * 3 + [_P] * 6, _I),
     # csrc/packet_trace.cu: tri_t, meta, ro, rd, minT, maxT, n_rays, cp,
     # n_clusters, any_hit, f2b, unroll, entry_scale, scene box lo/hi (6),
     # t, code, steps (device uint64 or null), stream
     "vimg_packet_trace": ([_P] * 6 + [_I] * 6 + [_F] * 7 + [_P] * 4, _I),
+    # csrc/packet_cull.cu: ro, rd, minT, maxT, cl_lo, cl_hi, pi (device
+    # int64 or null), octants (device int32 or null), n_work, n_clusters,
+    # cp, entry_scale, meta, stream
+    "vimg_packet_cull": ([_P] * 8 + [_I] * 3 + [_F] + [_P] * 2, _I),
     # csrc/gather_row.cu: hi, mid, lo, ids, p, n_rows, n_ids, out, stream
     "vimg_gather_rows": ([_P] * 4 + [_I] * 3 + [_P] * 2, _I),
     # csrc/probe_walk.cu (P1): aabb, cid, skip, tri, n_nodes, ro, rd, tmin,
