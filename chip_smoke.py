@@ -25,14 +25,21 @@ Phases:
     times with CUDA events; the bound of each; B3's and B4's warp node
     and triangle steps (one counted launch each) equal to the replay of
     their schedules (geometry/skip_schedule.py), their leaf lane fill
-    (needed triangle tests / (32 x triangle steps)) side by side, and on
-    terrain 100k the lane fill of B3's first, per-lane leaf (replayed);
+    (needed triangle tests / (32 x triangle steps)) side by side;
  7. main path 2: terrain 100k at 512x256 @ 64 spp, max_depth 64,
     batch 1<<17 -> render_frame -> finalize -> write_png through B3 (not
     B1), after the same frame at 1 spp through B3 and through the plain
     walk agree per pixel;
  8. main path 3: the same at terrain 500k through B4 (64-spp MIS frames
     still go to the wavefront: B2 is launched 0 times in 7 and 8);
+8b. main path 9: the env-lit textured terrain (textured_terrain_scene,
+    bench.py's envtex stage: 100k triangles, a 256^2 mip-mapped image
+    texture, a 64x128 HDR sky with a sun disk sampled by NEE) at 512x256 @
+    64 spp, max_depth 64, batch 1<<17 -> render_frame -> the wavefront with
+    ray cones -> finalize (AgX) -> write_png through B3 only, after the
+    same frame at 1 spp through B3 and through the plain walk agree per
+    pixel with equal ray counts; its mean against the plain 1-spp mean;
+    seconds a superstep beside main path 2's;
  9. kernel B2 (mesh-mode megakernel) against its plain PyTorch version,
     both on the card, at 512x256 @ 1 spp: terrain 100k MIS, the smooth-
     shaded bumpy sphere 100k under the material integrator, terrain 500k
@@ -84,6 +91,9 @@ Phases:
     B3), each first compared per pixel with the same call on the CPU at a
     reduced size; then a g_normal frame and three material frames the
     megakernel refuses, card vs CPU per pixel, launching only B3 or B4;
+    and main path 9's frame at 64x32 @ 4 spp, card vs CPU (mean and
+    correlation: the card's transcendentals round otherwise), launching
+    only B3;
 20. B-1: kernels P12-P15 and P20 (tools/probe_prims.py, probe_vpu2.py,
     probe_vpu3.py, probe_r2c.py vpu_rate) through their probes at the
     probes' sizes (probe_prims at ITERS = 200,000), one block and the full
@@ -190,8 +200,12 @@ PROBE_SOURCES = dict(
 # the card's tensor-core peaks (H100 SXM data sheet, dense, at 700 W)
 BF16_TC_OPS_PER_S = 989e12
 TF32_TC_OPS_PER_S = 495e12
+# phase 8b: main path 9, bench.py's envtex scene
+ENVTEX_TRIS = 100_000
 # phase 19: the s_normal frames at reduced size (card vs CPU)
 NORMAL_SMALL = {"flagship": (180, 80), "terrain": (64, 32)}
+# phase 19: main path 9's frame at reduced size, card vs CPU
+ENVTEX_SMALL, ENVTEX_SMALL_SPP = (64, 32), 4
 NORMAL_SPP = 4            # the CLI's (and the reference's) normal-view spp
 # phase 20: probe_prims' iterations where the plain version is held
 PRIMS_PLAIN_ITERS = 2000
@@ -367,7 +381,7 @@ def terrain_rays(scene, tracer):
     st = ir.RenderSettings(MESH_W, MESH_H, spp=2, integrator="mis")
     pix = torch.arange(MESH_W * MESH_H, device=dev).repeat_interleave(2)
     samp = torch.arange(2, device=dev).repeat(MESH_W * MESH_H)
-    ro, rd = _primary_rays(scene, st, pix, samp)
+    ro, rd, _, _ = _primary_rays(scene, st, pix, samp)
     n = ro.shape[0]
     mn = torch.full((n,), MIN_T, device=dev)
     inf = torch.full((n,), float("inf"), device=dev)
@@ -445,15 +459,6 @@ def walk_steps(walk, tracer, rays, any_hit, st):
                 fill=st["tri_tests"] / max(32 * tri, 1))
 
 
-def lane_fill(tracer, rays, any_hit, st):
-    """The lane fill of B3's first design (a lane runs its own leaves, the
-    warp in lockstep), replayed by skip_schedule.wide_lane_schedule."""
-    from vimg_tpu_torch.geometry import skip_schedule as ss
-    _, lane = ss.wide_lane_schedule(*tracer.node_tables, tracer.tri_rows,
-                                    tracer.max_stack, *rays, any_hit)
-    return st["tri_tests"] / max(32 * lane["tri_steps"], 1)
-
-
 def kernel_vs_plain(n_tris, scene):
     """Phase 6 for one terrain: both walks, three ray kinds."""
     import torch
@@ -511,14 +516,9 @@ def kernel_vs_plain(n_tris, scene):
                 box_tests=st["box_tests"], tri_tests=st["tri_tests"])
             w = walk_steps(walk, tr, rs, any_hit, st)
             res[(walk, kind)].update(w)
-            per_lane = ""
-            if walk == "wide" and n_tris == TERRAINS[0][0]:
-                w["lane_fill"] = lane_fill(tr, rs, any_hit, st)
-                per_lane = (f" (its per-lane leaf, replayed: "
-                            f"{w['lane_fill']:.4f})")
             log(f"  {walk:4s} {kind:6s}: warp steps node {w['node_steps']} "
                 f"tri {w['tri_steps']} (equal to the replay of its "
-                f"schedule), leaf lane fill {w['fill']:.4f}{per_lane}")
+                f"schedule), leaf lane fill {w['fill']:.4f}")
             log(f"  {walk:4s} {kind:6s}: {'occluded' if any_hit else 'hits'} "
                 f"{hits}/{N_RAYS}, kernel vs plain mismatches {bad} "
                 f"(max|d| {err:g}); kernel {ms:.3f} ms, plain "
@@ -610,8 +610,95 @@ def mesh_main_path(n_tris, walk, name, png_dir, card, dev):
         f"loop {stats['seconds']:.3f} s), {paths / secs / 1e6:.3f} Mpaths/s, "
         f"{rays / secs / 1e6:.2f} Mrays/s ({stats['segments']} segments + "
         f"{stats['shadow_rays']} shadow rays), {stats['supersteps']} "
-        f"supersteps, launches {counts}, on {card}")
+        f"supersteps ({1e3 * stats['seconds'] / stats['supersteps']:.2f} ms "
+        f"a superstep), launches {counts}, on {card}")
     return counts[name], r["max"], img
+
+
+# ---------------------------------------------------------------------------
+# phase 8b: main path 9, the env-lit textured terrain
+# ---------------------------------------------------------------------------
+
+def envtex_scene(dev, width=MESH_W, height=MESH_H):
+    """bench.py's envtex stage: textured_terrain_scene(100_000) with its
+    256^2 texture and 64x128 sky, at ``width`` x ``height``."""
+    from vimg_tpu_torch.scene.synthetic import textured_terrain_scene
+    return textured_terrain_scene(ENVTEX_TRIS, width, height, device=dev)
+
+
+def envtex_main_path(png_dir, card, dev):
+    """Main path 9: the 1-spp frame through B3 and through the plain walk
+    (per pixel, equal ray counts), then the 64-spp frame through
+    render_frame with every count set to 0 just before and read just
+    after: only B3 may launch; finite, its mean within MAIN_MEAN_REL of the
+    plain 1-spp mean; AgX PNG; seconds, paths/s, rays/s, supersteps."""
+    import numpy as np
+    from vimg_tpu_torch.geometry import cluster_trace as ct
+    from vimg_tpu_torch.render import wavefront
+    from vimg_tpu_torch.render.mega import supports_megakernel
+    from vimg_tpu_torch.render.render import render_frame
+    from vimg_tpu_torch.scene import ir
+    t0 = time.time()
+    scene = envtex_scene(dev)
+    log(f"    scene: {scene.n_tris()} triangles, atlas "
+        f"{scene.atlas.shape[0]} texels in {scene.atlas_meta.shape[1]} "
+        f"levels, env {tuple(scene.env_mips[0].shape[:2])} in "
+        f"{len(scene.env_mips)} levels, {scene.n_lights()} light (the sky); "
+        f"host build {time.time() - t0:.2f}s")
+    st = ir.RenderSettings(MESH_W, MESH_H, spp=MESH_SPP, max_depth=64,
+                           integrator="mis", tonemap="agx",
+                           batch_size=MESH_BATCH)
+    if supports_megakernel(scene, st):
+        fail("envtex: the megakernel would take this frame")
+    st1 = dataclasses.replace(st, spp=1)
+    data = ct.ClusterData(scene)
+    kt = ct.ClusterTracer(scene, data=data)
+    pt = ct.ClusterTracer(scene, data=data, plain=True)
+    if kt.walk != "wide":
+        fail(f"envtex: the default walk is {kt.walk}, not wide")
+    (img_k, sk), _ = timed(lambda: wavefront.render_wavefront(
+        scene, st1, tracer=kt, return_stats=True))
+    (img_p, sp), _ = timed(lambda: wavefront.render_wavefront(
+        scene, st1, tracer=pt, return_stats=True))
+    r = compare(f"envtex {MESH_W}x{MESH_H}@1 kernel vs plain walk", img_p,
+                img_k)
+    log(f"    kernel {sk['seconds']:.2f}s, plain walk {sp['seconds']:.2f}s; "
+        f"segments {sk['segments']} / {sp['segments']}, shadow rays "
+        f"{sk['shadow_rays']} / {sp['shadow_rays']}, supersteps "
+        f"{sk['supersteps']} / {sp['supersteps']}")
+    if not (r["mean"] < WF_MEAN and r["corr"] > WF_CORR):
+        fail("envtex: 1-spp kernel vs plain walk per pixel")
+    if (sk["segments"], sk["shadow_rays"]) != (sp["segments"],
+                                               sp["shadow_rays"]):
+        fail("envtex: 1-spp ray counts differ")
+    plain_mean = img_p.reshape(-1, 3).mean(0).cpu().numpy()
+
+    zero_counts()
+    img, secs = timed(lambda: render_frame(scene, st))
+    counts = read_counts()
+    stats = wavefront.LAST_STATS
+    img_np = img.cpu().numpy()
+    if img_np.shape != (MESH_H, MESH_W, 3) or not np.isfinite(img_np).all():
+        fail(f"envtex image shape {img_np.shape} / non-finite")
+    if counts["cluster_wide"] < 1 or any(
+            v for k, v in counts.items() if k != "cluster_wide"):
+        fail(f"envtex main path launches {counts}")
+    png = save_png(img, st.tonemap, "envtex.png", png_dir)
+    mean = img_np.reshape(-1, 3).mean(0)
+    rel = np.abs(mean - plain_mean) / np.maximum(plain_mean, 1e-12)
+    log(f"    {MESH_SPP}-spp mean {mean.tolist()} vs plain@1spp "
+        f"{plain_mean.tolist()} (rel {rel.tolist()}); png {png} bytes")
+    if not (rel < MAIN_MEAN_REL).all():
+        fail("envtex mean differs from the 1-spp plain mean")
+    paths = MESH_W * MESH_H * MESH_SPP
+    rays = stats["segments"] + stats["shadow_rays"]
+    log(f"    {MESH_W}x{MESH_H} @ {MESH_SPP} spp: {secs:.3f} s (render "
+        f"loop {stats['seconds']:.3f} s), {paths / secs / 1e6:.3f} Mpaths/s, "
+        f"{rays / secs / 1e6:.2f} Mrays/s ({stats['segments']} segments + "
+        f"{stats['shadow_rays']} shadow rays), {stats['supersteps']} "
+        f"supersteps ({1e3 * stats['seconds'] / stats['supersteps']:.2f} ms "
+        f"a superstep), launches {counts}, on {card}")
+    return counts["cluster_wide"]
 
 
 # ---------------------------------------------------------------------------
@@ -1477,6 +1564,35 @@ def other_frames_phase(dev):
             fail(f"{case}: launches {nz}, expected only {walk}")
 
 
+def envtex_small_phase(dev):
+    """Phase 19, main path 9 at 64x32 @ 4 spp through render_frame on the
+    card and on the CPU: the frames agree statistically (the card's log2,
+    acos, atan2, sin and cos may round an ulp apart from the CPU's, and an
+    ulp can move a texel, a mip level or a sampled direction, so this is
+    the flagship's criterion, not the per-pixel one); on the card only B3
+    may launch."""
+    import torch
+    from vimg_tpu_torch.render.render import render_frame
+    from vimg_tpu_torch.scene import ir
+    w, h = ENVTEX_SMALL
+    st = ir.RenderSettings(w, h, spp=ENVTEX_SMALL_SPP, max_depth=64,
+                           integrator="mis", tonemap="agx")
+    imgs = {}
+    for d in (torch.device("cpu"), dev):
+        scene = envtex_scene(d, w, h)
+        zero_counts()
+        imgs[d.type], secs = timed(lambda: render_frame(scene, st))
+    nz = {k: v for k, v in read_counts().items() if v}
+    r = compare(f"envtex {w}x{h}@{st.spp} mis card vs cpu", imgs["cpu"],
+                imgs["cuda"])
+    log(f"      card {secs:.3f} s, launches {nz}")
+    if not (imgs["cuda"].is_cuda and r["mean"] < FLAG_MEAN
+            and r["corr"] > FLAG_CORR):
+        fail("envtex: card differs from the CPU")
+    if set(nz) != {"cluster_wide"}:
+        fail(f"envtex small frame: launches {nz}, expected only B3")
+
+
 # ---------------------------------------------------------------------------
 # phases 20-22: the probe kernels P12-P31, through their probes' entry
 # points at the probes' own sizes, then against their plain versions
@@ -1945,6 +2061,13 @@ def main():
         launches[name], wf_err[name], wf_img[name] = mesh_main_path(
             n_tris, walk, name, png_dir, card, dev)
 
+    # ---- 8b. main path 9: the env-lit textured terrain through B3 -------
+    log(f"[8b] main path 9: textured_terrain_scene({ENVTEX_TRIS}) -> "
+        f"render_frame ({MESH_W}x{MESH_H} @ {MESH_SPP} spp, batch "
+        f"{MESH_BATCH}) -> wavefront with ray cones -> finalize -> write_png "
+        f"through cluster_wide")
+    envtex_launches = envtex_main_path(png_dir, card, dev)
+
     # ---- 9-11. kernel B2 and main paths 4, 5 --------------------------
     b2 = b2_phases(dev, png_dir, card)
 
@@ -1962,6 +2085,7 @@ def main():
     # ---- 19. main paths 7 and 8: s_normal frames through render() -------
     normal_phase(dev, card, png_dir)
     other_frames_phase(dev)
+    envtex_small_phase(dev)
 
     # ---- 20-22. the probe kernels P12-P31 -------------------------------
     probes += vpu_probe_phase(dev)
@@ -1985,12 +2109,16 @@ def main():
             TERRAINS, ("vimg_tpu/geometry/cluster_trace.py:455",
                        "vimg_tpu/geometry/cluster_trace.py:800")):
         c = cmp[(n_tris, walk, "bounce")]
+        # B3 carries main paths 2 and 9
+        by_path = ({"2": launches[name], "9": envtex_launches}
+                   if walk == "wide" else {"3": launches[name]})
         rows.append({
             "name": name,
             "route": "cuda",
             "source": "vimg_tpu_torch/csrc/cluster_trace.cu",
             "replaces": line,
-            "launches": launches[name],
+            "launches": sum(by_path.values()),
+            "launches_by_main_path": by_path,
             "max_abs_err": max(v["max_abs_err"] for k, v in cmp.items()
                                if k[1] == walk),
             "ms": c["ms"],

@@ -1,6 +1,5 @@
 """Time this checkout's kernels B2-B5, the packet cull and P19 and main
-paths 2, 3 and 6 against another checkout of the port, on one GPU, in
-turns.
+paths 1-8 against another checkout of the port, on one GPU, in turns.
 
 Unpack the other commit into a directory that .gitignore lists and run,
 from the repository root on a machine with an NVIDIA GPU:
@@ -40,14 +39,25 @@ then:
   frame, timed once each;
 - B1 on the flagship at 1800x800 @ 4 spp (its integrator body is B2's):
   one warm launch, three launches each timed by the wrapper's CUDA
-  events, the first one's film and counters kept.
+  events, the first one's film and counters kept;
+- main path 1: render_frame on the flagship JSON at its 1800x800 @ 512
+  spp (B1) after a 1-spp warm-up frame, timed once, its film and
+  counters kept;
+- main paths 7 and 8: render_frame under s_normal at 4 spp on the
+  flagship (1800x800) and terrain 100k (512x256) through render(), timed
+  once each after a 1-spp warm-up frame, the films kept.
 
 Then it checks that every meta, B3, B4 (t, slot, u, v) and B5 (t, code)
 is bit-equal across the four runs, that B1's and B2's films and counters
-are, that each P19 product is held by matmul_held, and that the wavefront
-frames agree (only the film's atomic index_add_ order may differ), prints
-the table and the card's name and power limit, and writes the readings as
-JSON. Exits non-zero on any failure.
+(main paths 1, 4 and 5 and the 4-spp flagship) are, that the films of
+main paths 7 and 8 are, that each P19 product is held by matmul_held,
+that the wavefront frames (main paths 2, 3 and 6) have equal segment and
+shadow-ray counts and supersteps and agree per pixel (their films are
+not bit-equal even between two runs of one checkout: the film's atomic
+index_add_ adds in no fixed order), prints the table and the card's name
+and power limit, and writes the readings as JSON. Exits non-zero on any
+failure. The envtex frame (main path 9) has no parent comparison: a
+checkout from before the envtex slice cannot render it.
 """
 import argparse
 import dataclasses
@@ -129,15 +139,17 @@ def worker(tree, out):
     before = pt.LAUNCHES
     img, secs = cs.timed(lambda: render_frame(scene, st,
                                               tracer_force="packet"))
-    res["frame"] = dict(s=secs, loop_s=wavefront.LAST_STATS["seconds"],
-                        launches=pt.LAUNCHES - before)
+    res["frame"] = dict(s=secs, launches=pt.LAUNCHES - before,
+                        **_wf_stats(wavefront.LAST_STATS))
     res["walks"], walk_outs = walk_readings(cs, scene, rays, dev)
     res["b2"], b2_outs = b2_readings(cs, dev)
     res["frame2"], img2 = frame_readings(cs, dev, 100_000, "LAUNCHES_WIDE")
     res["frame3"], img3 = frame_readings(cs, dev, 500_000, "LAUNCHES_SKIP")
+    res["frame1"], main1 = main1_readings(cs, dev)
+    res["frames78"], imgs78 = normal_readings(cs, dev)
     torch.save({"b5": outs, "meta": metas, "img": img.cpu(),
                 "walks": walk_outs, "b2": b2_outs, "img2": img2,
-                "img3": img3}, out + ".pt")
+                "img3": img3, "main1": main1, **imgs78}, out + ".pt")
     with open(out, "w") as f:
         json.dump(res, f)
 
@@ -216,6 +228,42 @@ def b2_readings(cs, dev):
     return res, outs
 
 
+def _wf_stats(stats):
+    """The wavefront's render-loop seconds, ray counts and supersteps."""
+    return dict(loop_s=stats["seconds"], segments=stats["segments"],
+                shadow_rays=stats["shadow_rays"],
+                supersteps=stats["supersteps"])
+
+
+def main1_readings(cs, dev):
+    """Main path 1: the flagship JSON at 1800x800 @ 512 spp through
+    render_frame (B1), after a 1-spp warm-up frame, timed once; the film
+    and B1's counters (segments, shadow rays, warp steps)."""
+    from vimg_tpu_torch.render.mega import kernel
+    from vimg_tpu_torch.render.render import render_frame
+    from vimg_tpu_torch.scene.json_loader import load_json_scene
+    scene, st = load_json_scene(cs.FLAGSHIP, device=dev)
+    render_frame(scene, dataclasses.replace(st, spp=1))
+    img, secs = cs.timed(lambda: render_frame(scene, st))
+    return dict(s=secs), dict(img=img.cpu(), counts=[
+        int(v) for v in kernel.LAST_COUNTS.cpu()])
+
+
+def normal_readings(cs, dev):
+    """Main paths 7 and 8: s_normal frames at 4 spp of the flagship and
+    terrain 100k through render_frame -> render(), timed once each after
+    a 1-spp warm-up frame; the films."""
+    from vimg_tpu_torch.render.render import render_frame
+    res, imgs = {}, {}
+    for n, kind in ((7, "flagship"), (8, "terrain")):
+        scene, st = cs.normal_scene(kind, dev)
+        render_frame(scene, dataclasses.replace(st, spp=1))
+        img, secs = cs.timed(lambda: render_frame(scene, st))
+        res[f"main{n}"] = dict(s=secs)
+        imgs[f"img{n}"] = img.cpu()
+    return res, imgs
+
+
 def frame_readings(cs, dev, n_tris, counter):
     """Main path 2 or 3: terrain ``n_tris`` at 512x256 @ 64 spp MIS through
     the wavefront over B3 or B4 (``counter`` names its launch count),
@@ -234,8 +282,8 @@ def frame_readings(cs, dev, n_tris, counter):
         tonemap="agx", batch_size=cs.MESH_BATCH))
     before = getattr(ct, counter)
     img, secs = cs.timed(lambda: render_frame(scene, st))
-    return dict(s=secs, loop_s=wavefront.LAST_STATS["seconds"],
-                launches=getattr(ct, counter) - before), img.cpu()
+    return dict(s=secs, launches=getattr(ct, counter) - before,
+                **_wf_stats(wavefront.LAST_STATS)), img.cpu()
 
 
 def main():
@@ -298,12 +346,30 @@ def main():
             if got["counts"] != want["counts"]:
                 bad.append(f"{key} run {res['name']}: counters "
                            f"{got['counts']} != {want['counts']}")
-        for name, key in (("main path 6", "img"), ("main path 2", "img2"),
-                          ("main path 3", "img3")):
+        for name, key, fkey in (("main path 6", "img", "frame"),
+                                 ("main path 2", "img2", "frame2"),
+                                 ("main path 3", "img3", "frame3")):
             r = cs.compare(f"{name}, {res['name']} vs this", ref[key],
                            res["data"][key])
             if not (r["mean"] < cs.WF_MEAN and r["corr"] > cs.WF_CORR):
                 bad.append(f"{name} run {res['name']}: another image")
+            got, want = ([x[fkey][k] for k in ("segments", "shadow_rays",
+                                               "supersteps")]
+                         for x in (res, runs[1]))
+            if got != want:
+                bad.append(f"{name} run {res['name']}: segments, shadow "
+                           f"rays, supersteps {got} != {want}")
+        m1, w1 = res["data"]["main1"], ref["main1"]
+        if not torch.equal(m1["img"].view(torch.int32),
+                           w1["img"].view(torch.int32)):
+            bad.append(f"main path 1 run {res['name']}: another film")
+        if m1["counts"] != w1["counts"]:
+            bad.append(f"main path 1 run {res['name']}: counters "
+                       f"{m1['counts']} != {w1['counts']}")
+        for n in (7, 8):
+            if not torch.equal(res["data"][f"img{n}"].view(torch.int32),
+                               ref[f"img{n}"].view(torch.int32)):
+                bad.append(f"main path {n} run {res['name']}: another film")
 
     def span(key, get):
         xs = [x for res in runs if res["name"] == key for x in get(res)]
@@ -344,6 +410,17 @@ def main():
         print(f"main path {n} frame s (render loop s), in run order: "
               + ", ".join(f"{r['name']} {r[key]['s']:.3f} "
                           f"({r[key]['loop_s']:.3f})" for r in runs))
+    for n, key in ((2, "frame2"), (3, "frame3"), (6, "frame")):
+        f = runs[1][key]
+        print(f"main path {n}: {f['segments']} segments + "
+              f"{f['shadow_rays']} shadow rays, {f['supersteps']} "
+              f"supersteps (equal in every run)")
+    print(f"main path 1 frame s, in run order: " + ", ".join(
+        f"{r['name']} {r['frame1']['s']:.3f}" for r in runs))
+    for n in (7, 8):
+        print(f"main path {n} frame s, in run order: " + ", ".join(
+            f"{r['name']} {r['frames78'][f'main{n}']['s']:.3f}"
+            for r in runs))
     print(card)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
@@ -354,8 +431,10 @@ def main():
                 failures=bad), f, indent=1)
     if bad:
         sys.exit("FAIL: " + "; ".join(bad))
-    print("all meta, B3, B4, B5 outputs and B1, B2 films and counters "
-          "bit-equal across the runs, P19 held, frames agree")
+    print("all meta, B3, B4, B5 outputs, B1 and B2 films and counters "
+          "(main paths 1, 4, 5) and the films of main paths 7 and 8 "
+          "bit-equal across the runs, P19 held, the wavefront frames' "
+          "counts equal and their films agree")
 
 
 if __name__ == "__main__":

@@ -101,11 +101,16 @@ def test_camera_rays(aperture):
     px = (r.random(4000) * 180).astype(np.float32)
     py = (r.random(4000) * 80).astype(np.float32)
     l1, l2 = (r.random(4000).astype(np.float32) for _ in range(2))
-    jo, jd, _, _ = jcam.generate_rays(jc, *map(jnp.asarray, (px, py, l1, l2)))
-    to, td = tcam.generate_rays(tc, *map(torch.as_tensor, (px, py, l1, l2)))
+    jo, jd, jw, js = jcam.generate_rays(jc, *map(jnp.asarray,
+                                                  (px, py, l1, l2)))
+    to, td, tw, ts = tcam.generate_rays(tc, *map(torch.as_tensor,
+                                                 (px, py, l1, l2)))
     # origins are ~1600 units from the world origin: ulp-scaled bound
     _close(jo, to, atol=1e-6 * 1600)
     _close(jd, td)
+    # the primary cone: zero width, the pixel's spread angle
+    assert np.array_equal(np.asarray(jw), tw.numpy())
+    _close(js, ts)
 
 
 def test_primary_ray_indexing():
@@ -119,8 +124,8 @@ def test_primary_ray_indexing():
     pix = r.integers(0, 1800 * 800, 4000).astype(np.int32)
     samp = r.integers(0, 512, 4000).astype(np.int32)
     jo, jd, _, _ = jpr(js, st, jnp.asarray(pix), jnp.asarray(samp))
-    to, td = tpr(ts, tst, torch.as_tensor(pix).long(),
-                 torch.as_tensor(samp).long())
+    to, td, _, _ = tpr(ts, tst, torch.as_tensor(pix).long(),
+                       torch.as_tensor(samp).long())
     _close(jo, to, atol=1e-6 * 1600)
     _close(jd, td)
 
@@ -181,6 +186,9 @@ def test_scene_numpy_roundtrip_and_builder():
 
 
 def test_unported_entries_raise(tmp_path):
+    """Mesh surfaces still raise; checkered textures (ported with the
+    envtex slice) now load into the scene vimg_tpu's loader builds."""
+    from vimg_tpu.scene.json_loader import load_json_scene as jload
     from vimg_tpu_torch.scene.json_loader import load_json_scene
     p = tmp_path / "mesh.json"
     cam = '"camera": {"transform": {"from": [0, 0, 1]}}, '
@@ -192,5 +200,8 @@ def test_unported_entries_raise(tmp_path):
     p.write_text('{' + cam + '"materials": [{"name": "w", "type": "lambertian",'
                  ' "texture": {"type": "checkered", "col1": [0,0,0],'
                  ' "col2": [1,1,1], "width": 4, "height": 4}}]}')
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        load_json_scene(p, device="cpu")
+    ts, tst = load_json_scene(p, device="cpu")
+    js, jst = jload(p)
+    assert ts.has_checker and int(ts.tex_type[0]) == tir.TEX_CHECKER
+    assert dataclasses.asdict(tst) == dataclasses.asdict(jst)
+    _assert_same_scene(js, ts)

@@ -14,7 +14,11 @@ scenes are unit scale too) and equal segment and shadow-ray counts; for
 B3, B4 and B5, bit-equality with their plain walks (B3 and B4 also with
 exact ties, and their warp steps equal to their schedules' replays); for
 X1, B6 and P1-P31, bit-equality with their plain versions, except where
-the P12-P31 tests say otherwise.
+the P12-P31 tests say otherwise. C19: the frame's last divide and AgX's
+divide give the CPU's bits on the card. The envtex frame (main path 9) at
+64x32 against the CPU statistically (the flagship's bound: the card's
+transcendentals round otherwise, and an ulp can move a texel, a mip level
+or a sampled direction), launching B3.
 """
 import dataclasses
 
@@ -249,7 +253,7 @@ def _ray_kinds(scene, tracer, device):
     point above the terrain (finite maxT)."""
     from vimg_tpu_torch.render.integrators import _primary_rays
     n = 128 * 64
-    ro, rd = _primary_rays(scene, ir.RenderSettings(width=128, height=64),
+    ro, rd, _, _ = _primary_rays(scene, ir.RenderSettings(width=128, height=64),
                            torch.arange(n, device=device),
                            torch.zeros(n, dtype=torch.int64, device=device))
     mn = torch.full((n,), 1e-4, device=device)
@@ -487,7 +491,7 @@ def test_packet_kernel_matches_plain_walk(cuda, variant):
     scene = terrain_scene(20_000, 128, 64, device=cuda)
     tr = pt.PacketTracer(scene, variant=variant)
     n = 128 * 64
-    ro, rd = _primary_rays(scene, ir.RenderSettings(width=128, height=64),
+    ro, rd, _, _ = _primary_rays(scene, ir.RenderSettings(width=128, height=64),
                            torch.arange(n, device=cuda),
                            torch.zeros(n, dtype=torch.int64, device=cuda))
     camera = (ro, rd, torch.full((n,), 1e-4, device=cuda),
@@ -870,3 +874,55 @@ def test_other_frames_render_on_card(cuda, case):
     d = (img.cpu() - imgs["cpu"]).abs()
     assert float(d.mean()) < 1e-4 and float((d.max(-1).values > 1e-5)
                                             .float().mean()) < 0.01
+
+
+@pytest.mark.cuda
+def test_c19_agx_frame_bit_equal_to_cpu(cuda):
+    """C19: an accumulated film of spp = 3 samples (not a power of two),
+    divided by spp with the renderers' core.math.div and AgX-tonemapped,
+    has the same bits on the card as on the CPU (PyTorch's CUDA division by
+    a Python number would multiply by its float32 reciprocal instead)."""
+    from vimg_tpu_torch.core.math import div
+    from vimg_tpu_torch.render import film
+    r = np.random.default_rng(30)
+    acc = torch.as_tensor((r.random((96, 128, 3)) ** 3 * 12.0)
+                          .astype(np.float32))
+    out = {}
+    for dev in (torch.device("cpu"), cuda):
+        img = div(acc.to(dev), 3)
+        out[dev.type] = (img, film.agx(img), film.finalize(img, "agx"))
+    for name, a, b in zip(("frame", "agx", "finalize"), out["cpu"],
+                          out["cuda"]):
+        bad = int((_bits(a) != _bits(b.cpu())).sum())
+        assert bad == 0, (name, bad)
+    # the reciprocal form really differs here: the test can see C19
+    assert not torch.equal(_bits(acc.to(cuda) / 3).cpu(),
+                           _bits(out["cpu"][0]))
+
+
+@pytest.mark.cuda
+def test_envtex_frame_card_vs_cpu(cuda):
+    """Main path 9 at 64x32 @ 4 spp: the env-lit textured terrain through
+    render_frame -> the wavefront on the card (B3 launches, nothing else)
+    and on the CPU: mean|d| < 6e-3 and corr > 0.99."""
+    from vimg_tpu_torch.render.render import render_frame
+    from vimg_tpu_torch.scene.synthetic import textured_terrain_scene
+    st = ir.RenderSettings(64, 32, spp=4, max_depth=64, integrator="mis",
+                           tonemap="agx")
+    imgs = {}
+    for dev in (torch.device("cpu"), cuda):
+        scene = textured_terrain_scene(100_000, 64, 32, device=dev)
+        before = (kernel.LAUNCHES, kernel.LAUNCHES_MESH, ct.LAUNCHES_WIDE,
+                  ct.LAUNCHES_SKIP)
+        imgs[dev.type] = render_frame(scene, st)
+        after = (kernel.LAUNCHES, kernel.LAUNCHES_MESH, ct.LAUNCHES_WIDE,
+                 ct.LAUNCHES_SKIP)
+    moved = [n for n, b, a in zip(("mega", "mega_mesh", "wide", "skip"),
+                                  before, after) if a != b]
+    assert moved == ["wide"]
+    img = imgs["cuda"]
+    assert img.is_cuda and img.shape == (32, 64, 3)
+    assert bool(torch.isfinite(img).all())
+    a, b = img.cpu().double().numpy(), imgs["cpu"].double().numpy()
+    assert np.abs(a - b).mean() < 6e-3
+    assert np.corrcoef(a.ravel(), b.ravel())[0, 1] > 0.99

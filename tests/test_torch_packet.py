@@ -292,7 +292,7 @@ def test_f2b_matches_slist():
     from vimg_tpu_torch.render.integrators import _primary_rays
     ts = tterrain(20_000, 128, 64, device="cpu")
     n = 128 * 64
-    ro, rd = _primary_rays(ts, tir.RenderSettings(width=128, height=64),
+    ro, rd, _, _ = _primary_rays(ts, tir.RenderSettings(width=128, height=64),
                            torch.arange(n), torch.zeros(n, dtype=torch.int64))
     args = (ro, rd, torch.full((n,), 1e-4), torch.full((n,), float("inf")))
     slist = tpt.PacketTracer(ts)
@@ -545,7 +545,7 @@ def _dup_soup():
 def _camera_rays(ts, w, h):
     from vimg_tpu_torch.render.integrators import _primary_rays
     n = w * h
-    ro, rd = _primary_rays(ts, tir.RenderSettings(width=w, height=h),
+    ro, rd, _, _ = _primary_rays(ts, tir.RenderSettings(width=w, height=h),
                            torch.arange(n), torch.zeros(n, dtype=torch.int64))
     return ro, rd, torch.full((n,), 1e-4), torch.full((n,), float("inf"))
 

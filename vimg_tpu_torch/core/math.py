@@ -33,6 +33,10 @@ def length2(a):
     return dot(a, a)
 
 
+def length(a):
+    return sqrt_cr(length2(a))
+
+
 def sqrt_cr(x):
     """Correctly rounded float32 square root. On the CPU, torch.sqrt runs
     through MKL's vector math, which is not correctly rounded and whose
@@ -42,6 +46,16 @@ def sqrt_cr(x):
     if x.device.type == "cpu":
         return torch.sqrt(x.double()).float()
     return torch.sqrt(x)
+
+
+def div(x, c):
+    """``x / c`` for a Python number ``c``, correctly rounded on every
+    device. PyTorch's CUDA division of a tensor by a Python number (or by
+    a 0-d CPU tensor) multiplies by the number's float32 reciprocal, which
+    is one ulp off x / c unless c is a power of two; vimg_tpu and the CPU
+    divide. A 0-d tensor made on x's device by a fill kernel (no copy from
+    the host) makes the card divide too."""
+    return x / torch.full((), c, dtype=x.dtype, device=x.device)
 
 
 def normalize(a):
@@ -88,6 +102,11 @@ def onb_to_world(u, v, w, vec):
 def world_to_onb(u, v, w, vec):
     """World direction -> local frame coordinates."""
     return torch.stack([dot(vec, u), dot(vec, v), dot(vec, w)], dim=-1)
+
+
+def gram_schmidt(v, w):
+    """v minus its projection on the unit vector w."""
+    return v - dotk(v, w) * w
 
 
 def look_at(look_from, look_to, up):

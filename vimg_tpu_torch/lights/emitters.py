@@ -1,5 +1,6 @@
 """Next-event-estimation light sampling over the flat light table (port of
-vimg_tpu.lights.emitters), constant background only (env maps: slice 3).
+vimg_tpu.lights.emitters): triangle and sphere lights, and the background,
+a constant colour or an importance-sampled env map (lights/envmap.py).
 
 Every ray picks one light uniformly and samples a point on it; per-type
 results are combined by masks.
@@ -11,10 +12,11 @@ from dataclasses import dataclass
 
 import torch
 
-from vimg_tpu_torch.core.math import (cross, dot, length2, normalize,
+from vimg_tpu_torch.core.math import (cross, div, dot, length2, normalize,
                                       onb_from_normal, onb_to_world, sqrt_cr)
 from vimg_tpu_torch.core.warps import (INV_4PI, sample_sphere,
                                        sample_sphere_cap, sample_triangle_uv)
+from vimg_tpu_torch.lights import envmap
 from vimg_tpu_torch.scene import ir
 
 
@@ -25,12 +27,6 @@ class LightSample:
     pdf: torch.Tensor       # (B,) area pdf (solid angle for bg), incl. 1/L
     dist: torch.Tensor      # (B,) distance to the light point
     G: torch.Tensor         # (B,) geometry term cos/dist^2 (1 for bg)
-
-
-def _check_const_background(scene: ir.Scene):
-    if scene.has_envmap:
-        raise NotImplementedError(
-            "environment maps are not ported yet (ROADMAP queue A slice 3)")
 
 
 def _emitted_one_sided(scene, mat_id, wi, n):
@@ -60,7 +56,7 @@ def _sample_tri(scene: ir.Scene, tri_id, look_from, r1, r2):
     dvec = hit_p - look_from
     dist2 = length2(dvec)
     wi = normalize(dvec)
-    area = sqrt_cr(torch.clamp_min(length2(cross(e2, e1)), 0.0)) / 2.0
+    area = sqrt_cr(torch.clamp_min(length2(cross(e2, e1)), 0.0)) * 0.5
     pdf = 1.0 / torch.clamp_min(area, 1e-20)
     G = dot(hit_n, -wi).abs() / torch.clamp_min(dist2, 1e-20)
     rad = _emitted_one_sided(scene, scene.tri_mat[tri_id], wi, hit_n)
@@ -103,10 +99,21 @@ def _sample_sphere_light(scene: ir.Scene, sph_id, look_from, r1, r2):
     return rad, wi, pdf, sqrt_cr(dist2), G
 
 
+def _sample_background(scene: ir.Scene, r1, r2):
+    if scene.has_envmap:
+        rad, wi, pdf = envmap.env_sample(scene, r1, r2)
+    else:
+        wi = sample_sphere(r1, r2)
+        pdf = torch.full(r1.shape, INV_4PI, device=r1.device)
+        rad = scene.bg_color.expand_as(wi)
+    dist = torch.full(r1.shape, float("inf"), device=r1.device)
+    G = torch.ones_like(r1)
+    return rad, wi, pdf, dist, G
+
+
 def sample_lights(scene: ir.Scene, look_from, pick_rand, r1, r2) -> LightSample:
     """Uniformly pick one light per ray and sample it; the pdf includes the
     1/num_lights pick probability."""
-    _check_const_background(scene)
     L = scene.n_lights()
     idx = (pick_rand * L).to(torch.int64).clamp(0, L - 1)
     ltype = scene.light_type[idx]
@@ -114,31 +121,28 @@ def sample_lights(scene: ir.Scene, look_from, pick_rand, r1, r2) -> LightSample:
 
     B = look_from.shape[0]
     dev = look_from.device
-    out = [torch.zeros((B, 3), device=dev), torch.zeros((B, 3), device=dev),
+    out = (torch.zeros((B, 3), device=dev), torch.zeros((B, 3), device=dev),
            torch.zeros((B,), device=dev), torch.zeros((B,), device=dev),
-           torch.zeros((B,), device=dev)]
-
-    def mix(new, mask):
-        for k, n in enumerate(new):
-            m = mask[:, None] if n.ndim == 2 else mask
-            out[k] = torch.where(m, n, out[k])
-
+           torch.zeros((B,), device=dev))
     if scene.lights_have_tri:
-        mix(_sample_tri(scene, lidx.clamp(0, max(scene.n_tris() - 1, 0)),
-                        look_from, r1, r2), ltype == ir.LIGHT_TRI)
+        out = _mix(out, _sample_tri(
+            scene, lidx.clamp(0, max(scene.n_tris() - 1, 0)), look_from, r1,
+            r2), ltype == ir.LIGHT_TRI)
     if scene.lights_have_sphere:
-        mix(_sample_sphere_light(
+        out = _mix(out, _sample_sphere_light(
             scene, lidx.clamp(0, max(scene.n_spheres() - 1, 0)),
             look_from, r1, r2), ltype == ir.LIGHT_SPHERE)
     if scene.lights_have_bg:
-        wi = sample_sphere(r1, r2)
-        mix((scene.bg_color.expand_as(wi), wi,
-             torch.full((B,), INV_4PI, device=dev),
-             torch.full((B,), float("inf"), device=dev),
-             torch.ones((B,), device=dev)), ltype == ir.LIGHT_BACKGROUND)
+        out = _mix(out, _sample_background(scene, r1, r2),
+                   ltype == ir.LIGHT_BACKGROUND)
 
     rad, wi, pdf, dist, G = out
-    return LightSample(radiance=rad, wi=wi, pdf=pdf / L, dist=dist, G=G)
+    return LightSample(radiance=rad, wi=wi, pdf=div(pdf, L), dist=dist, G=G)
+
+
+def _mix(acc, new, mask):
+    return tuple(torch.where(mask[..., None] if a.ndim == 2 else mask, n, a)
+                 for a, n in zip(acc, new))
 
 
 def surf_pdf(scene: ir.Scene, prim_type, prim_id, look_from, point_on_light,
@@ -152,7 +156,7 @@ def surf_pdf(scene: ir.Scene, prim_type, prim_id, look_from, point_on_light,
         p1 = scene.verts[vidx[:, 1]]
         p2 = scene.verts[vidx[:, 2]]
         area = sqrt_cr(torch.clamp_min(
-            length2(cross(p2 - p0, p1 - p0)), 0.0)) / 2.0
+            length2(cross(p2 - p0, p1 - p0)), 0.0)) * 0.5
         pdf = torch.where(prim_type == ir.PRIM_TRI,
                           1.0 / torch.clamp_min(area, 1e-20), pdf)
     if scene.n_spheres() > 0:
@@ -172,11 +176,15 @@ def surf_pdf(scene: ir.Scene, prim_type, prim_id, look_from, point_on_light,
     return pdf
 
 
-def background_emit(scene: ir.Scene, direction):
-    _check_const_background(scene)
+def background_emit(scene: ir.Scene, direction, cone_spread=None):
+    """Radiance of rays that escaped the scene; an env map reads the mip
+    level the ray cone's spread angle picks."""
+    if scene.has_envmap:
+        return envmap.env_emit(scene, direction, cone_spread)
     return scene.bg_color.expand_as(direction)
 
 
 def background_pdf(scene: ir.Scene, direction):
-    _check_const_background(scene)
+    if scene.has_envmap:
+        return envmap.env_pdf(scene, direction)
     return torch.full(direction.shape[:-1], INV_4PI, device=direction.device)

@@ -1,10 +1,13 @@
 """Material dispatch over per-ray material ids (port of
-vimg_tpu.materials.bsdf), constant-colour path.
+vimg_tpu.materials.bsdf).
 
 Every material family present in the scene is evaluated branchlessly and
 selected by type mask; families absent from a scene are skipped by the
 static Scene flags. ``wi`` is the ray direction toward the surface,
-``dir_in = -wi`` and ``wo`` points away from the surface.
+``dir_in = -wi`` and ``wo`` points away from the surface. The base colour
+comes through textures.texture.base_color_at_hit (constant, checker and
+mip-mapped image textures); ``texture_inputs`` fetches a hit's texture
+inputs once for the three BSDF calls of a segment.
 """
 from __future__ import annotations
 
@@ -19,6 +22,8 @@ from vimg_tpu_torch.core.warps import sample_hemisphere_cosine
 from vimg_tpu_torch.geometry.intersect import HitInfo
 from vimg_tpu_torch.materials import disney
 from vimg_tpu_torch.scene import ir
+from vimg_tpu_torch.textures.texture import (base_color_at_hit,
+                                             metal_rough_at_uv)
 
 INV_PI = 1.0 / math.pi
 
@@ -47,19 +52,18 @@ def emitted(scene: ir.Scene, mat_id, ray_dir, n_s):
     return torch.where(on[..., None], emit, torch.zeros_like(emit))
 
 
-def base_color(scene: ir.Scene, mat_id):
-    """Base colour per ray: the material's albedo, or its constant
-    texture's colour (checker and image textures are slice 3)."""
-    if scene.has_checker or scene.has_image_tex:
-        raise NotImplementedError(
-            "checker/image textures are not ported yet (ROADMAP queue A "
-            "slice 3)")
-    col = scene.mat_base[mat_id]
-    tex_id = scene.mat_tex[mat_id][..., 0]
-    has_tex = tex_id >= 0
-    safe = tex_id.clamp_min(0)
-    const = has_tex & (scene.tex_type[safe] == ir.TEX_CONST)
-    return torch.where(const[..., None], scene.tex_cols[safe][..., 0, :], col)
+def texture_inputs(scene: ir.Scene, mat_id, hit: HitInfo, cone_width,
+                   ray_dir):
+    """Every per-hit texture input, fetched once: the base colour (with
+    ray-cone LOD) and the metal-rough factors (None without image
+    textures). The NEE eval, the BSDF sample and the bounce eval of a
+    segment shade the same hit; each takes this dict as ``tex=``."""
+    tex = dict(base_col=base_color_at_hit(scene, mat_id, hit, cone_width,
+                                          ray_dir), mr=None)
+    if scene.has_image_tex:
+        tex["mr"] = metal_rough_at_uv(scene, scene.mat_tex[mat_id][..., 2],
+                                      hit.mr_uv)
+    return tex
 
 
 def _principled_frame(hit: HitInfo, dir_in):
@@ -77,9 +81,19 @@ _PARAM_COLS = dict(
     metallic=ir.MS_METALLIC, roughness=ir.MS_ROUGHNESS)
 
 
-def _principled_params(scene: ir.Scene, mat_id):
+def _principled_params(scene: ir.Scene, mat_id, hit: HitInfo, mr=None):
+    """Per-ray Principled scalars; metallic and roughness are multiplied
+    by the metal-rough texture where the scene has image textures. ``mr``
+    is the precomputed factor pair (texture_inputs) or None to fetch."""
     sc = scene.mat_scalars[mat_id]
-    return {k: sc[..., c] for k, c in _PARAM_COLS.items()}
+    p = {k: sc[..., c] for k, c in _PARAM_COLS.items()}
+    if scene.has_image_tex:
+        if mr is None:
+            mr = metal_rough_at_uv(scene, scene.mat_tex[mat_id][..., 2],
+                                   hit.mr_uv)
+        p["metallic"] = p["metallic"] * mr[..., 0]
+        p["roughness"] = p["roughness"] * mr[..., 1]
+    return p
 
 
 def _lobe_weights(p):
@@ -91,11 +105,12 @@ def _lobe_weights(p):
     return w_diff / total, w_clear / total, w_metal / total, w_glass / total
 
 
-def _principled_eval_pdf(scene, mat_id, wi, wo, hit, regularize, base_col):
+def _principled_eval_pdf(scene, mat_id, wi, wo, hit, regularize, base_col,
+                         mr=None):
     """Full Principled mixture eval + pdf."""
     dir_in = -wi
     fu, fv, fw = _principled_frame(hit, dir_in)
-    p = _principled_params(scene, mat_id)
+    p = _principled_params(scene, mat_id, hit, mr)
     half_vec = normalize(dir_in + wo)
 
     alphax, alphay = disney.anisotropic_alphas(p["roughness"],
@@ -164,10 +179,10 @@ def _principled_eval_pdf(scene, mat_id, wi, wo, hit, regularize, base_col):
             torch.where(under, pdf_glass, pdf_mix))
 
 
-def _principled_sample(scene, mat_id, wi, hit, rands, regularize):
+def _principled_sample(scene, mat_id, wi, hit, rands, regularize, mr=None):
     dir_in = -wi
     fu, fv, fw = _principled_frame(hit, dir_in)
-    p = _principled_params(scene, mat_id)
+    p = _principled_params(scene, mat_id, hit, mr)
     r1, r2 = rands["u"], rands["v"]
     zero = torch.zeros_like(r1)
     in_geo = dot(hit.n_g, dir_in)
@@ -255,9 +270,10 @@ def _dielectric_sample(scene, mat_id, wi, hit, rands):
 # ---------------------------------------------------------------------------
 
 def sample_mat(scene: ir.Scene, mat_id, wi, hit: HitInfo, rands,
-               regularize) -> ScatterSample:
+               regularize, tex=None) -> ScatterSample:
     """Sample an outgoing direction per ray. ``rands``: dict with keys
-    'lobe', 'u', 'v', 'fresnel' of (B,) floats."""
+    'lobe', 'u', 'v', 'fresnel' of (B,) floats; ``tex``: an optional
+    texture_inputs dict."""
     mt = scene.mat_type[mat_id]
     B = mat_id.shape[0]
     dev = wi.device
@@ -287,7 +303,8 @@ def sample_mat(scene: ir.Scene, mat_id, wi, hit: HitInfo, rands,
     # diffuse_light: absorbed (valid stays False)
 
     if scene.has_principled:
-        ps = _principled_sample(scene, mat_id, wi, hit, rands, regularize)
+        ps = _principled_sample(scene, mat_id, wi, hit, rands, regularize,
+                                mr=None if tex is None else tex["mr"])
         m = mt == ir.MAT_PRINCIPLED
         wo = torch.where(m[..., None], ps.wo, wo)
         eta = torch.where(m, ps.eta, eta)
@@ -298,13 +315,17 @@ def sample_mat(scene: ir.Scene, mat_id, wi, hit: HitInfo, rands,
                          valid=valid)
 
 
-def eval_pdf(scene: ir.Scene, mat_id, wi, wo, hit: HitInfo, regularize):
-    """(f, pdf) pair; delta materials return (0, 0)."""
+def eval_pdf(scene: ir.Scene, mat_id, wi, wo, hit: HitInfo, regularize,
+             cone_width=None, tex=None):
+    """(f, pdf) pair; delta materials return (0, 0). ``tex``: an optional
+    texture_inputs dict, else the base colour is fetched with the LOD of
+    ``cone_width``."""
     mt = scene.mat_type[mat_id]
     B = mat_id.shape[0]
     f = torch.zeros((B, 3), device=wi.device)
     pdf = torch.zeros((B,), device=wi.device)
-    base_col = base_color(scene, mat_id)
+    base_col = tex["base_col"] if tex is not None else \
+        base_color_at_hit(scene, mat_id, hit, cone_width, wi)
 
     if scene.has_lambertian:
         cospi = torch.clamp_min(dot(wo, hit.n_s), 0.0) * INV_PI
@@ -314,19 +335,21 @@ def eval_pdf(scene: ir.Scene, mat_id, wi, wo, hit: HitInfo, regularize):
 
     if scene.has_principled:
         ev, pp = _principled_eval_pdf(scene, mat_id, wi, wo, hit, regularize,
-                                      base_col)
+                                      base_col,
+                                      mr=None if tex is None else tex["mr"])
         m = mt == ir.MAT_PRINCIPLED
         f = torch.where(m[..., None], ev, f)
         pdf = torch.where(m, pp, pdf)
     return f, pdf
 
 
-def eval_div_pdf(scene: ir.Scene, mat_id, wi, wo, hit: HitInfo, regularize):
+def eval_div_pdf(scene: ir.Scene, mat_id, wi, wo, hit: HitInfo, regularize,
+                 cone_width=None):
     """f/pdf with the analytic cancellations (Lambertian -> albedo,
     dielectric -> 1)."""
     mt = scene.mat_type[mat_id]
     out = torch.zeros((mat_id.shape[0], 3), device=wi.device)
-    base_col = base_color(scene, mat_id)
+    base_col = base_color_at_hit(scene, mat_id, hit, cone_width, wi)
     if scene.has_lambertian:
         out = torch.where((mt == ir.MAT_LAMBERTIAN)[..., None], base_col, out)
     if scene.has_dielectric:

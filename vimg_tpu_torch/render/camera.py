@@ -8,7 +8,8 @@ import numpy as np
 import torch
 
 from vimg_tpu_torch.core import warps
-from vimg_tpu_torch.core.math import normalize
+from vimg_tpu_torch.core.math import div, normalize
+from vimg_tpu_torch.core.raycone import primary_cone_spread
 
 
 @dataclass(frozen=True)
@@ -55,16 +56,14 @@ def _rotate(m, v):
 
 def generate_rays(cam: Camera, px, py, lens_r1, lens_r2):
     """Primary rays for continuous pixel coords (px, py); y = 0 is the
-    bottom row. Returns (origin, direction), each (..., 3)."""
+    bottom row. Returns (origin, direction, cone_width, cone_spread):
+    (..., 3), (..., 3), (...,) and (...,)."""
     theta = cam.vfov_deg * (math.pi / 180.0)
-    img_h = 2.0 * torch.tan(theta / 2.0)
+    img_h = 2.0 * torch.tan(theta * 0.5)
     img_w = img_h * (cam.width / cam.height)
 
-    # divided by tensors: PyTorch's CUDA division by a Python number
-    # multiplies by its float32 reciprocal, which differs from px / width
-    # in the last bit when the width is not a power of two
-    x_dir = img_w * (px / px.new_tensor(float(cam.width))) - img_w / 2.0
-    y_dir = img_h * (py / py.new_tensor(float(cam.height))) - img_h / 2.0
+    x_dir = img_w * div(px, float(cam.width)) - img_w * 0.5
+    y_dir = img_h * div(py, float(cam.height)) - img_h * 0.5
     ray_dir = normalize(torch.stack(
         [x_dir, y_dir, -torch.ones_like(x_dir)], dim=-1))
     origin = torch.zeros_like(ray_dir)
@@ -79,7 +78,10 @@ def generate_rays(cam: Camera, px, py, lens_r1, lens_r2):
     rot = cam.cam2world[:3, :3]
     world_o = _rotate(rot, origin) + cam.cam2world[:3, 3]
     world_d = normalize(_rotate(rot, ray_dir))
-    return world_o, world_d
+
+    cone_width = x_dir * 0.0
+    cone_spread = primary_cone_spread(theta, float(cam.height)) + cone_width
+    return world_o, world_d, cone_width, cone_spread
 
 
 def look_at_matrix(look_from, look_to, up):

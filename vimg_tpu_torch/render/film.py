@@ -1,6 +1,15 @@
 """Tonemapping, sRGB encoding and PNG output (port of
 vimg_tpu.render.film). Operators take and return linear (H, W, 3) or
-(N, 3) float32 tensors."""
+(N, 3) float32 tensors.
+
+A tonemapped frame has the same bits on the card as on the CPU: colour
+matrices are products and sums in a fixed order (a matmul's order of
+additions and fused multiply-adds are its library's), log2 and pow are
+taken in float64 and rounded to float32 (CUDA's and the CPU's float32
+versions round an ulp apart on some inputs; the float64 values round to
+the same float32 but in near-ties, about 2^-29 of inputs), and divides
+by Python numbers go through core.math.div.
+"""
 from __future__ import annotations
 
 import struct
@@ -9,7 +18,7 @@ import zlib
 import numpy as np
 import torch
 
-from vimg_tpu_torch.core.math import luminance
+from vimg_tpu_torch.core.math import div, luminance
 
 # AgX (reference src/tonemap/agx.cpp); rows are glm's column-major
 # constructor transposed
@@ -28,7 +37,21 @@ _ACES_OUT = ((1.60475, -0.53108, -0.07367),
 
 
 def _mat(rows, col):
-    return col @ torch.tensor(rows, dtype=torch.float32, device=col.device).T
+    """``rows`` (3x3, rounded to float32) times each colour, summed in
+    (r, g, b) order."""
+    c0, c1, c2 = col[..., 0], col[..., 1], col[..., 2]
+    m = np.asarray(rows, np.float32).tolist()
+    return torch.stack([c0 * r[0] + c1 * r[1] + c2 * r[2] for r in m],
+                       dim=-1)
+
+
+def _log2(x):
+    return torch.log2(x.double()).float()
+
+
+def _pow(x, e):
+    """x ** e with e rounded to float32 first, as a float32 pow takes it."""
+    return torch.pow(x.double(), float(np.float32(e))).float()
 
 
 def _agx_contrast(x):
@@ -40,12 +63,12 @@ def _agx_contrast(x):
 
 def agx(col):
     min_ev, max_ev = -12.47393, 4.026069
-    val = torch.clamp(torch.log2(torch.clamp_min(_mat(_AGX_MAT, col), 1e-10)),
+    val = torch.clamp(_log2(torch.clamp_min(_mat(_AGX_MAT, col), 1e-10)),
                       min_ev, max_ev)
-    val = _agx_contrast((val - min_ev) / (max_ev - min_ev))
+    val = _agx_contrast(div(val - min_ev, max_ev - min_ev))
     # the default AgX look is identity
     val = torch.clamp_min(_mat(_AGX_MAT_INV, val), 0.0)
-    return torch.pow(val, 2.2)
+    return _pow(val, 2.2)
 
 
 def aces(col):
@@ -76,8 +99,13 @@ TONEMAPPERS = {"clamp": clamp01, "agx": agx, "reinhard": reinhard,
 def srgb_encode(col):
     col = torch.clamp(col, 0.0, 1.0)
     return torch.where(col < 0.0031308, col * 12.92,
-                       1.055 * torch.pow(torch.clamp_min(col, 1e-10),
-                                         1.0 / 2.4) - 0.055)
+                       1.055 * _pow(torch.clamp_min(col, 1e-10), 1.0 / 2.4)
+                       - 0.055)
+
+
+def srgb_decode(col):
+    return torch.where(col <= 0.04045, div(col, 12.92),
+                       _pow(div(col + 0.055, 1.055), 2.4))
 
 
 def finalize(image_linear, tonemap="clamp"):

@@ -11,8 +11,10 @@ each path follows vimg_tpu's loop order, so every sample traces the same
 path as in vimg_tpu. Where vimg_tpu's while_loop masks finished lanes, this
 port drops them from the batch (``idx`` maps the live lanes to their
 output rows): lanes are independent, so the per-sample results are the
-same. Smooth dielectrics work under MIS here, a deliberate divergence from
-the C++ reference that vimg_tpu makes too.
+same. In scenes with image textures or an env map every path carries a
+ray cone (core/raycone.py) for the mip levels; elsewhere the loops run no
+cone work. Smooth dielectrics work under MIS here, a deliberate
+divergence from the C++ reference that vimg_tpu makes too.
 
 ``stats`` (optional dict) accumulates ``segments`` (closest-hit rays of
 live paths) and ``shadow_rays`` (NEE rays) as the megakernel counts them;
@@ -26,7 +28,9 @@ import functools
 import torch
 
 from vimg_tpu_torch.core import rng
-from vimg_tpu_torch.core.math import dot, normalize
+from vimg_tpu_torch.core.math import div, dot, length, normalize
+from vimg_tpu_torch.core.raycone import (propagate_reflect, propagate_refract,
+                                         spread_angle_from_curvature)
 from vimg_tpu_torch.core.rng import Draw
 from vimg_tpu_torch.geometry import intersect
 from vimg_tpu_torch.lights import emitters
@@ -38,13 +42,6 @@ MIN_T = 1e-4                 # reference Ray.minT
 SHADOW_EPS = 1e-4            # reference mis_integrator.cpp:62
 ROULETTE_THRESHOLD = 5       # reference mis_integrator.cpp:31
 ROULETTE_CLAMP = 0.95
-
-
-def _check_supported(scene: ir.Scene):
-    if scene.needs_cones:
-        raise NotImplementedError(
-            "ray cones (env maps / image textures) are not ported yet "
-            "(ROADMAP queue A slice 3)")
 
 
 def _count(stats, key, n):
@@ -63,8 +60,9 @@ def _count_pixels(stats, pix):
 
 
 def _primary_rays(scene: ir.Scene, settings, pix, samp):
-    """Pixel/sample ids -> camera rays: x = pix % W, y = H-1 - pix // W,
-    R2 jitter indexed by x + y + sample."""
+    """Pixel/sample ids -> camera rays (origin, direction, cone width, cone
+    spread): x = pix % W, y = H-1 - pix // W, R2 jitter indexed by
+    x + y + sample."""
     W, H = settings.width, settings.height
     x = pix % W
     y = (H - 1) - pix // W
@@ -88,13 +86,13 @@ def _sky_gradient(rd):
 
 def normal_integrator(scene, settings, tracer, pix, samp, shading=True,
                       stats=None):
-    ro, rd = _primary_rays(scene, settings, pix, samp)
+    ro, rd, _, _ = _primary_rays(scene, settings, pix, samp)
     hr = tracer.closest(scene, ro, rd, _full(ro, MIN_T),
                         _full(ro, float("inf")))
     _count(stats, "segments", ro.shape[0])
     hi = intersect.hit_info(scene, ro, rd, hr)
     n = hi.n_s if shading else hi.n_g
-    return torch.where(hr.hit[..., None], (n + 1.0) / 2.0, _sky_gradient(rd))
+    return torch.where(hr.hit[..., None], (n + 1.0) * 0.5, _sky_gradient(rd))
 
 
 def _balance(pdf1, pdf2):
@@ -115,6 +113,23 @@ def _roulette(throughput, eta_scale, rand):
     return survive, throughput / torch.clamp_min(max_val, 1e-20)[..., None]
 
 
+def _hit_cone(hi, ro, rd, cone_w, cone_s):
+    """The cone at the hit (reflected / continued) and the surface's
+    spread angle."""
+    ssa = spread_angle_from_curvature(hi.curvature, cone_w, rd, hi.n_s)
+    w, s = propagate_reflect(cone_w, cone_s, ssa * 2.0, length(ro - hi.p))
+    return w, s, ssa
+
+
+def _texture_inputs(scene, hi, cone_w, rd):
+    """A segment's texture inputs, fetched once for its three BSDF calls;
+    None where no texture reads the hit's UVs (the calls then fetch the
+    plain base colour themselves, as before textures were ported)."""
+    if not scene.needs_uv:
+        return None
+    return bsdf.texture_inputs(scene, hi.mat_id, hi, cone_w, rd)
+
+
 def _bsdf_rands(pix, samp, d):
     b1, b2, b3, b4 = rng.uniform4(pix, samp, d, Draw.BSDF_SAMPLE)
     return {"lobe": b1, "u": b2, "v": b3, "fresnel": b4}
@@ -122,8 +137,10 @@ def _bsdf_rands(pix, samp, d):
 
 def material_integrator_loop(scene, settings, tracer, pix, samp, stats=None):
     """Forward path tracing without NEE (reference mat_integrator.cpp)."""
-    _check_supported(scene)
-    ro, rd = _primary_rays(scene, settings, pix, samp)
+    ro, rd, cone_w, cone_s = _primary_rays(scene, settings, pix, samp)
+    cones = scene.needs_cones
+    if not cones:
+        cone_w = cone_s = None
     result = torch.zeros_like(rd)
     idx = torch.arange(ro.shape[0], device=ro.device)
     tp = torch.ones_like(rd)
@@ -136,7 +153,7 @@ def material_integrator_loop(scene, settings, tracer, pix, samp, stats=None):
         hr = tracer.closest(scene, ro, rd, _full(ro, MIN_T),
                             _full(ro, float("inf")))
         found = hr.hit
-        bg = emitters.background_emit(scene, rd)
+        bg = emitters.background_emit(scene, rd, cone_s)
         result.index_add_(0, idx, torch.where(
             (~found)[..., None], tp * bg, torch.zeros_like(tp)))
 
@@ -151,9 +168,17 @@ def material_integrator_loop(scene, settings, tracer, pix, samp, stats=None):
 
         cont = found & sc.valid
         non_spec = non_spec | (cont & ~sc.is_specular)
-        eta_scale = torch.where(sc.eta != 0.0,
-                                eta_scale / (sc.eta * sc.eta), eta_scale)
-        ratio = bsdf.eval_div_pdf(scene, hi.mat_id, rd, sc.wo, hi, non_spec)
+        refr = sc.eta != 0.0
+        if cones:
+            w_refl, s_refl, ssa = _hit_cone(hi, ro, rd, cone_w, cone_s)
+            w_refr, s_refr = propagate_refract(cone_w, cone_s, rd, ssa,
+                                               sc.eta, sc.wo)
+            cone_w = torch.where(refr, w_refr, w_refl)
+            cone_s = torch.where(refr, s_refr, s_refl)
+        eta_scale = torch.where(refr, eta_scale / (sc.eta * sc.eta),
+                                eta_scale)
+        ratio = bsdf.eval_div_pdf(scene, hi.mat_id, rd, sc.wo, hi, non_spec,
+                                  cone_width=cone_w)
         tp = torch.where(cont[..., None], tp * (emitted_col + ratio), tp)
 
         rr_rand = rng.uniform1(p, s, d, Draw.ROULETTE)
@@ -164,14 +189,16 @@ def material_integrator_loop(scene, settings, tracer, pix, samp, stats=None):
 
         idx, ro, rd, tp = idx[cont], hi.p[cont], sc.wo[cont], tp[cont]
         non_spec, eta_scale = non_spec[cont], eta_scale[cont]
+        if cones:
+            cone_w, cone_s = cone_w[cont], cone_s[cont]
         d += 1
     return result
 
 
 def mis_integrator_loop(scene, settings, tracer, pix, samp, stats=None):
     """MIS path tracer (reference mis_integrator.cpp)."""
-    _check_supported(scene)
-    ro, rd = _primary_rays(scene, settings, pix, samp)
+    ro, rd, cone_w, cone_s = _primary_rays(scene, settings, pix, samp)
+    cones = scene.needs_cones
     B = ro.shape[0]
     hr = tracer.closest(scene, ro, rd, _full(ro, MIN_T),
                         _full(ro, float("inf")))
@@ -182,7 +209,7 @@ def mis_integrator_loop(scene, settings, tracer, pix, samp, stats=None):
     # primary miss -> background; first hit emissive -> its emission
     zero3 = torch.zeros_like(rd)
     result = torch.where((~hr.hit)[..., None],
-                         emitters.background_emit(scene, rd), zero3)
+                         emitters.background_emit(scene, rd, cone_s), zero3)
     emissive0 = bsdf.is_emissive(scene, hi.mat_id) & hr.hit
     em0 = bsdf.emitted(scene, hi.mat_id, rd, hi.n_s)
     result = result + torch.where(emissive0[..., None], em0, zero3)
@@ -190,6 +217,10 @@ def mis_integrator_loop(scene, settings, tracer, pix, samp, stats=None):
     live = hr.hit & ~emissive0
     idx = torch.nonzero(live)[:, 0]
     rd, hi = rd[idx], hi.select(idx)
+    if cones:
+        ro, cone_w, cone_s = ro[idx], cone_w[idx], cone_s[idx]
+    else:
+        cone_w = cone_s = None
     tp = torch.ones_like(rd)
     non_spec = torch.zeros_like(idx, dtype=torch.bool)
     eta_scale = torch.ones_like(rd[:, 0])
@@ -201,6 +232,11 @@ def mis_integrator_loop(scene, settings, tracer, pix, samp, stats=None):
         minT = _full(rd, MIN_T)
         infT = _full(rd, float("inf"))
         mat_delta = bsdf.is_delta(scene, hi.mat_id)
+        nee_cone_w = None
+        if cones:
+            nee_cone_w, nee_cone_s, ssa = _hit_cone(hi, ro, rd, cone_w,
+                                                    cone_s)
+        tex = _texture_inputs(scene, hi, nee_cone_w, rd)
 
         # ---- light sampling (NEE) -------------------------------------
         if n_lights > 0:
@@ -212,7 +248,7 @@ def mis_integrator_loop(scene, settings, tracer, pix, samp, stats=None):
                                      ls.dist - SHADOW_EPS, infT)
             occl = tracer.occluded(scene, hi.p, ls.wi, minT, shadow_max)
             f, mpdf = bsdf.eval_pdf(scene, hi.mat_id, rd, ls.wi, hi,
-                                    non_spec)
+                                    non_spec, tex=tex)
             ok = do_nee & ~occl & (mpdf != 0.0) & ~torch.isnan(mpdf)
             w = _balance(ls.pdf, mpdf * ls.G)
             contrib = (tp * f * ls.radiance
@@ -224,12 +260,19 @@ def mis_integrator_loop(scene, settings, tracer, pix, samp, stats=None):
 
         # ---- BSDF sampling --------------------------------------------
         sc = bsdf.sample_mat(scene, hi.mat_id, rd, hi, _bsdf_rands(p, s, d),
-                             non_spec)
+                             non_spec, tex=tex)
         cont = sc.valid
         non_spec = non_spec | (cont & ~sc.is_specular)
-        eta_scale = torch.where(sc.eta != 0.0,
-                                eta_scale / (sc.eta * sc.eta), eta_scale)
-        f2, pdf2 = bsdf.eval_pdf(scene, hi.mat_id, rd, sc.wo, hi, non_spec)
+        refr = sc.eta != 0.0
+        if cones:
+            w_refr, s_refr = propagate_refract(cone_w, cone_s, rd, ssa,
+                                               sc.eta, sc.wo)
+            cone_w = torch.where(refr, w_refr, nee_cone_w)
+            cone_s = torch.where(refr, s_refr, nee_cone_s)
+        eta_scale = torch.where(refr, eta_scale / (sc.eta * sc.eta),
+                                eta_scale)
+        f2, pdf2 = bsdf.eval_pdf(scene, hi.mat_id, rd, sc.wo, hi, non_spec,
+                                 tex=tex)
         cont = cont & ~torch.isnan(pdf2)      # NaN pdf suppression
         # smooth dielectric: eval/pdf == 1 analytically
         ratio = torch.where(mat_delta[..., None], torch.ones_like(f2),
@@ -250,8 +293,8 @@ def mis_integrator_loop(scene, settings, tracer, pix, samp, stats=None):
         # emissive hit -> MIS-weighted emission, path ends
         hit_emissive = found & bsdf.is_emissive(scene, hi2.mat_id)
         em = bsdf.emitted(scene, hi2.mat_id, nrd, hi2.n_s)
-        light_pdf = emitters.surf_pdf(scene, hr2.prim_type, hr2.prim_id,
-                                      nro, hi2.p, nrd) / nl
+        light_pdf = div(emitters.surf_pdf(scene, hr2.prim_type, hr2.prim_id,
+                                          nro, hi2.p, nrd), nl)
         G2 = _geometric_term(nro, hi2.p, hi2.n_g)
         one = torch.ones_like(pdf2)
         # pdf2*G2 can overflow to inf; the clamp keeps the weight -> 1
@@ -262,10 +305,10 @@ def mis_integrator_loop(scene, settings, tracer, pix, samp, stats=None):
             torch.zeros_like(em)))
 
         if scene.bg_is_emissive:
-            bgp = emitters.background_pdf(scene, nrd) / nl
+            bgp = div(emitters.background_pdf(scene, nrd), nl)
             w_bg = torch.where(mat_delta | (pdf2 == 0.0), one,
                                _balance(pdf2, bgp))
-            bg2 = emitters.background_emit(scene, nrd)
+            bg2 = emitters.background_emit(scene, nrd, cone_s)
             result.index_add_(0, idx, torch.where(
                 missed[..., None], tp * w_bg[..., None] * bg2,
                 torch.zeros_like(tp)))
@@ -281,6 +324,9 @@ def mis_integrator_loop(scene, settings, tracer, pix, samp, stats=None):
         idx, rd, hi, tp = idx[carry_on], nrd[carry_on], hi2.select(
             carry_on), tp[carry_on]
         non_spec, eta_scale = non_spec[carry_on], eta_scale[carry_on]
+        if cones:
+            ro, cone_w, cone_s = (nro[carry_on], cone_w[carry_on],
+                                  cone_s[carry_on])
         d += 1
     return result
 

@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from vimg_tpu_torch.core import rng
+from vimg_tpu_torch.core.math import div
 from vimg_tpu_torch.scene import ir
 
 LAUNCHES = 0
@@ -249,7 +250,7 @@ def _cam_table(scene: ir.Scene):
     device, so kernel and plain version start from the same image plane."""
     cam = scene.camera
     theta = cam.vfov_deg * (math.pi / 180.0)
-    img_h = 2.0 * torch.tan(theta / 2.0)
+    img_h = 2.0 * torch.tan(theta * 0.5)
     img_w = img_h * (cam.width / cam.height)
     c2w = cam.cam2world.cpu().numpy()
     return np.concatenate([
@@ -471,7 +472,7 @@ def _launch(scene, settings, sample_offset=0, return_stats=False,
             LAUNCHES += 1
         LAST_COUNTS = counts[:-1]
         end.record(stream)
-    img = film.view(H, W, 3) / spp
+    img = div(film.view(H, W, 3), spp)
     if not (return_stats or progress):
         return img
     end.synchronize()

@@ -19,6 +19,7 @@ import time
 
 import torch
 
+from vimg_tpu_torch.core.math import div
 from vimg_tpu_torch.geometry.trace import make_tracer
 from vimg_tpu_torch.render import film
 from vimg_tpu_torch.render.integrators import trace_radiance
@@ -58,7 +59,7 @@ def render(scene: ir.Scene, settings: ir.RenderSettings, tracer=None,
                   f"({rate / 1e6:.2f} Mpaths/s)", end="", flush=True)
     if progress:
         print("\nRender Completed")
-    return accum.view(H, W, 3) / spp
+    return div(accum.view(H, W, 3), spp)
 
 
 MESH_WAVEFRONT_MIN_SPP = 8

@@ -20,6 +20,14 @@ integrator and the megakernel do cut at max_depth. The roulette draw uses
 key ``d`` at the new hit, where the loop integrator draws key ``d`` after
 the bounce, so the wavefront and the loop agree only statistically.
 
+In scenes with image textures or an env map (``scene.needs_cones``) every
+lane also carries a ray cone (``cone_w``, ``cone_s``): refill sets it from
+the camera, a miss reads the env map at its spread, a hit propagates it
+for NEE and the texture LOD, and a refraction bends it. Where a texture
+reads the hit's UVs, its inputs are fetched once a segment for the NEE
+eval, the BSDF sample and the bounce eval. A scene without either runs
+none of this.
+
 The run loop is a host loop over supersteps that reads ``n_done`` once per
 superstep, with vimg_tpu's safety valve on the superstep count. Segment and
 shadow-ray counters are exact int64. vimg_tpu's primary pre-pass
@@ -35,6 +43,8 @@ import numpy as np
 import torch
 
 from vimg_tpu_torch.core import rng
+from vimg_tpu_torch.core.math import div
+from vimg_tpu_torch.core.raycone import propagate_refract
 from vimg_tpu_torch.core.rng import Draw
 from vimg_tpu_torch.geometry import intersect
 from vimg_tpu_torch.lights import emitters
@@ -42,7 +52,8 @@ from vimg_tpu_torch.materials import bsdf
 from vimg_tpu_torch.render.integrators import (MIN_T, ROULETTE_CLAMP,
                                                ROULETTE_THRESHOLD, SHADOW_EPS,
                                                _balance, _geometric_term,
-                                               _primary_rays)
+                                               _hit_cone, _primary_rays,
+                                               _texture_inputs)
 from vimg_tpu_torch.scene import ir
 
 # default lane count (vimg_tpu's; settings.batch_size overrides it)
@@ -73,15 +84,18 @@ def morton_pixel_order(W, H):
     return pid[order].astype(np.int32)
 
 
-def init_state(B, device):
-    """All lanes idle; the first superstep's refill hands out work."""
+def init_state(B, device, cones=False):
+    """All lanes idle; the first superstep's refill hands out work. With
+    ``cones`` the lanes carry a ray cone too."""
     def z(*shape, dtype=torch.float32):
         return torch.zeros((B, *shape), dtype=dtype, device=device)
 
     def scalar():
         return torch.zeros((), dtype=torch.int64, device=device)
 
+    extra = dict(cone_w=z(), cone_s=z()) if cones else {}
     return dict(
+        **extra,
         alive=z(dtype=torch.bool),         # lane holds an in-flight path
         pix=z(dtype=torch.int64), samp=z(dtype=torch.int64),
         d=z(dtype=torch.int64),
@@ -103,6 +117,7 @@ def make_superstep(scene: ir.Scene, settings: ir.RenderSettings, tracer,
     spp = settings.spp
     n_lights = scene.n_lights()
     nl = max(n_lights, 1)
+    cones = scene.needs_cones
 
     def refill(s, accum, finished):
         """Add finished paths to the film and pull new work."""
@@ -122,8 +137,12 @@ def make_superstep(scene: ir.Scene, settings: ir.RenderSettings, tracer,
         pix[take] = morton_pix[k // spp]
         samp[take] = k % spp
         ro, rd = s["ro"].clone(), s["rd"].clone()
-        ro[take], rd[take] = _primary_rays(scene, settings, pix[take],
-                                           samp[take])
+        ro[take], rd[take], cw, cs = _primary_rays(scene, settings, pix[take],
+                                                   samp[take])
+        if cones:
+            cone_w, cone_s = s["cone_w"].clone(), s["cone_s"].clone()
+            cone_w[take], cone_s[take] = cw, cs
+            s = dict(s, cone_w=cone_w, cone_s=cone_s)
         m = take[:, None]
         return dict(
             s,
@@ -162,8 +181,8 @@ def make_superstep(scene: ir.Scene, settings: ir.RenderSettings, tracer,
         em = bsdf.emitted(scene, hi.mat_id, rd, hi.n_s)
         # MIS weight of a light hit by BSDF sampling; camera rays and
         # delta bounces weigh 1
-        light_pdf = emitters.surf_pdf(scene, hr.prim_type, hr.prim_id, ro,
-                                      hi.p, rd) / nl
+        light_pdf = div(emitters.surf_pdf(scene, hr.prim_type, hr.prim_id,
+                                          ro, hi.p, rd), nl)
         G2 = _geometric_term(ro, hi.p, hi.n_g)
         unweighted = fresh | s["prev_delta"] | (s["prev_pdf"] == 0.0)
         # the clamp keeps an overflowing pdf*G2 from making the weight NaN
@@ -174,8 +193,8 @@ def make_superstep(scene: ir.Scene, settings: ir.RenderSettings, tracer,
 
         # background on a miss: direct for camera rays, MIS-weighted
         # otherwise
-        bg = emitters.background_emit(scene, rd)
-        bgp = emitters.background_pdf(scene, rd) / nl
+        bg = emitters.background_emit(scene, rd, s.get("cone_s"))
+        bgp = div(emitters.background_pdf(scene, rd), nl)
         w_bg = torch.where(unweighted, 1.0, _balance(s["prev_pdf"], bgp))
         add_bg = missed & (fresh | scene.bg_is_emissive)
         result = result + torch.where(
@@ -197,6 +216,11 @@ def make_superstep(scene: ir.Scene, settings: ir.RenderSettings, tracer,
         cont = cont & ~rr_kill
 
         # ---- 2. NEE ----------------------------------------------------
+        nee_cone_w = None
+        if cones:
+            nee_cone_w, nee_cone_s, ssa = _hit_cone(hi, ro, rd, s["cone_w"],
+                                                    s["cone_s"])
+        tex = _texture_inputs(scene, hi, nee_cone_w, rd)
         mat_delta = bsdf.is_delta(scene, hi.mat_id)
         n_shadow = s["n_shadow"]
         if n_lights > 0:
@@ -210,7 +234,7 @@ def make_superstep(scene: ir.Scene, settings: ir.RenderSettings, tracer,
             occl = tracer.occluded(scene, hi.p, ls.wi, minT, shadow_max)
             n_shadow = n_shadow + do_nee.sum()
             f, mpdf = bsdf.eval_pdf(scene, hi.mat_id, rd, ls.wi, hi,
-                                    s["non_spec"])
+                                    s["non_spec"], tex=tex)
             ok = do_nee & ~occl & (mpdf != 0.0) & ~torch.isnan(mpdf)
             w = _balance(ls.pdf, mpdf * ls.G)
             contrib = (tp * f * ls.radiance
@@ -221,15 +245,22 @@ def make_superstep(scene: ir.Scene, settings: ir.RenderSettings, tracer,
         # ---- 3. BSDF sampling -----------------------------------------
         b1, b2, b3, b4 = rng.uniform4(pix, samp, d, Draw.BSDF_SAMPLE)
         rands = {"lobe": b1, "u": b2, "v": b3, "fresnel": b4}
-        sc = bsdf.sample_mat(scene, hi.mat_id, rd, hi, rands, s["non_spec"])
+        sc = bsdf.sample_mat(scene, hi.mat_id, rd, hi, rands, s["non_spec"],
+                             tex=tex)
         absorbed = cont & ~sc.valid
         terminated = terminated | absorbed
         cont = cont & sc.valid
         non_spec = s["non_spec"] | (cont & ~sc.is_specular)
-        eta_scale = torch.where(sc.eta != 0.0,
-                                s["eta_scale"] / (sc.eta * sc.eta),
+        refr = sc.eta != 0.0
+        if cones:
+            w_refr, s_refr = propagate_refract(s["cone_w"], s["cone_s"], rd,
+                                               ssa, sc.eta, sc.wo)
+            cone_w = torch.where(refr, w_refr, nee_cone_w)
+            cone_s = torch.where(refr, s_refr, nee_cone_s)
+        eta_scale = torch.where(refr, s["eta_scale"] / (sc.eta * sc.eta),
                                 s["eta_scale"])
-        f2, pdf2 = bsdf.eval_pdf(scene, hi.mat_id, rd, sc.wo, hi, non_spec)
+        f2, pdf2 = bsdf.eval_pdf(scene, hi.mat_id, rd, sc.wo, hi, non_spec,
+                                 tex=tex)
         nan_pdf = torch.isnan(pdf2)
         terminated = terminated | (cont & nan_pdf)
         cont = cont & ~nan_pdf
@@ -241,6 +272,9 @@ def make_superstep(scene: ir.Scene, settings: ir.RenderSettings, tracer,
         tp = torch.where(cont[:, None], tp * ratio, tp)
 
         m = cont[:, None]
+        if cones:
+            s = dict(s, cone_w=torch.where(cont, cone_w, s["cone_w"]),
+                     cone_s=torch.where(cont, cone_s, s["cone_s"]))
         s = dict(
             s,
             ro=torch.where(m, hi.p, ro),
@@ -278,7 +312,7 @@ def render_wavefront(scene: ir.Scene, settings: ir.RenderSettings,
     morton_pix = torch.from_numpy(
         morton_pixel_order(W, H).astype(np.int64)).to(dev)
     superstep = make_superstep(scene, settings, tracer, total, morton_pix)
-    state = init_state(B, dev)
+    state = init_state(B, dev, cones=scene.needs_cones)
     accum = torch.zeros((3, W * H), dtype=torch.float32, device=dev)
     it = 0
     while it < max_supersteps:
@@ -286,7 +320,7 @@ def render_wavefront(scene: ir.Scene, settings: ir.RenderSettings,
         it += 1
         if int(state["n_done"]) >= total:
             break
-    img = accum.T.reshape(H, W, 3) / spp
+    img = div(accum.T.reshape(H, W, 3), spp)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     dt = time.time() - t0

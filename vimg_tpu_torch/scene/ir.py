@@ -125,17 +125,17 @@ class Scene:
     light_idx: torch.Tensor    # (L,) i64
     # ---- background ----
     bg_color: torch.Tensor     # (3,) f32
-    # ---- image texture atlas (slice 3; empty placeholders here) ----
-    atlas: torch.Tensor
-    atlas_meta: torch.Tensor
-    # ---- env map (slice 3; empty placeholders here) ----
-    env_mips: Tuple[torch.Tensor, ...]
-    env_alias: torch.Tensor
-    env_prob: torch.Tensor
-    env_pdf_w: torch.Tensor
-    env_to_world: torch.Tensor
-    world_to_env: torch.Tensor
-    env_scale: torch.Tensor
+    # ---- image texture atlas: flat rows + per-texture-per-level table ----
+    atlas: torch.Tensor        # (N, 3) f32: all mips of all textures
+    atlas_meta: torch.Tensor   # (NT, L, 3) i64: offset, w, h
+    # ---- env map (lights/envmap.py) ----
+    env_mips: Tuple[torch.Tensor, ...]   # (H_l, W_l, 3) radiance levels
+    env_alias: torch.Tensor    # (H*W,) i64 alias table
+    env_prob: torch.Tensor     # (H*W,) f32 accept probability
+    env_pdf_w: torch.Tensor    # (H*W,) f32: p_texel * W*H / (2 pi^2)
+    env_to_world: torch.Tensor  # (4, 4)
+    world_to_env: torch.Tensor  # (4, 4)
+    env_scale: torch.Tensor    # () radiance scale
     # ---- camera ----
     camera: Camera
     # ---- static meta ----
@@ -269,13 +269,16 @@ def build_scene(
     mat_type, mat_base, mat_scalars, mat_tex=None,
     tex_type=None, tex_cols=None, tex_wh=None, tex_atlas=None,
     light_type=None, light_idx=None,
-    bg_color=(0.0, 0.0, 0.0), camera=None, device="cuda",
+    bg_color=(0.0, 0.0, 0.0), camera=None, env=None, atlas=None,
+    device="cuda",
 ) -> Scene:
     """Assemble a Scene from host (numpy) buffers, filling defaults and
     deriving the static flags exactly as vimg_tpu.scene.ir.build_scene.
     ``camera`` is a dict of Camera.make arguments (or a Camera); a dict
-    builds its camera on ``device``. A CUDA ``device`` (the default)
-    raises without CUDA."""
+    builds its camera on ``device``. ``env`` is the dict of
+    lights.envmap.build_env_tables, ``atlas`` a dict of the ``atlas`` and
+    ``atlas_meta`` arrays of textures.mipmap.AtlasBuilder.finalize. A CUDA
+    ``device`` (the default) raises without CUDA."""
     device = check_device(device)
     verts = np.asarray(verts, np.float32).reshape(-1, 3)
     nv = verts.shape[0]
@@ -320,7 +323,8 @@ def build_scene(
         mat_scalars=mat_scalars, mat_tex=mat_tex, tex_type=tex_type,
         tex_cols=tex_cols, tex_wh=tex_wh, tex_atlas=tex_atlas,
         light_type=light_type, light_idx=_opt(light_idx, (nl,), np.int32),
-        bg_color=bg_color, **_empty_env(), **_empty_atlas())
+        bg_color=bg_color, **(_empty_env() if env is None else env),
+        **(_empty_atlas() if atlas is None else atlas))
     if isinstance(camera, Camera):
         cam = camera
     else:
@@ -333,9 +337,9 @@ def build_scene(
         has_dielectric=bool(np.any(mat_type == MAT_DIELECTRIC)),
         has_diffuse_light=bool(np.any(mat_type == MAT_DIFFUSE_LIGHT)),
         has_principled=bool(np.any(mat_type == MAT_PRINCIPLED)),
-        has_envmap=False, has_image_tex=False,
+        has_envmap=env is not None, has_image_tex=atlas is not None,
         has_normal_maps=bool(np.any(mat_tex[:, 1] >= 0)),
-        bg_is_emissive=bool(np.any(bg_color != 0.0)),
+        bg_is_emissive=env is not None or bool(np.any(bg_color != 0.0)),
         lights_have_tri=bool(np.any(light_type == LIGHT_TRI)),
         lights_have_sphere=bool(np.any(light_type == LIGHT_SPHERE)),
         lights_have_bg=bool(np.any(light_type == LIGHT_BACKGROUND)),

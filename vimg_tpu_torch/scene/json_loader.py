@@ -1,11 +1,13 @@
 """Loader for the reference's JSON scene schema (port of
 vimg_tpu.scene.json_loader): camera, sampler, integrator, materials
-(lambertian / diffuse_light / dielectric / principled, constant textures),
-quads and spheres with transform stacks.
+(lambertian / diffuse_light / dielectric / principled, constant or
+checkered textures), quads and spheres with transform stacks; and the
+SceneBuilder that procedural scenes use (image textures through an atlas,
+env maps, normal-map and metal-rough UV sets).
 
-Mesh/OBJ surfaces and checkered or image textures are not ported yet and
-raise ``NotImplementedError``. As in vimg_tpu, the parsed ``background``
-color is ignored and a black background installed.
+Mesh/OBJ surfaces are not ported yet and raise ``NotImplementedError``.
+As in vimg_tpu, the parsed ``background`` color is ignored and a black
+background installed.
 """
 from __future__ import annotations
 
@@ -65,7 +67,8 @@ class SceneBuilder:
     """Accumulates host-side buffers, then emits an ir.Scene."""
 
     def __init__(self):
-        for name in ("verts", "vnormals", "vuv", "tri_vidx", "tri_mat", "tri_flags",
+        for name in ("verts", "vnormals", "vuv", "vuv_nmap", "vuv_mr",
+                     "tri_vidx", "tri_mat", "tri_flags",
                      "sph_center", "sph_radius", "sph_mat", "mat_type",
                      "mat_base", "mat_scalars", "mat_tex", "tex_type",
                      "tex_cols", "tex_wh", "tex_atlas", "light_type",
@@ -85,39 +88,45 @@ class SceneBuilder:
         self.mat_tex.append(np.asarray(tex, np.int32))
         return len(self.mat_type) - 1
 
-    def add_texture(self, ttype, col_a):
-        """A constant texture; its unused second colour, size and atlas id
-        hold vimg_tpu's defaults."""
-        if ttype != ir.TEX_CONST:
-            raise NotImplementedError(
-                "only constant textures are ported (checker and image "
-                "textures: ROADMAP queue A slice 3)")
+    def add_texture(self, ttype, col_a=(0, 0, 0), col_b=(0, 0, 0), wh=(1, 1),
+                    atlas_id=-1):
+        """A constant (col_a), checker (col_a / col_b on a wh board) or
+        image texture (an entry of the scene's atlas)."""
         self.tex_type.append(ttype)
         self.tex_cols.append(np.stack([np.asarray(col_a, np.float32),
-                                       np.zeros(3, np.float32)]))
-        self.tex_wh.append(np.ones(2, np.float32))
-        self.tex_atlas.append(-1)
+                                       np.asarray(col_b, np.float32)]))
+        self.tex_wh.append(np.asarray(wh, np.float32))
+        self.tex_atlas.append(atlas_id)
         return len(self.tex_type) - 1
 
     def _mat_is_emissive(self, mat_id):
         return self.mat_type[mat_id] == ir.MAT_DIFFUSE_LIGHT
 
     # -- geometry --------------------------------------------------------
-    def add_mesh(self, verts, tri_idx, mat_id, normals=None, uvs=None):
-        """Triangles, optionally with per-vertex normals and UVs; each sets
-        its TRI_HAS_* flag like vimg_tpu (absent ones are stored as zeros).
-        Normal-map and metal-rough UV sets come with slice 3."""
+    def add_mesh(self, verts, tri_idx, mat_id, normals=None, uvs=None,
+                 uvs_nmap=None, uvs_mr=None):
+        """Triangles, optionally with per-vertex normals and colour,
+        normal-map and metal-rough UV sets; each sets its TRI_HAS_* flag
+        like vimg_tpu (absent ones are stored as zeros)."""
         verts = np.asarray(verts, np.float32).reshape(-1, 3)
         tri_idx = np.asarray(tri_idx, np.int64).reshape(-1, 3)
         n = verts.shape[0]
+
+        def uvset(u):
+            return (np.zeros((n, 2), np.float32) if u is None
+                    else np.asarray(u, np.float32).reshape(-1, 2))
+
         self.verts.append(verts)
         self.vnormals.append(
             np.zeros((n, 3), np.float32) if normals is None
             else np.asarray(normals, np.float32).reshape(-1, 3))
-        self.vuv.append(np.zeros((n, 2), np.float32) if uvs is None
-                        else np.asarray(uvs, np.float32).reshape(-1, 2))
+        self.vuv.append(uvset(uvs))
+        self.vuv_nmap.append(uvset(uvs_nmap))
+        self.vuv_mr.append(uvset(uvs_mr))
         flags = ((ir.TRI_HAS_NORMALS if normals is not None else 0)
-                 | (ir.TRI_HAS_UV if uvs is not None else 0))
+                 | (ir.TRI_HAS_UV if uvs is not None else 0)
+                 | (ir.TRI_HAS_UV_NORMALMAP if uvs_nmap is not None else 0)
+                 | (ir.TRI_HAS_UV_MR if uvs_mr is not None else 0))
         t0 = len(self.tri_vidx)
         self.tri_vidx.extend(list((tri_idx + self._nv).astype(np.int32)))
         nt = tri_idx.shape[0]
@@ -142,10 +151,20 @@ class SceneBuilder:
             self.light_type.append(ir.LIGHT_SPHERE)
             self.light_idx.append(len(self.sph_center) - 1)
 
+    def add_background_light(self):
+        self.light_type.append(ir.LIGHT_BACKGROUND)
+        self.light_idx.append(0)
+
     # -- emit ------------------------------------------------------------
-    def build(self, camera, bg_color=(0, 0, 0), device="cuda"):
-        """``camera``: a Camera or a dict of Camera.make arguments. A CUDA
-        ``device`` (the default) raises without CUDA."""
+    def build(self, camera, bg_color=(0, 0, 0), env=None, atlas=None,
+              bg_light=False, device="cuda"):
+        """``camera``: a Camera or a dict of Camera.make arguments; ``env``
+        and ``atlas`` as ir.build_scene takes them; ``bg_light`` adds the
+        background to the light table (NEE toward it). A CUDA ``device``
+        (the default) raises without CUDA."""
+        if bg_light:
+            self.add_background_light()
+
         def opt(xs, dtype):
             """Array of the list, or None (build_scene's default) if empty."""
             return np.asarray(np.stack(xs), dtype) if xs else None
@@ -155,6 +174,8 @@ class SceneBuilder:
             vnormals=(np.concatenate(self.vnormals) if self.vnormals
                       else None),
             vuv=np.concatenate(self.vuv) if self.vuv else None,
+            vuv_nmap=np.concatenate(self.vuv_nmap) if self.vuv_nmap else None,
+            vuv_mr=np.concatenate(self.vuv_mr) if self.vuv_mr else None,
             tri_vidx=(np.stack(self.tri_vidx) if self.tri_vidx
                       else np.zeros((0, 3), np.int32)),
             tri_mat=np.asarray(self.tri_mat, np.int32),
@@ -172,7 +193,8 @@ class SceneBuilder:
             tex_atlas=opt(self.tex_atlas, np.int32),
             light_type=opt(self.light_type, np.int32),
             light_idx=opt(self.light_idx, np.int32),
-            bg_color=bg_color, camera=camera, device=device)
+            bg_color=bg_color, camera=camera, env=env, atlas=atlas,
+            device=device)
 
 
 def _texture_from_json(builder: SceneBuilder, mat_json):
@@ -183,8 +205,9 @@ def _texture_from_json(builder: SceneBuilder, mat_json):
     if tex["type"] == "constant":
         return builder.add_texture(ir.TEX_CONST, col_a=tex["albedo"])
     if tex["type"] == "checkered":
-        raise NotImplementedError(
-            "checkered textures are not ported yet (ROADMAP queue A slice 3)")
+        return builder.add_texture(ir.TEX_CHECKER, col_a=tex["col1"],
+                                   col_b=tex["col2"],
+                                   wh=(tex["width"], tex["height"]))
     raise ValueError(f"unknown texture type {tex['type']}")
 
 

@@ -1,10 +1,11 @@
 """Synthetic mesh scenes for benchmarks and tests (port of
 vimg_tpu.scene.synthetic): a displacement-mapped sphere ("bumpy sphere")
-and a fractal heightfield ("terrain"), each with an area light. The
-meshes are vimg_tpu's numpy code verbatim, so both packages build the same
-bytes from the same seed. The scenes land on ``device``, CUDA by default
-(raises without CUDA unless ``device="cpu"`` is passed). The textured,
-many-lights and multi-material scenes come with slice 3.
+and a fractal heightfield ("terrain"), each with an area light, and the
+env-lit textured terrain. The meshes, textures and env maps are vimg_tpu's
+numpy code verbatim, so both packages build the same bytes from the same
+seed. The scenes land on ``device``, CUDA by default (raises without CUDA
+unless ``device="cpu"`` is passed). The many-lights and multi-material
+scenes are not ported yet.
 """
 from __future__ import annotations
 
@@ -113,3 +114,66 @@ def terrain_scene(n_tris=100_000, width=512, height=256, seed=0,
                               [0.0, 1.0, 0.0]), width, height, 45.0,
                       device=device)
     return b.build(camera=cam, bg_color=(0.25, 0.3, 0.38), device=device)
+
+
+def textured_terrain_scene(n_tris=100_000, width=512, height=256, seed=0,
+                           with_env=True, tex_size=256, env_size=(64, 128),
+                           device="cuda"):
+    """Env-lit textured mesh benchmark scene: the terrain with a
+    mip-mapped image texture on planar UVs, under an HDR sky with a sun
+    disk that NEE importance-samples."""
+    from vimg_tpu_torch.lights.envmap import build_env_tables
+    from vimg_tpu_torch.textures.mipmap import AtlasBuilder
+
+    rs = np.random.RandomState(seed + 7)
+    verts, tris = terrain_mesh(n_tris, seed)
+    b = SceneBuilder()
+
+    # procedural base-color image (mips built like any loaded texture)
+    yy, xx = np.meshgrid(np.arange(tex_size), np.arange(tex_size),
+                         indexing="ij")
+    checker = ((xx // 16 + yy // 16) % 2).astype(np.float32)
+    noise = rs.rand(tex_size, tex_size).astype(np.float32)
+    img = np.stack([0.2 + 0.5 * checker + 0.1 * noise,
+                    0.35 + 0.25 * (1 - checker),
+                    0.25 + 0.15 * noise], axis=-1).astype(np.float32)
+    atlas = AtlasBuilder()
+    aid = atlas.add(img, build_mips=True)
+    tex = b.add_texture(ir.TEX_IMAGE, atlas_id=aid)
+
+    m = b.add_material(ir.MAT_PRINCIPLED, base=(1.0, 1.0, 1.0),
+                       scalars={ir.MS_IOR: 1.5, ir.MS_SPECULAR: 0.5,
+                                ir.MS_SPEC_TINT: 0.0, ir.MS_SUBSURFACE: 0.0,
+                                ir.MS_SHEEN_TINT: 0.5,
+                                ir.MS_CLEARCOAT_GLOSS: 0.5,
+                                ir.MS_ROUGHNESS: 0.55},
+                       tex=(tex, -1, -1))
+    # planar UVs from xz
+    ext = verts[:, [0, 2]]
+    uvs = (ext - ext.min(0)) / np.maximum(np.ptp(ext, 0), 1e-6) * 6.0
+    b.add_mesh(verts, tris, m, uvs=uvs.astype(np.float32))
+
+    env = None
+    bg_light = False
+    if with_env:
+        # sky gradient + a bright sun disk (importance sampling target)
+        eh, ew = env_size
+        th = (np.arange(eh) + 0.5) / eh * np.pi
+        ph = (np.arange(ew) + 0.5) / ew * 2 * np.pi
+        tt, pp = np.meshgrid(th, ph, indexing="ij")
+        sky = np.stack([0.3 + 0.3 * np.cos(tt), 0.45 + 0.3 * np.cos(tt),
+                        0.8 + 0.15 * np.cos(tt)], -1)
+        sun_dir = (np.pi * 0.3, np.pi * 0.35)
+        d2 = (tt - sun_dir[0]) ** 2 + (pp - sun_dir[1]) ** 2
+        sun = np.exp(-d2 / 0.004)[..., None] * np.array([400.0, 380.0,
+                                                         330.0])
+        env = build_env_tables((sky + sun).astype(np.float32))
+        bg_light = True
+
+    cam = Camera.make(look_at([0.0, 2.2, 4.6], [0.0, 0.0, 0.0],
+                              [0.0, 1.0, 0.0]), width, height, 45.0,
+                      device=device)
+    atlas_arr, atlas_meta, _ = atlas.finalize()
+    return b.build(camera=cam, bg_color=(0.25, 0.3, 0.38), env=env,
+                   atlas=dict(atlas=atlas_arr, atlas_meta=atlas_meta),
+                   bg_light=bg_light, device=device)
