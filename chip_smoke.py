@@ -40,6 +40,21 @@ Phases:
     same frame at 1 spp through B3 and through the plain walk agree per
     pixel with equal ray counts; its mean against the plain 1-spp mean;
     seconds a superstep beside main path 2's;
+8c. main path 10, the differentiable step (diff/grad.py): the envtex
+    scene at 512x256 with env_scale halved and its Principled scalars
+    moved by seeded noise -> make_tracer(differentiable=True) ->
+    make_train_step (MIS, bounded_depth 6, Adam at 1e-2, the camera at
+    1e-4) -> 10 steps of 131,072 rays (every pixel once, sample id =
+    step) toward the port's own radiance at the scene's values, through
+    B3 at zero tangent: each step's loss, forward and backward ms (CUDA
+    events), B3 launches and peak memory; every loss and gradient finite,
+    the last loss below the first, B3 launched every step and nothing
+    else; step 0's gradients through B3 against the plain walk's on the
+    card and the card's against the CPU's at 64x32 (per key, GRAD_RTOL of
+    the largest); then 5 steps on the flagship JSON (the same rates, its
+    Principled scalars put back into [0, 1] after each step; the SoA
+    tracer, tensor code; no kernel may launch), the scene of vimg_tpu's
+    dryrun_multichip;
  9. kernel B2 (mesh-mode megakernel) against its plain PyTorch version,
     both on the card, at 512x256 @ 1 spp: terrain 100k MIS, the smooth-
     shaded bumpy sphere 100k under the material integrator, terrain 500k
@@ -202,6 +217,26 @@ BF16_TC_OPS_PER_S = 989e12
 TF32_TC_OPS_PER_S = 495e12
 # phase 8b: main path 9, bench.py's envtex scene
 ENVTEX_TRIS = 100_000
+# phase 8c: main path 10, the train step on the envtex scene and on the
+# flagship (131,072 rays a step: every pixel of 512x256 once)
+TRAIN_STEPS, FLAGSHIP_TRAIN_STEPS, TRAIN_DEPTH, TRAIN_SEED = 10, 5, 6, 12
+# Adam's rates: 1e-2 (vimg_tpu's optax.adam(1e-2)) for the scene's
+# tables, 1e-4 for the camera, whose pose entries at 1e-2 move the view by
+# about 0.01 a step (with 1e-2 on every key this scene's loss rose). The
+# flagship's Principled scalars are projected back into [0, 1] after each
+# step: many sit at 0 or 1, and left outside, their lobe weights turn
+# negative and a path's throughput blows up within a few steps (in
+# vimg_tpu's eval as in the port's: tests/test_torch_diff_checks.py)
+TRAIN_LR = 1e-2
+TRAIN_RATES = dict.fromkeys(("cam2world", "cam_vfov", "cam_aperture",
+                             "cam_focal"), 1e-4)
+TRAIN_SMALL = (64, 32)
+# gradients against a reference, per key: max|g - g_ref| <= GRAD_RTOL x
+# max|g_ref| + GRAD_ATOL. Not bit for bit: the backward of index_add_,
+# of the texture and sky fetches and of the loss's mean scatter-add with
+# atomics on the card, whose order of summation varies, and float32 sums
+# of up to 131,072 terms in another order differ by about sqrt(n) ulps
+GRAD_RTOL, GRAD_ATOL = 1e-3, 1e-6
 # phase 19: the s_normal frames at reduced size (card vs CPU)
 NORMAL_SMALL = {"flagship": (180, 80), "terrain": (64, 32)}
 # phase 19: main path 9's frame at reduced size, card vs CPU
@@ -699,6 +734,245 @@ def envtex_main_path(png_dir, card, dev):
         f"supersteps ({1e3 * stats['seconds'] / stats['supersteps']:.2f} ms "
         f"a superstep), launches {counts}, on {card}")
     return counts["cluster_wide"]
+
+
+# ---------------------------------------------------------------------------
+# phase 8c: main path 10, the differentiable step
+# ---------------------------------------------------------------------------
+
+def train_start(scene):
+    """The scene a training run starts from: env_scale halved and the
+    Principled scalars (specular, roughness, metallic) moved by seeded
+    uniform noise in +-0.15, clamped to [0, 1]."""
+    import numpy as np
+    import torch
+    from vimg_tpu_torch.scene import ir
+    cols = [ir.MS_SPECULAR, ir.MS_ROUGHNESS, ir.MS_METALLIC]
+    ms = scene.mat_scalars.clone()
+    noise = np.random.default_rng(TRAIN_SEED).uniform(
+        -0.15, 0.15, (ms.shape[0], len(cols))).astype(np.float32)
+    ms[:, cols] = torch.clamp(ms[:, cols] + torch.as_tensor(
+        noise, device=ms.device), 0.0, 1.0)
+    return scene.replace(env_scale=scene.env_scale * 0.5, mat_scalars=ms)
+
+
+def train_optimizer(rates):
+    """make_train_step's optimizer: Adam over the parameter dict, each key
+    at its rate in ``rates``, the others at TRAIN_LR."""
+    import torch
+
+    def make(params):
+        groups = {}
+        for k in sorted(params):
+            v = params[k]
+            groups.setdefault(rates.get(k, TRAIN_LR), []).extend(
+                v if isinstance(v, tuple) else (v,))
+        return torch.optim.Adam([{"params": v, "lr": lr}
+                                 for lr, v in groups.items()], lr=TRAIN_LR)
+    return make
+
+
+def train_rays(scene, st, tracer, step):
+    """A step's rays and target: every pixel once at sample id ``step``,
+    the target the port's own radiance at ``scene``'s values."""
+    import torch
+    from vimg_tpu_torch.render.integrators import trace_radiance
+    n = st.width * st.height
+    pix = torch.arange(n, device=scene.device)
+    samp = torch.full((n,), step, dtype=torch.int64, device=scene.device)
+    with torch.no_grad():
+        target = trace_radiance(scene, st, tracer, pix, samp,
+                                integrator="mis", bounded_depth=TRAIN_DEPTH)
+    return pix, samp, target
+
+
+def grads_at_start(scene, st, tracer, rays):
+    """(loss, flat {key: gradient}) at the start's parameters."""
+    from vimg_tpu_torch.diff import grad
+    start = train_start(scene)
+    params = {k: tuple(m.clone().requires_grad_(True) for m in v)
+              if isinstance(v, tuple) else v.clone().requires_grad_(True)
+              for k, v in grad.get_params(start).items()}
+    loss, g = grad.value_and_grad(start, st, tracer, params, *rays,
+                                  bounded_depth=TRAIN_DEPTH,
+                                  integrator="mis")
+    flat = {}
+    for k, v in g.items():
+        for i, x in enumerate(v if isinstance(v, tuple) else (v,)):
+            flat[k if not isinstance(v, tuple) else f"{k}/{i}"] = \
+                x.detach().cpu().double()
+    return float(loss), flat
+
+
+def grads_agree(name, got, ref):
+    """Fails unless every key's gradient is finite and within GRAD_RTOL of
+    the reference's largest; prints the worst key."""
+    import torch
+    worst = (0.0, None)
+    for k, r in ref.items():
+        g = got[k]
+        if not (torch.isfinite(g).all() and torch.isfinite(r).all()):
+            fail(f"{name}: non-finite gradient of {k}")
+        err = float((g - r).abs().max())
+        scale = float(r.abs().max())
+        if err > GRAD_RTOL * scale + GRAD_ATOL:
+            fail(f"{name}: gradient of {k} off by {err:.3e} (largest "
+                 f"{scale:.3e})")
+        if scale > 0 and err / scale >= worst[0]:
+            worst = (err / scale, k)
+    log(f"    {name}: every key within {GRAD_RTOL:g} of the largest; "
+        f"worst {worst[1]} at {worst[0]:.3e}")
+
+
+def train_run(start, st, tracer, steps, rays_of, optimizer=None,
+              project=None):
+    """``steps`` make_train_step steps from ``start`` (every count set to 0
+    just before a step and read just after; ``project(params)`` after
+    each): per step the loss, forward and backward ms, segments and
+    shadow rays, the kernels launched, and the peak device memory. Fails
+    on a non-finite loss or gradient."""
+    import math
+    import torch
+    from vimg_tpu_torch.diff import grad
+    step, opt, params = grad.make_train_step(
+        start, st, tracer, bounded_depth=TRAIN_DEPTH, integrator="mis",
+        optimizer=optimizer)
+    out = []
+    for i in range(steps):
+        rays = rays_of(i)
+        stats = {}
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        params, opt, loss = step(params, opt, *rays, stats=stats)
+        counts = read_counts()
+        if project is not None:
+            project(params)
+        loss = float(loss)
+        leaves = [t for v in params.values()
+                  for t in (v if isinstance(v, tuple) else (v,))]
+        if not math.isfinite(loss) or not all(
+                bool(torch.isfinite(t.grad).all()) for t in leaves):
+            fail(f"train step {i}: non-finite loss or gradient")
+        out.append(dict(loss=loss, forward_ms=stats["forward_ms"],
+                        backward_ms=stats["backward_ms"],
+                        segments=stats.get("segments", 0),
+                        shadow_rays=stats.get("shadow_rays", 0),
+                        launches=nonzero(counts),
+                        peak_bytes=torch.cuda.max_memory_allocated()))
+    return out
+
+
+def nonzero(counts):
+    return {k: v for k, v in counts.items() if v}
+
+
+def log_steps(rows):
+    for i, r in enumerate(rows):
+        log(f"    step {i}: loss {r['loss']:.6g}, forward "
+            f"{r['forward_ms']:.1f} ms, backward {r['backward_ms']:.1f} ms, "
+            f"{r['segments']} segments + {r['shadow_rays']} shadow rays, "
+            f"launches {r['launches']}, peak "
+            f"{r['peak_bytes'] / 2 ** 30:.2f} GiB")
+
+
+def train_main_path(card, dev):
+    """Main path 10 on the envtex scene through B3 (with its checks against
+    the plain walk and the CPU), then on the flagship through the SoA
+    tracer; returns B3's launches on the envtex run."""
+    import torch
+    from vimg_tpu_torch.geometry import cluster_trace as ct
+    from vimg_tpu_torch.geometry.trace import make_tracer
+    from vimg_tpu_torch.scene import ir
+    from vimg_tpu_torch.scene.json_loader import load_json_scene
+    st = ir.RenderSettings(MESH_W, MESH_H, spp=1, max_depth=64,
+                           integrator="mis")
+    scene = envtex_scene(dev)
+    start = train_start(scene)
+    t0 = time.time()
+    tracer = make_tracer(start, differentiable=True)
+    log(f"    tracer {type(tracer).__name__} (walk {tracer.walk}), host "
+        f"build {time.time() - t0:.2f}s; start: env_scale "
+        f"{float(start.env_scale):g} (scene {float(scene.env_scale):g}), "
+        f"Principled scalars {start.mat_scalars[0].tolist()}")
+    if not (isinstance(tracer, ct.ClusterTracer) and tracer.walk == "wide"):
+        fail("main path 10: the tracer is not the cluster tracer's B3 walk")
+
+    # step 0's gradients: B3 against the plain walk, on the card
+    rays0 = train_rays(scene, st, tracer, 0)
+    plain = ct.ClusterTracer(start, data=tracer.data, plain=True)
+    lk, gk = grads_at_start(scene, st, tracer, rays0)
+    lp, gp = grads_at_start(scene, st, plain, rays0)
+    log(f"    step-0 loss through B3 {lk:.8g}, through the plain walk "
+        f"{lp:.8g}")
+    grads_agree("step-0 gradients, B3 vs the plain walk", gk, gp)
+
+    # card against CPU at reduced size
+    w, h = TRAIN_SMALL
+    small_st = dataclasses.replace(st, width=w, height=h)
+    small = {}
+    for name, d in (("cpu", torch.device("cpu")), ("card", dev)):
+        sc = envtex_scene(d, w, h)
+        tr = make_tracer(train_start(sc), differentiable=True)
+        small[name] = grads_at_start(sc, small_st, tr,
+                                     train_rays(sc, small_st, tr, 0))
+    log(f"    {w}x{h} step-0 loss card {small['card'][0]:.8g}, cpu "
+        f"{small['cpu'][0]:.8g}")
+    grads_agree(f"{w}x{h} step-0 gradients, card vs cpu", small["card"][1],
+                small["cpu"][1])
+
+    rows = train_run(start, st, tracer, TRAIN_STEPS,
+                     lambda i: train_rays(scene, st, tracer, i),
+                     optimizer=train_optimizer(TRAIN_RATES))
+    log(f"    main path 10 (Adam at {TRAIN_LR:g}, {TRAIN_RATES}):")
+    log_steps(rows)
+    for i, r in enumerate(rows):
+        if set(r["launches"]) != {"cluster_wide"}:
+            fail(f"main path 10 step {i}: launches {r['launches']}")
+    if not rows[-1]["loss"] < rows[0]["loss"]:
+        fail("main path 10: the loss did not fall")
+    b3 = sum(r["launches"].get("cluster_wide", 0) for r in rows)
+    ms = [r["forward_ms"] + r["backward_ms"] for r in rows]
+    log(f"    {TRAIN_STEPS} steps of {MESH_W * MESH_H} rays: step "
+        f"{min(ms):.1f}-{max(ms):.1f} ms (forward + backward), loss "
+        f"{rows[0]['loss']:.6g} -> {rows[-1]['loss']:.6g}, B3 launches {b3}, "
+        f"peak {max(r['peak_bytes'] for r in rows) / 2 ** 30:.2f} GiB, on "
+        f"{card}")
+
+    fscene, fst = load_json_scene(FLAGSHIP, device=dev)
+    fst = dataclasses.replace(fst, spp=1)
+    ftracer = make_tracer(fscene, differentiable=True)
+    n = MESH_W * MESH_H
+    fpix = torch.arange(n, device=dev) * 997 % (fst.width * fst.height)
+    fsamp = torch.zeros(n, dtype=torch.int64, device=dev)
+    zeros = torch.zeros((n, 3), device=dev)
+    rows_p, last = fscene.mat_type == ir.MAT_PRINCIPLED, []
+
+    def project(params):
+        """The Principled rows' scalars (IOR aside) clamped into [0, 1]."""
+        ms = params["mat_scalars"]
+        with torch.no_grad():
+            ms[rows_p, 1:] = ms[rows_p, 1:].clamp(0.0, 1.0)
+        last[:] = [ms.detach()[rows_p]]
+    frows = train_run(fscene, fst, ftracer, FLAGSHIP_TRAIN_STEPS,
+                      lambda i: (fpix, fsamp, zeros),
+                      optimizer=train_optimizer(TRAIN_RATES),
+                      project=project)
+    log(f"    flagship ({type(ftracer).__name__}, {n} rays a step, sample 0 "
+        f"and target 0 as vimg_tpu's dryrun_multichip; Adam at "
+        f"{TRAIN_LR:g}, {TRAIN_RATES}, Principled scalars projected into "
+        f"[0, 1]):")
+    log_steps(frows)
+    moved = float((last[0] - fscene.mat_scalars[rows_p]).abs().max())
+    log(f"    Principled scalars after the last step: min "
+        f"{float(last[0][:, 1:].min()):.6g}, max "
+        f"{float(last[0][:, 1:].max()):.6g}, moved up to {moved:.6g}")
+    if any(r["launches"] for r in frows):
+        fail("flagship train steps launched a kernel")
+    if not frows[-1]["loss"] < frows[0]["loss"]:
+        fail("flagship train steps: the loss did not fall")
+    if not moved > 0.0:
+        fail("flagship train steps: the Principled scalars did not move")
+    return b3
 
 
 # ---------------------------------------------------------------------------
@@ -2068,6 +2342,13 @@ def main():
         f"through cluster_wide")
     envtex_launches = envtex_main_path(png_dir, card, dev)
 
+    # ---- 8c. main path 10: the train step through B3 -------------------
+    log(f"[8c] main path 10: textured_terrain_scene({ENVTEX_TRIS}) -> "
+        f"make_tracer(differentiable=True) -> make_train_step -> "
+        f"{TRAIN_STEPS} Adam steps of {MESH_W * MESH_H} rays through "
+        f"cluster_wide at zero tangent; then the flagship")
+    train_launches = train_main_path(card, dev)
+
     # ---- 9-11. kernel B2 and main paths 4, 5 --------------------------
     b2 = b2_phases(dev, png_dir, card)
 
@@ -2109,8 +2390,9 @@ def main():
             TERRAINS, ("vimg_tpu/geometry/cluster_trace.py:455",
                        "vimg_tpu/geometry/cluster_trace.py:800")):
         c = cmp[(n_tris, walk, "bounce")]
-        # B3 carries main paths 2 and 9
-        by_path = ({"2": launches[name], "9": envtex_launches}
+        # B3 carries main paths 2, 9 and 10
+        by_path = ({"2": launches[name], "9": envtex_launches,
+                    "10": train_launches}
                    if walk == "wide" else {"3": launches[name]})
         rows.append({
             "name": name,

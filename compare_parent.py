@@ -1,5 +1,5 @@
 """Time this checkout's kernels B2-B5, the packet cull and P19 and main
-paths 1-8 against another checkout of the port, on one GPU, in turns.
+paths 1-10 against another checkout of the port, on one GPU, in turns.
 
 Unpack the other commit into a directory that .gitignore lists and run,
 from the repository root on a machine with an NVIDIA GPU:
@@ -56,8 +56,17 @@ shadow-ray counts and supersteps and agree per pixel (their films are
 not bit-equal even between two runs of one checkout: the film's atomic
 index_add_ adds in no fixed order), prints the table and the card's name
 and power limit, and writes the readings as JSON. Exits non-zero on any
-failure. The envtex frame (main path 9) has no parent comparison: a
-checkout from before the envtex slice cannot render it.
+failure.
+
+Main path 9 (the envtex frame: textured_terrain_scene(100_000) at
+512x256 @ 64 spp through the wavefront over B3) is timed once after a
+1-spp warm-up frame and checked as main paths 2 and 3. Main path 10 (the
+train step, chip_smoke.py phase 8c: 10 Adam steps of 131,072 rays on the
+envtex scene through B3) runs in a checkout whose chip_smoke.py has
+``train_run`` (none before the differentiable slice): its losses and
+forward and backward ms are printed beside the other checkout's where
+both have it; the losses are not held equal across runs (the backward's
+atomics sum in no fixed order, so the parameters part after a step).
 """
 import argparse
 import dataclasses
@@ -147,9 +156,13 @@ def worker(tree, out):
     res["frame3"], img3 = frame_readings(cs, dev, 500_000, "LAUNCHES_SKIP")
     res["frame1"], main1 = main1_readings(cs, dev)
     res["frames78"], imgs78 = normal_readings(cs, dev)
+    res["frame9"], img9 = envtex_readings(cs, dev)
+    if hasattr(cs, "train_run"):
+        res["main10"] = train_readings(cs, dev)
     torch.save({"b5": outs, "meta": metas, "img": img.cpu(),
                 "walks": walk_outs, "b2": b2_outs, "img2": img2,
-                "img3": img3, "main1": main1, **imgs78}, out + ".pt")
+                "img3": img3, "img9": img9, "main1": main1, **imgs78},
+               out + ".pt")
     with open(out, "w") as f:
         json.dump(res, f)
 
@@ -286,6 +299,42 @@ def frame_readings(cs, dev, n_tris, counter):
                 **_wf_stats(wavefront.LAST_STATS)), img.cpu()
 
 
+def envtex_readings(cs, dev):
+    """Main path 9: the envtex frame at 512x256 @ 64 spp MIS through the
+    wavefront over B3, after a 1-spp warm-up frame, timed once."""
+    from vimg_tpu_torch.geometry import cluster_trace as ct
+    from vimg_tpu_torch.render import wavefront
+    from vimg_tpu_torch.render.render import render_frame
+    from vimg_tpu_torch.scene import ir
+    scene = cs.envtex_scene(dev)
+    st = ir.RenderSettings(cs.MESH_W, cs.MESH_H, spp=cs.MESH_SPP,
+                           max_depth=64, integrator="mis", tonemap="agx",
+                           batch_size=cs.MESH_BATCH)
+    render_frame(scene, dataclasses.replace(st, spp=1))
+    before = ct.LAUNCHES_WIDE
+    img, secs = cs.timed(lambda: render_frame(scene, st))
+    return dict(s=secs, launches=ct.LAUNCHES_WIDE - before,
+                **_wf_stats(wavefront.LAST_STATS)), img.cpu()
+
+
+def train_readings(cs, dev):
+    """Main path 10 as chip_smoke.py's phase 8c runs it: per step the loss,
+    forward and backward ms and B3 launches."""
+    from vimg_tpu_torch.geometry.trace import make_tracer
+    from vimg_tpu_torch.scene import ir
+    scene = cs.envtex_scene(dev)
+    st = ir.RenderSettings(cs.MESH_W, cs.MESH_H, spp=1, max_depth=64,
+                           integrator="mis")
+    start = cs.train_start(scene)
+    tracer = make_tracer(start, differentiable=True)
+    rows = cs.train_run(start, st, tracer, cs.TRAIN_STEPS,
+                        lambda i: cs.train_rays(scene, st, tracer, i),
+                        optimizer=cs.train_optimizer(cs.TRAIN_RATES))
+    return [dict(loss=r["loss"], forward_ms=r["forward_ms"],
+                 backward_ms=r["backward_ms"], launches=r["launches"])
+            for r in rows]
+
+
 def main():
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("other", nargs="?", help="the other checkout's root")
@@ -348,7 +397,8 @@ def main():
                            f"{got['counts']} != {want['counts']}")
         for name, key, fkey in (("main path 6", "img", "frame"),
                                  ("main path 2", "img2", "frame2"),
-                                 ("main path 3", "img3", "frame3")):
+                                 ("main path 3", "img3", "frame3"),
+                                 ("main path 9", "img9", "frame9")):
             r = cs.compare(f"{name}, {res['name']} vs this", ref[key],
                            res["data"][key])
             if not (r["mean"] < cs.WF_MEAN and r["corr"] > cs.WF_CORR):
@@ -406,15 +456,27 @@ def main():
               f"{span('other', lambda r: r['b2'][key]['ms'])}  this "
               f"{span('this', lambda r: r['b2'][key]['ms'])}  lane fill "
               f"(this) {fill}")
-    for n, key in ((2, "frame2"), (3, "frame3")):
+    for n, key in ((2, "frame2"), (3, "frame3"), (9, "frame9")):
         print(f"main path {n} frame s (render loop s), in run order: "
               + ", ".join(f"{r['name']} {r[key]['s']:.3f} "
                           f"({r[key]['loop_s']:.3f})" for r in runs))
-    for n, key in ((2, "frame2"), (3, "frame3"), (6, "frame")):
+    for n, key in ((2, "frame2"), (3, "frame3"), (6, "frame"),
+                   (9, "frame9")):
         f = runs[1][key]
         print(f"main path {n}: {f['segments']} segments + "
               f"{f['shadow_rays']} shadow rays, {f['supersteps']} "
               f"supersteps (equal in every run)")
+    for r in runs:
+        if "main10" not in r:
+            print(f"main path 10: run {r['name']} has no train step")
+            continue
+        rows = r["main10"]
+        print(f"main path 10, run {r['name']}: losses "
+              + ", ".join(f"{x['loss']:.6g}" for x in rows)
+              + "; forward + backward ms "
+              + ", ".join(f"{x['forward_ms']:.1f}+{x['backward_ms']:.1f}"
+                          for x in rows)
+              + f"; B3 launches {sum(x['launches'].get('cluster_wide', 0) for x in rows)}")
     print(f"main path 1 frame s, in run order: " + ", ".join(
         f"{r['name']} {r['frame1']['s']:.3f}" for r in runs))
     for n in (7, 8):

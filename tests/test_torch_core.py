@@ -195,7 +195,7 @@ def test_unported_entries_raise(tmp_path):
     p.write_text('{' + cam + '"materials": [{"name": "w", "type": "lambertian"}],'
                  ' "surfaces": [{"type": "mesh", "mat_name": "w",'
                  ' "filename": "cube.obj"}]}')
-    with pytest.raises(NotImplementedError, match="item 22"):
+    with pytest.raises(NotImplementedError, match="item A8"):
         load_json_scene(p, device="cpu")
     p.write_text('{' + cam + '"materials": [{"name": "w", "type": "lambertian",'
                  ' "texture": {"type": "checkered", "col1": [0,0,0],'

@@ -18,7 +18,8 @@ the P12-P31 tests say otherwise. C19: the frame's last divide and AgX's
 divide give the CPU's bits on the card. The envtex frame (main path 9) at
 64x32 against the CPU statistically (the flagship's bound: the card's
 transcendentals round otherwise, and an ulp can move a texel, a mip level
-or a sampled direction), launching B3.
+or a sampled direction), launching B3. Main path 10's gradients through
+B3 against the plain walk's, per key within 1e-3 of the largest.
 """
 import dataclasses
 
@@ -926,3 +927,44 @@ def test_envtex_frame_card_vs_cpu(cuda):
     a, b = img.cpu().double().numpy(), imgs["cpu"].double().numpy()
     assert np.abs(a - b).mean() < 6e-3
     assert np.corrcoef(a.ravel(), b.ravel())[0, 1] > 0.99
+
+
+@pytest.mark.cuda
+def test_train_gradients_kernel_vs_plain_walk_on_card(cuda):
+    """Main path 10's gradients (diff/grad.py, MIS, bounded_depth 6) on
+    the envtex scene at 64x32 through kernel B3 at zero tangent and
+    through the plain walk, both on the card: every key finite and within
+    1e-3 of the largest (the backward's scatter-adds use atomics, so not
+    bit for bit), and B3 launched."""
+    from vimg_tpu_torch.diff import grad
+    from vimg_tpu_torch.geometry.trace import make_tracer
+    from vimg_tpu_torch.render.integrators import trace_radiance
+    from vimg_tpu_torch.scene.synthetic import textured_terrain_scene
+    scene = textured_terrain_scene(100_000, 64, 32, device=cuda)
+    st = ir.RenderSettings(64, 32, spp=1, max_depth=64, integrator="mis")
+    start = scene.replace(env_scale=scene.env_scale * 0.5)
+    kern = make_tracer(start, differentiable=True)
+    plain = ct.ClusterTracer(start, data=kern.data, plain=True)
+    pix = torch.arange(64 * 32, device=cuda)
+    samp = torch.zeros_like(pix)
+    with torch.no_grad():
+        target = trace_radiance(scene, st, kern, pix, samp,
+                                bounded_depth=6)
+    out = {}
+    for name, tr in (("kernel", kern), ("plain", plain)):
+        params = {k: tuple(m.clone().requires_grad_(True) for m in v)
+                  if isinstance(v, tuple) else v.clone().requires_grad_(True)
+                  for k, v in grad.get_params(start).items()}
+        before = ct.LAUNCHES_WIDE
+        loss, g = grad.value_and_grad(start, st, tr, params, pix, samp,
+                                      target, bounded_depth=6)
+        out[name] = (float(loss), g, ct.LAUNCHES_WIDE - before)
+    assert out["kernel"][2] > 0 and out["plain"][2] == 0
+    assert abs(out["kernel"][0] - out["plain"][0]) <= 1e-5 * out["plain"][0]
+    for k, ref in out["plain"][1].items():
+        got = out["kernel"][1][k]
+        for a, b in zip(got if isinstance(got, tuple) else (got,),
+                        ref if isinstance(ref, tuple) else (ref,)):
+            assert bool(torch.isfinite(a).all()), k
+            err = float((a - b).abs().max())
+            assert err <= 1e-3 * float(b.abs().max()) + 1e-6, (k, err)

@@ -165,7 +165,7 @@ def test_make_tracer_limits(flagship):
     many = big.replace(sph_center=torch.zeros((65, 3)),
                        sph_radius=torch.ones(65),
                        sph_mat=torch.zeros(65, dtype=torch.int64))
-    with pytest.raises(NotImplementedError, match="item 21"):
+    with pytest.raises(NotImplementedError, match="item A4"):
         make_tracer(many)
 
 

@@ -48,6 +48,18 @@ def sqrt_cr(x):
     return torch.sqrt(x)
 
 
+def sqrt_pos(x):
+    """``sqrt_cr(max(x, 0))`` with the same bits; under autograd its
+    derivative is 0 where x <= 0, where the clamp's would let the root's
+    infinite derivative at 0 through (ROADMAP C21)."""
+    root = sqrt_cr(torch.clamp_min(x, 0.0))
+    if not x.requires_grad:
+        return root
+    pos = x > 0.0
+    safe = sqrt_cr(torch.where(pos, x, torch.ones_like(x)))
+    return torch.where(pos, safe, root.detach())
+
+
 def div(x, c):
     """``x / c`` for a Python number ``c``, correctly rounded on every
     device. PyTorch's CUDA division of a tensor by a Python number (or by

@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import torch
 
-from vimg_tpu_torch.core.math import div, dot, normalize, sqrt_cr
+from vimg_tpu_torch.core.math import div, dot, normalize, sqrt_cr, sqrt_pos
 
 
 def primary_cone_spread(vfov_rad, pixel_height):
@@ -40,9 +40,7 @@ def _refract_tir_2d(d, n, eta):
     nd = d[..., 0] * n[..., 0] + d[..., 1] * n[..., 1]
     k = 1.0 - eta * eta * (1.0 - nd * nd)
     tir = k < 0.0
-    refr = d * eta[..., None] - n * (eta * nd
-                                     + sqrt_cr(torch.clamp_min(k, 0.0)))[
-        ..., None]
+    refr = d * eta[..., None] - n * (eta * nd + sqrt_pos(k))[..., None]
     tangential = d - n * nd[..., None]
     tlen = sqrt_cr(torch.clamp_min(
         tangential[..., 0] ** 2 + tangential[..., 1] ** 2, 1e-20))
@@ -68,6 +66,18 @@ def _ortho2d(v):
 
 def _dot2(a, b):
     return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1]
+
+
+def _acos(x):
+    """acos; under autograd its derivative at x = +-1 is 0, not infinite
+    (the values are the same). The cone update runs on every lane, and a
+    lane whose result is discarded would otherwise turn its zero cotangent
+    into NaN (ROADMAP C21)."""
+    if not x.requires_grad:
+        return torch.acos(x)
+    edge = x.abs() >= 1.0
+    safe = torch.acos(torch.where(edge, torch.zeros_like(x), x))
+    return torch.where(edge, torch.acos(x).detach(), safe)
 
 
 def propagate_refract(width, spread, ray_in_dir, surface_spread_angle, eta,
@@ -110,7 +120,7 @@ def propagate_refract(width, spread, ray_in_dir, surface_spread_angle, eta,
     sign_a = torch.where(cross_ul * normal_sign < 0.0, 1.0, -1.0).to(
         width.dtype)
     d_ul = torch.clamp(_dot2(r2_u, r2_l), -1.0, 1.0)
-    new_spread = torch.acos(d_ul) * sign_a
+    new_spread = _acos(d_ul) * sign_a
     new_spread = torch.where(torch.isnan(new_spread), 0.0, new_spread)
 
     refr_ortho = _ortho2d(refr2)

@@ -9,7 +9,7 @@ C++ builder with the same output format. The cluster tracer cuts either
 tree into treelet clusters (geometry/cluster_trace.py).
 
 The per-ray BVH walk of vimg_tpu (``BVHTracer``, ``bvh_traverse``,
-``refit_bvh``) is not ported yet (ROADMAP queue A item 21).
+``refit_bvh``) is not ported yet (ROADMAP queue A, item A4).
 """
 from __future__ import annotations
 

@@ -802,9 +802,9 @@ class ClusterTracer:
         """(t, slot, u, v) of the configured walk on the given rays, in
         their order (the Morton sort above SORT_MIN_RAYS is undone)."""
         B = ro.shape[0]
-        ro, rd = ro.detach().contiguous(), rd.detach().contiguous()
-        minT = minT.detach().expand(B).contiguous()
-        maxT = maxT.detach().expand(B).contiguous()
+        ro, rd = ro.contiguous(), rd.contiguous()
+        minT = minT.expand(B).contiguous()
+        maxT = maxT.expand(B).contiguous()
         do_sort = self.sort_rays and B > SORT_MIN_RAYS
         if do_sort:
             order = self.sort_order(ro, rd, maxT)
@@ -830,7 +830,13 @@ class ClusterTracer:
             out = tuple(unsort(x) for x in out)
         return out
 
+    # Gradients: the rays reach the walk detached (vimg_tpu's zero-tangent
+    # traversal, the detached-sampling estimator's treatment of discrete
+    # traversal), on the card and on the CPU alike, so no kernel needs a
+    # backward; material, emission, texture and env gradients equal the
+    # tensor-code tracers', and the hit point's motion with t is dropped.
     def closest(self, scene, ro, rd, minT, maxT) -> HitResult:
+        ro, rd, minT, maxT = detached_rays(ro, rd, minT, maxT)
         bt, slot, bu, bv = self.trace(ro, rd, minT, maxT, False)
         found = slot >= 0
         tri_id = self.perm[slot.clamp(0, self.perm.shape[0] - 1).long()]
@@ -847,20 +853,28 @@ class ClusterTracer:
         return hr
 
     def occluded(self, scene, ro, rd, minT, maxT):
+        ro, rd, minT, maxT = detached_rays(ro, rd, minT, maxT)
         bt = self.trace(ro, rd, minT, maxT, True)[0]
         occ = bt == -float("inf")
         if self.sph_c is not None:
-            occ = occ | _trace_impl(None, self.sph_c, ro.detach(),
-                                    rd.detach(), minT.detach(),
-                                    maxT.detach().expand(occ.shape), True)
+            occ = occ | _trace_impl(None, self.sph_c, ro, rd, minT, maxT,
+                                    True)
         return occ
+
+
+def detached_rays(ro, rd, minT, maxT):
+    """The rays cut from autograd, minT and maxT expanded to one a ray:
+    what a tracer facade hands its walk."""
+    B = ro.shape[0]
+    return (ro.detach(), rd.detach(), minT.detach().expand(B),
+            maxT.detach().expand(B))
 
 
 def merge_spheres(sph_c, hr, ro, rd, minT, maxT):
     """A dense test of the spheres ``sph_c`` merged into the triangle hits
-    ``hr``: a sphere wins only on a strictly smaller t."""
-    sh = _trace_impl(None, sph_c, ro.detach(), rd.detach(), minT.detach(),
-                     maxT.detach().expand(hr.t.shape), False)
+    ``hr`` (rays as ``detached_rays`` gives them): a sphere wins only on a
+    strictly smaller t."""
+    sh = _trace_impl(None, sph_c, ro, rd, minT, maxT, False)
     better = sh.t < hr.t
     return HitResult(
         t=torch.where(better, sh.t, hr.t),

@@ -34,7 +34,8 @@ import numpy as np
 import torch
 
 from vimg_tpu_torch.geometry.cluster_trace import (ClusterData, _check,
-                                                   _device_of, merge_spheres,
+                                                   _device_of, detached_rays,
+                                                   merge_spheres,
                                                    ray_sort_key)
 from vimg_tpu_torch.geometry.intersect import HitResult
 from vimg_tpu_torch.geometry.soa_intersect import _trace_impl, build_constants
@@ -578,10 +579,9 @@ class PacketTracer:
             code = torch.empty_like(code).index_put_((order,), code)
         return bt, code
 
+    # the same zero-tangent traversal as ClusterTracer's
     def closest(self, scene, ro, rd, minT, maxT) -> HitResult:
-        ro, rd = ro.detach(), rd.detach()
-        minT = minT.detach().expand(ro.shape[:1])
-        maxT = maxT.detach().expand(ro.shape[:1])
+        ro, rd, minT, maxT = detached_rays(ro, rd, minT, maxT)
         bt, code = self._run(ro, rd, minT, maxT, any_hit=False)
         found = code >= 0.0
         slot = code.long().clamp(0, self.perm.shape[0] - 1)
@@ -617,9 +617,7 @@ class PacketTracer:
     def occluded(self, scene, ro, rd, minT, maxT):
         """Any hit in [minT, maxT); lanes with maxT = -inf report True, as
         in vimg_tpu (bt == -inf)."""
-        ro, rd = ro.detach(), rd.detach()
-        minT = minT.detach().expand(ro.shape[:1])
-        maxT = maxT.detach().expand(ro.shape[:1])
+        ro, rd, minT, maxT = detached_rays(ro, rd, minT, maxT)
         bt, _ = self._run(ro, rd, minT, maxT, any_hit=True)
         occ = bt == -float("inf")
         if self.sph_c is not None:

@@ -12,8 +12,9 @@ backend for a scene.
   walk, for scenes whose packed triangle table fits its 10 MiB budget.
 
 vimg_tpu picks its BVH tracer on the CPU; that per-ray BVH walk is not
-ported (ROADMAP queue A item 21), so here the CPU takes the cluster tracer
-with its plain walks, which return the same hits as the kernels.
+ported (ROADMAP queue A, item A4), so in this package the CPU takes the
+cluster tracer with its plain walks, which return the same hits as the
+kernels.
 """
 from __future__ import annotations
 
@@ -37,10 +38,18 @@ class BruteForceTracer:
         return intersect.occlude_bruteforce(scene, ro, rd, minT, maxT)
 
 
-def make_tracer(scene: ir.Scene, force=None):
+def make_tracer(scene: ir.Scene, force=None, differentiable=False):
     """Pick the intersection backend: ``soa``, ``brute``, ``cluster`` or
     ``packet`` (``force`` names one; None picks as the module docstring
-    says)."""
+    says).
+
+    ``differentiable=True`` (vimg_tpu's keyword) is met by every backend:
+    the dense tracers are tensor code that autograd runs through (t and
+    so the hit point's motion included), and the cluster and packet
+    tracers detach their rays (zero tangent through traversal, as
+    vimg_tpu's Pallas tracers), so kernels B3, B4 and B5 carry gradient
+    renders unchanged."""
+    del differentiable
     n_prims = scene.n_tris() + scene.n_spheres()
     if force == "brute":
         return BruteForceTracer(scene)
@@ -57,4 +66,4 @@ def make_tracer(scene: ir.Scene, force=None):
     raise NotImplementedError(
         f"tracer {force or 'auto'} for {scene.n_tris()} triangles and "
         f"{scene.n_spheres()} spheres is not ported yet (the BVH tracer is "
-        f"ROADMAP queue A item 21)")
+        f"ROADMAP queue A, item A4)")

@@ -87,7 +87,9 @@ def _sample_sphere_light(scene: ir.Scene, sph_id, look_from, r1, r2):
     # inside: uniform over the whole sphere
     p_in = sample_sphere(r1, r2) * radius[:, None] + center
 
-    hit_p = torch.where(inside[:, None], p_in, p_out)
+    # the sampled point is the sampling warp's: detached (the estimator
+    # holds it fixed); G stays differentiable through look_from
+    hit_p = torch.where(inside[:, None], p_in, p_out).detach()
     n = normalize(hit_p - center)
     dvec = hit_p - look_from
     dist2 = length2(dvec)

@@ -210,13 +210,20 @@ def _bilinear_flat(flat, off, h, w, u, v):
     return a * (1 - fy) + b * fy
 
 
-# the flat mip pyramid of a scene's env map, built once a scene: the
-# levels tuple -> (levels, flat (N, 3), offsets, heights, widths)
+# the flat mip pyramid of a scene's env map, built once a scene for
+# forward renders: (id of the levels tuple, the levels' versions) ->
+# (levels, flat (N, 3), offsets, heights, widths)
 _PYRAMIDS = {}
 
 
 def _flat_pyramid(mips):
-    hit = _PYRAMIDS.get(id(mips))
+    """The levels ``mips`` as one flat (N, 3) tensor with per-level
+    offsets, heights and widths. Cached while no level needs a gradient
+    (a cached ``flat`` would hold a graph that a backward frees, and an
+    optimizer's in-place step keeps the tuple's id) and keyed on every
+    level's version, so a level written in place is never read stale."""
+    key = (id(mips), tuple(m._version for m in mips))
+    hit = _PYRAMIDS.get(key)
     if hit is not None and hit[0] is mips:
         return hit[1:]
     dev = mips[0].device
@@ -226,9 +233,10 @@ def _flat_pyramid(mips):
     offs = np.concatenate([[0], np.cumsum(hs * ws)[:-1]]).astype(np.int64)
     entry = (mips, flat, *(torch.from_numpy(x).to(dev)
                            for x in (offs, hs, ws)))
-    if len(_PYRAMIDS) > 8:
-        _PYRAMIDS.clear()
-    _PYRAMIDS[id(mips)] = entry
+    if not flat.requires_grad:
+        if len(_PYRAMIDS) > 8:
+            _PYRAMIDS.clear()
+        _PYRAMIDS[key] = entry
     return entry[1:]
 
 

@@ -87,6 +87,11 @@ def _principled_params(scene: ir.Scene, mat_id, hit: HitInfo, mr=None):
     is the precomputed factor pair (texture_inputs) or None to fetch."""
     sc = scene.mat_scalars[mat_id]
     p = {k: sc[..., c] for k, c in _PARAM_COLS.items()}
+    # lanes of other materials (their results are discarded) get IOR 1 for
+    # their unused 0: the rough-glass term's 1/eta^2 x eta^2 = inf x 0
+    # would turn their zero cotangent into NaN (ROADMAP C21)
+    p["eta"] = torch.where(scene.mat_type[mat_id] == ir.MAT_PRINCIPLED,
+                           p["eta"], 1.0)
     if scene.has_image_tex:
         if mr is None:
             mr = metal_rough_at_uv(scene, scene.mat_tex[mat_id][..., 2],
@@ -358,6 +363,7 @@ def eval_div_pdf(scene: ir.Scene, mat_id, wi, wo, hit: HitInfo, regularize,
     if scene.has_principled:
         ev, pp = _principled_eval_pdf(scene, mat_id, wi, wo, hit, regularize,
                                       base_col)
+        pp = pp.detach()              # detached-sampling estimator
         safe = torch.where((pp > 0.0)[..., None],
                            ev / torch.clamp_min(pp, 1e-20)[..., None],
                            torch.zeros_like(ev))

@@ -12,7 +12,7 @@ import math
 import torch
 
 from vimg_tpu_torch.core.math import (dot, dotk, luminance, normalize,
-                                      onb_to_world, pow5, sqrt_cr,
+                                      onb_to_world, pow5, sqrt_cr, sqrt_pos,
                                       world_to_onb)
 
 PI = math.pi
@@ -91,7 +91,7 @@ def fresnel_dielectric(n_dot_i, eta):
     reflection."""
     n_dot_t_sq = 1.0 - (1.0 - n_dot_i * n_dot_i) / (eta * eta)
     tir = n_dot_t_sq < 0.0
-    n_dot_t = sqrt_cr(torch.clamp_min(n_dot_t_sq, 0.0))
+    n_dot_t = sqrt_pos(n_dot_t_sq)
     ni = n_dot_i.abs()
     rs = (ni - eta * n_dot_t) / torch.clamp_min(ni + eta * n_dot_t, 1e-12)
     rp = (eta * ni - n_dot_t) / torch.clamp_min(eta * ni + n_dot_t, 1e-12)

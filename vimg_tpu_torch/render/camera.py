@@ -68,7 +68,7 @@ def generate_rays(cam: Camera, px, py, lens_r1, lens_r2):
         [x_dir, y_dir, -torch.ones_like(x_dir)], dim=-1))
     origin = torch.zeros_like(ray_dir)
 
-    if float(cam.aperture_radius) > 0.0:
+    if float(cam.aperture_radius.detach()) > 0.0:
         # aperture-disk origin, aimed through the focal-plane point
         disk = warps.sample_disk(lens_r1, lens_r2) * cam.aperture_radius
         origin = torch.cat([disk, torch.zeros_like(disk[..., :1])], dim=-1)

@@ -20,9 +20,19 @@ divergence from the C++ reference that vimg_tpu makes too.
 live paths) and ``shadow_rays`` (NEE rays) as the megakernel counts them;
 where it holds a ``pixel_segments`` tensor (int64, one entry a pixel of
 the frame), the material and MIS loops add each segment to its pixel.
+
+Gradients (diff/grad.py) use vimg_tpu's detached-sampling estimator:
+autograd flows through BSDF eval, emission, textures, the background and
+the geometric terms, while sampled directions, pdf divisors, MIS weights
+and roulette ratios are detached at vimg_tpu's stop_gradient points. In a
+forward render the detaches change no value. ``bounded_depth`` runs
+exactly that many bounces whatever ``settings.max_depth`` says (vimg_tpu's
+``lax.scan`` bound of the differentiable path); paths end earlier when no
+lane is live, where vimg_tpu's scan masks them.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import torch
@@ -106,8 +116,9 @@ def _geometric_term(look_from, point, normal):
 
 
 def _roulette(throughput, eta_scale, rand):
-    """Russian roulette: (survive mask, reweighted throughput)."""
-    rr = throughput / eta_scale[..., None]
+    """Russian roulette: (survive mask, reweighted throughput); the
+    continuation probability is detached."""
+    rr = (throughput / eta_scale[..., None]).detach()
     max_val = torch.clamp_max(rr.amax(dim=-1), ROULETTE_CLAMP)
     survive = rand <= max_val
     return survive, throughput / torch.clamp_min(max_val, 1e-20)[..., None]
@@ -242,6 +253,11 @@ def mis_integrator_loop(scene, settings, tracer, pix, samp, stats=None):
         if n_lights > 0:
             pick, lr1, lr2, _ = rng.uniform4(p, s, d, Draw.LIGHT_SAMPLE)
             ls = emitters.sample_lights(scene, hi.p, pick, lr1, lr2)
+            # the light sample's direction, pdf and distance are detached;
+            # G stays differentiable (the integrand's falloff at the hit)
+            ls = dataclasses.replace(ls, wi=ls.wi.detach(),
+                                     pdf=ls.pdf.detach(),
+                                     dist=ls.dist.detach())
             do_nee = ~mat_delta & (ls.pdf != 0.0)
             _count(stats, "shadow_rays", do_nee.sum())
             shadow_max = torch.where(torch.isfinite(ls.dist),
@@ -250,7 +266,7 @@ def mis_integrator_loop(scene, settings, tracer, pix, samp, stats=None):
             f, mpdf = bsdf.eval_pdf(scene, hi.mat_id, rd, ls.wi, hi,
                                     non_spec, tex=tex)
             ok = do_nee & ~occl & (mpdf != 0.0) & ~torch.isnan(mpdf)
-            w = _balance(ls.pdf, mpdf * ls.G)
+            w = _balance(ls.pdf, mpdf.detach() * ls.G).detach()
             contrib = (tp * f * ls.radiance
                        * (w * ls.G / torch.clamp_min(ls.pdf, 1e-20))[..., None])
             contrib = torch.where(torch.isnan(contrib),
@@ -261,6 +277,7 @@ def mis_integrator_loop(scene, settings, tracer, pix, samp, stats=None):
         # ---- BSDF sampling --------------------------------------------
         sc = bsdf.sample_mat(scene, hi.mat_id, rd, hi, _bsdf_rands(p, s, d),
                              non_spec, tex=tex)
+        sc = dataclasses.replace(sc, wo=sc.wo.detach(), eta=sc.eta.detach())
         cont = sc.valid
         non_spec = non_spec | (cont & ~sc.is_specular)
         refr = sc.eta != 0.0
@@ -276,7 +293,8 @@ def mis_integrator_loop(scene, settings, tracer, pix, samp, stats=None):
         cont = cont & ~torch.isnan(pdf2)      # NaN pdf suppression
         # smooth dielectric: eval/pdf == 1 analytically
         ratio = torch.where(mat_delta[..., None], torch.ones_like(f2),
-                            f2 / torch.clamp_min(pdf2, 1e-20)[..., None])
+                            f2 / torch.clamp_min(pdf2.detach(), 1e-20)[
+                                ..., None])
         ratio = torch.where(torch.isnan(ratio) | torch.isinf(ratio),
                             torch.zeros_like(ratio), ratio)
         tp = torch.where(cont[..., None], tp * ratio, tp)
@@ -299,7 +317,7 @@ def mis_integrator_loop(scene, settings, tracer, pix, samp, stats=None):
         one = torch.ones_like(pdf2)
         # pdf2*G2 can overflow to inf; the clamp keeps the weight -> 1
         w_hit = torch.where(mat_delta | (pdf2 == 0.0), one, _balance(
-            torch.clamp_max(pdf2 * G2, 1e30), light_pdf))
+            torch.clamp_max(pdf2 * G2, 1e30), light_pdf)).detach()
         result.index_add_(0, idx, torch.where(
             hit_emissive[..., None], tp * w_hit[..., None] * em,
             torch.zeros_like(em)))
@@ -307,7 +325,7 @@ def mis_integrator_loop(scene, settings, tracer, pix, samp, stats=None):
         if scene.bg_is_emissive:
             bgp = div(emitters.background_pdf(scene, nrd), nl)
             w_bg = torch.where(mat_delta | (pdf2 == 0.0), one,
-                               _balance(pdf2, bgp))
+                               _balance(pdf2, bgp)).detach()
             bg2 = emitters.background_emit(scene, nrd, cone_s)
             result.index_add_(0, idx, torch.where(
                 missed[..., None], tp * w_bg[..., None] * bg2,
@@ -339,8 +357,12 @@ INTEGRATORS = {
 }
 
 
-def trace_radiance(scene, settings, tracer, pix, samp, stats=None):
-    """Radiance (B, 3) of the paths (pix, samp) under
-    ``settings.integrator``."""
-    return INTEGRATORS[settings.integrator](scene, settings, tracer, pix,
-                                            samp, stats=stats)
+def trace_radiance(scene, settings, tracer, pix, samp, integrator=None,
+                   bounded_depth=None, stats=None):
+    """Radiance (B, 3) of the paths (pix, samp) under ``integrator``
+    (``settings.integrator`` when None); ``bounded_depth`` as the module
+    docstring says."""
+    if bounded_depth is not None:
+        settings = dataclasses.replace(settings, max_depth=bounded_depth)
+    return INTEGRATORS[integrator or settings.integrator](
+        scene, settings, tracer, pix, samp, stats=stats)

@@ -60,7 +60,7 @@ QUAD_UVS = np.array([[0, 0], [0, 1], [1, 1], [1, 0]], np.float32)
 QUAD_IDX = np.array([[0, 2, 1], [2, 0, 3]], np.uint32)
 
 _MESH_TODO = ("mesh/OBJ surfaces are not ported yet (the OBJ loader is "
-              "ROADMAP queue A item 22)")
+              "ROADMAP queue A, item A8)")
 
 
 class SceneBuilder:
