@@ -120,7 +120,33 @@ Phases:
     torch.index_select;
 22. B-3: kernels P23-P31 (tools/probe_pallas.py, probe_constructs.py)
     through their probes (every check's verdict must hold), against their
-    plain versions.
+    plain versions;
+23. kernel X2 (the per-ray BVH walk, csrc/bvh_walk.cu) against its plain
+    version bvh_traverse on the card, on terrain 100k (phase 6's camera,
+    bounce and shadow rays) and on many_lights_scene (131,072 camera,
+    cosine-bounce and shadow rays each), in its three modes (closest t,
+    prim type, prim id, u, v; any hit; the heatmap's cost), bit for bit;
+    timed with CUDA events beside its bound; its registers and spills;
+    X2's closest hits against B3's on terrain 100k (the same prim ids but
+    at ties in t, counted);
+24. main path 11: a Mitsuba XML scene written here (terrain 100k as .obj,
+    a 20k-triangle bumpy sphere as .serialized, 128 spheres, a rectangle
+    area emitter, a 64x128 .hdr env map) -> cli.main(["-f", ..., "--spp",
+    "64"]) -> load_mitsuba_scene -> render_frame at 512x256 -> the
+    wavefront (the env map makes the megakernel refuse it) over the BVH
+    tracer (128 spheres): only X2 may launch; first the 1-spp frame
+    through X2 and through its plain walk agree per pixel with equal ray
+    counts;
+25. main path 12: a GLB written here (terrain 100k, three 256^2 PNG
+    textures written by film.write_png, an emissive quad, a camera) and its
+    companion JSON -> cli.main(["-f", ..., "-j", ...]) -> load_gltf_scene
+    -> the wavefront with textures and ray cones over B3 only, after the
+    same 1-spp check;
+26. main path 13: a JSON scene with a "mesh" surface (the terrain .obj)
+    through the CLI as it is (B3) and with -b 1 (X2 over the sweep-SAH
+    tree): the pixels that differ and the two means; then -m 4.0 on main
+    path 11's file (the 512x256 heatmap, 4 spp, through X2's cost
+    counter) and -d "256 128" on the card against the CPU.
 The probe kernels lie on no render path: their rows report 0 launches,
 and each probe phase prints the launches its entry points made. Every
 probe record carries the card's name and power limit. Each kernel is
@@ -143,6 +169,7 @@ failure exits non-zero without it. A machine without CUDA fails at once.
 import dataclasses
 import json
 import os
+import struct
 import subprocess
 import sys
 import tempfile
@@ -356,6 +383,7 @@ def event_ms(fn, reps):
 
 
 def zero_counts():
+    from vimg_tpu_torch.geometry import bvh
     from vimg_tpu_torch.geometry import cluster_trace as ct
     from vimg_tpu_torch.geometry import packet_trace as pt
     from vimg_tpu_torch.ops import mxu_gather
@@ -368,11 +396,13 @@ def zero_counts():
     pt.LAUNCHES = 0
     pt.LAUNCHES_CULL = 0
     mxu_gather.LAUNCHES = 0
+    bvh.LAUNCHES = 0
     for k in common.LAUNCHES:
         common.LAUNCHES[k] = 0
 
 
 def read_counts():
+    from vimg_tpu_torch.geometry import bvh
     from vimg_tpu_torch.geometry import cluster_trace as ct
     from vimg_tpu_torch.geometry import packet_trace as pt
     from vimg_tpu_torch.ops import mxu_gather
@@ -382,7 +412,7 @@ def read_counts():
                 cluster_wide=ct.LAUNCHES_WIDE, cluster_skip=ct.LAUNCHES_SKIP,
                 megakernel_mesh=kernel.LAUNCHES_MESH,
                 packet_trace=pt.LAUNCHES, packet_cull=pt.LAUNCHES_CULL,
-                gather_row=mxu_gather.LAUNCHES,
+                gather_row=mxu_gather.LAUNCHES, bvh_walk=bvh.LAUNCHES,
                 **common.LAUNCHES)
 
 
@@ -1781,8 +1811,8 @@ def other_frame(case, device):
     g_normal frame of terrain 20k, and material frames the megakernel
     refuses (260 spheres): over a 2,000-triangle floor through the cluster
     tracer (its default walk, and a given skip-walk tracer), and alone
-    through the SoA tracer. make_tracer picks no tracer for 260 spheres
-    by itself: vimg_tpu's BVH is not ported (ROADMAP A4)."""
+    through the SoA tracer (each names its tracer: by itself make_tracer
+    gives 260 spheres the BVH tracer, X2)."""
     from vimg_tpu_torch.geometry.cluster_trace import ClusterTracer
     from vimg_tpu_torch.scene import ir
     from vimg_tpu_torch.scene.synthetic import terrain_scene
@@ -2186,6 +2216,681 @@ def lowering_probe_phase(dev):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phases 23-26: kernel X2 and the scene-file front door (main paths 11-13)
+# ---------------------------------------------------------------------------
+
+def light_rays(scene):
+    """N_RAYS each of rays for many_lights_scene, whose ground quad is a
+    sliver (ROADMAP C23), so camera rays seldom hit: camera rays (512x256
+    @ 1 spp), cosine-bounce rays from points of the ground plane y = 0,
+    and shadow rays from the same points toward a sampled point of a
+    random light sphere (finite maxT)."""
+    import torch
+    from vimg_tpu_torch.core import rng
+    from vimg_tpu_torch.core.math import normalize
+    from vimg_tpu_torch.core.rng import Draw
+    from vimg_tpu_torch.core.warps import sample_hemisphere_cosine
+    from vimg_tpu_torch.render.integrators import MIN_T, _primary_rays
+    from vimg_tpu_torch.scene import ir
+    dev = scene.device
+    st = ir.RenderSettings(MESH_W, MESH_H, spp=1, integrator="mis")
+    pix = torch.arange(N_RAYS, device=dev)
+    samp = torch.zeros_like(pix)
+    ro, rd, _, _ = _primary_rays(scene, st, pix, samp)
+    u = rng.uniform4(pix, samp, 1, Draw.BSDF_SAMPLE)
+    org = torch.stack([28.0 * u[0] - 14.0, torch.zeros_like(u[0]),
+                       28.0 * u[1] - 14.0], -1)
+    # the hemisphere about +y: local z -> world y
+    w = sample_hemisphere_cosine(u[2], u[3])
+    up = torch.stack([w[:, 0], w[:, 2], w[:, 1]], -1)
+    k = (rng.uniform1(pix, samp, 1, Draw.LIGHT_PICK)
+         * scene.n_spheres()).long().clamp_max(scene.n_spheres() - 1)
+    tgt = scene.sph_center[k] + normalize(up) * scene.sph_radius[k][:, None]
+    to = tgt - org
+    dist = to.norm(dim=-1)
+    mn = torch.full((N_RAYS,), MIN_T, device=dev)
+    inf = torch.full((N_RAYS,), float("inf"), device=dev)
+    return {"camera": (ro.contiguous(), rd.contiguous(), mn, inf),
+            "bounce": (org.contiguous(), up.contiguous(), mn, inf),
+            "shadow": (org.contiguous(), (to / dist[:, None]).contiguous(),
+                       mn, (dist - 1e-4).contiguous())}
+
+
+def x2_bound(st, nbytes):
+    """Kernel X2's bound from the plain walk's counts ``st``: the larger
+    of ``nbytes`` at the card's memory rate and the tests' float32
+    operations at its peak rate."""
+    from vimg_tpu_torch.geometry import bvh
+    ops = (st.get("box_tests", 0) * bvh.BOX_TEST_OPS
+           + st.get("tri_tests", 0) * bvh.TRI_TEST_OPS
+           + st.get("sphere_tests", 0) * bvh.SPHERE_TEST_OPS)
+    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    t_ops = 1e3 * ops / FP32_OPS_PER_S
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def x2_vs_plain(label, scene, rays):
+    """X2 against bvh_traverse on one scene, each ray kind in the three
+    modes (closest, any hit, cost), bit for bit; X2 timed with CUDA events
+    (TIMED_LAUNCHES launches), the plain walk once; the bound of each."""
+    import torch
+    from vimg_tpu_torch.geometry import bvh
+    t0 = time.time()
+    tr = bvh.BVHTracer(scene)
+    tables = sum(x.numel() * x.element_size() for x in (
+        *(getattr(tr.bvh, f) for f in ("node_min", "node_max", "node_start",
+                                       "node_count", "node_skip",
+                                       "prim_type", "prim_idx")),
+        scene.verts, scene.tri_vidx, scene.sph_center, scene.sph_radius))
+    log(f"  {label}: {scene.n_tris()} triangles, {scene.n_spheres()} "
+        f"spheres, {tr.bvh.n_nodes} BVH nodes, tables {tables / 1e6:.1f} MB; "
+        f"host build {time.time() - t0:.2f}s")
+    res, err = {}, 0.0
+    for kind, r in rays.items():
+        for mode in ("closest", "occluded", "cost"):
+            kw = dict(any_hit=mode == "occluded", count_cost=mode == "cost")
+
+            def kern():
+                return bvh.bvh_trace(scene, tr.bvh, *r, **kw)
+            got = kern()
+            torch.cuda.synchronize()
+            kern()
+            _, ms = event_ms(kern, TIMED_LAUNCHES)
+            st = {}
+            ref, plain_ms = event_ms(lambda: bvh.bvh_traverse(
+                scene, tr.bvh, *r, stats=st, **kw), 1)
+            if mode == "occluded":
+                bad = int((got != ref).sum())
+                summary = f"occluded {int(got.sum())}/{N_RAYS}"
+            else:
+                (gh, gc), (rh, rc) = ((got, None), (ref, None)) \
+                    if mode == "closest" else (got, ref)
+                outs = [(getattr(gh, f), getattr(rh, f)) for f in
+                        ("t", "prim_type", "prim_id", "u", "v")]
+                if gc is not None:
+                    outs.append((gc, rc))
+                bad = 0
+                for a, b in outs:
+                    if a.dtype == torch.float32:
+                        bad += int((a.view(torch.int32)
+                                    != b.view(torch.int32)).sum())
+                        fin = torch.isfinite(a) & torch.isfinite(b)
+                        if bool(fin.any()):
+                            err = max(err, float((a[fin] - b[fin]).abs()
+                                                 .max()))
+                    else:
+                        bad += int((a != b).sum())
+                summary = (f"hits {int(gh.hit.sum())}/{N_RAYS} (spheres "
+                           f"{int((gh.prim_type == 1).sum())})")
+                if gc is not None:
+                    summary += f", mean cost {float(gc.mean()):.3f}"
+            nbytes = N_RAYS * 48 + tables
+            bound, by = x2_bound(st, nbytes)
+            res[(kind, mode)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                                     bound_by=by, mismatches=bad, **st)
+            log(f"    X2 {kind:6s} {mode:8s}: {summary}; kernel vs plain "
+                f"mismatches {bad}; kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.1f} ms; {st.get('box_tests', 0)} box + "
+                f"{st.get('tri_tests', 0)} tri + "
+                f"{st.get('sphere_tests', 0)} sphere tests -> bound "
+                f"{bound:.4f} ms ({by}); {ms / bound:.1f}x the bound")
+            if bad:
+                fail(f"X2 {label} {kind} {mode}: {bad} mismatches")
+    return res, err, tr
+
+
+# X2 against B3: B3 tests the host's plane rows and X2 the watertight
+# test, so t, u, v differ in their low bits (grazing rays most), and a ray
+# through an edge may take either triangle (both t within EDGE_REL of
+# each other) or, at the mesh's silhouette, hit in one and miss in the
+# other. At most EDGE_SHARE of the rays may differ, and only so.
+EDGE_REL, EDGE_SHARE = 1e-3, 1e-3
+
+
+def x2_against_b3(scene, rays, tr):
+    """X2's closest hits against B3's on terrain 100k: the same prim id on
+    every ray but at edges (counted and printed)."""
+    import torch
+    from vimg_tpu_torch.geometry import cluster_trace as ct
+    b3 = ct.ClusterTracer(scene, walk="wide")
+    for kind in ("camera", "bounce"):
+        r = rays[kind]
+        a, b = tr.closest(scene, *r), b3.closest(scene, *r)
+        diff = a.prim_id != b.prim_id
+        hit_diff = a.hit != b.hit
+        fin = a.hit & b.hit
+        rel = (a.t - b.t).abs() / b.t.abs().clamp_min(1e-30)
+        ties = int((diff & fin & (a.t == b.t)).sum())
+        near = int((diff & fin & (a.t != b.t) & (rel <= EDGE_REL)).sum())
+        n_diff, n_hm = int((diff | hit_diff).sum()), int(hit_diff.sum())
+        dt = float(rel[fin].max()) if bool(fin.any()) else 0.0
+        log(f"    X2 vs B3 {kind}: prim ids differ on {n_diff} of {N_RAYS} "
+            f"rays: {ties} exact ties in t, {near} other edge ties (t within "
+            f"{EDGE_REL:g} relative), {n_hm} hit in one and missed in the "
+            f"other; max relative |dt| over rays both hit {dt:.3g}")
+        if n_diff != ties + near + n_hm or n_diff > EDGE_SHARE * N_RAYS:
+            fail(f"X2 vs B3 {kind}: closest hits differ beyond edges")
+        if not torch.equal(a.prim_type, b.prim_type):
+            fail(f"X2 vs B3 {kind}: prim types differ")
+
+
+def x2_phase(terrain, terrain_rays_, dev):
+    """Phase 23: X2 against its plain version on terrain 100k (phase 6's
+    rays) and on many_lights_scene; X2 against B3 on terrain 100k;
+    X2's registers and spills."""
+    from vimg_tpu_torch.runtime import cuda
+    from vimg_tpu_torch.scene.synthetic import many_lights_scene
+    log("[23] X2 (the BVH walk) vs its plain version, "
+        f"{N_RAYS} rays a kind, three modes")
+    for m, mode in enumerate(("closest", "any hit", "cost")):
+        for line in cuda.ptxas_lines(cuda.BUILD_INFO["log"],
+                                     f"bvh_walk_kernelILi{m}E"):
+            log(f"    ptxas X2 {mode}: {line}")
+    res_t, err_t, tr = x2_vs_plain("terrain 100k", terrain, terrain_rays_)
+    x2_against_b3(terrain, terrain_rays_, tr)
+    lights = many_lights_scene(256, MESH_W, MESH_H, device=dev)
+    res_l, err_l, _ = x2_vs_plain("many_lights_scene", lights,
+                                  light_rays(lights))
+    return res_t, res_l, max(err_t, err_l)
+
+
+FRONT_SPHERES = 128
+FRONT_BUMPY_TRIS = 20_000
+FRONT_TERRAIN_TRIS = 100_000
+HEATMAP_FACTOR, HEATMAP_SPP = 4.0, 4
+DEBUG_PIXEL = (256, 128)
+# -d on the card against the CPU: a path of the pixel's 64 may take
+# another direction where an ulp of the card's sin / cos / log moves a
+# sample, so the CPU's value is held within a share of itself
+DEBUG_REL, DEBUG_ABS = 0.02, 1e-4
+
+
+def write_obj(path, verts, tris):
+    with open(path, "w") as f:
+        f.write("".join(f"v {a!r} {b!r} {c!r}\n"
+                        for a, b, c in verts.tolist()))
+        f.write("".join(f"f {a + 1} {b + 1} {c + 1}\n"
+                        for a, b, c in tris.tolist()))
+
+
+def sky_image(h=64, w=128):
+    """textured_terrain_scene's sky: a gradient and a sun disk."""
+    import numpy as np
+    th = (np.arange(h) + 0.5) / h * np.pi
+    ph = (np.arange(w) + 0.5) / w * 2 * np.pi
+    tt, pp = np.meshgrid(th, ph, indexing="ij")
+    sky = np.stack([0.3 + 0.3 * np.cos(tt), 0.45 + 0.3 * np.cos(tt),
+                    0.8 + 0.15 * np.cos(tt)], -1)
+    d2 = (tt - np.pi * 0.3) ** 2 + (pp - np.pi * 0.35) ** 2
+    sun = np.exp(-d2 / 0.004)[..., None] * np.array([400.0, 380.0, 330.0])
+    return (sky + sun).astype(np.float32)
+
+
+def write_mitsuba(d, terrain):
+    """Main path 11's Mitsuba scene in directory d: terrain 100k as .obj, a
+    20k-triangle bumpy sphere (smooth normals) as .serialized, 128 spheres
+    over eight Lambertian and Principled materials, a rectangle area
+    emitter and a 64x128 .hdr env map; 512x256 @ 64 spp, path, depth 64."""
+    import numpy as np
+    from vimg_tpu_torch.scene.images import write_hdr
+    from vimg_tpu_torch.scene.serialized import write_serialized
+    from vimg_tpu_torch.scene.synthetic import bumpy_sphere_mesh
+    write_obj(os.path.join(d, "terrain.obj"), *terrain)
+    v, t = bumpy_sphere_mesh(FRONT_BUMPY_TRIS, 1)
+    p = v[t]
+    fn = np.cross(p[:, 1] - p[:, 0], p[:, 2] - p[:, 0])
+    n = np.zeros_like(v)
+    for k in range(3):
+        np.add.at(n, t[:, k], fn)
+    n /= np.maximum(np.linalg.norm(n, axis=-1, keepdims=True), 1e-12)
+    write_serialized(os.path.join(d, "bumpy.serialized"), v, t, normals=n)
+    write_hdr(os.path.join(d, "sky.hdr"), sky_image())
+    rs = np.random.RandomState(13)
+    shapes = []
+    for k in range(FRONT_SPHERES):
+        m = k % 8
+        if k < 8 and m < 4:
+            bsdf = (f'<bsdf type="diffuse" id="m{m}"><rgb name="reflectance"'
+                    f' value="{0.2 + 0.2 * m}, 0.5, {0.8 - 0.15 * m}"/></bsdf>')
+        elif k < 8:
+            bsdf = (f'<bsdf type="principled" id="m{m}"><rgb name='
+                    f'"base_color" value="0.9, {0.2 * (m - 3)}, 0.3"/>'
+                    f'<float name="roughness" value="{0.1 + 0.2 * (m - 4)}"/>'
+                    f'<float name="metallic" value="{0.3 * (m - 4)}"/></bsdf>')
+        else:
+            bsdf = f'<ref id="m{m}"/>'
+        x, z = rs.uniform(-3.5, 3.5, 2)
+        shapes.append(f'<shape type="sphere"><point name="center" x="{x}" '
+                      f'y="{1.0 + 0.8 * rs.rand()}" z="{z}"/><float '
+                      f'name="radius" value="{0.05 + 0.1 * rs.rand()}"/>'
+                      f'{bsdf}</shape>')
+    xml = f"""<scene version="2.0.0">
+  <integrator type="path"><integer name="max_depth" value="64"/></integrator>
+  <sensor type="perspective">
+    <float name="fov" value="45"/><string name="fov_axis" value="y"/>
+    <transform name="to_world">
+      <lookat origin="0, 2.2, 4.6" target="0, 0, 0" up="0, 1, 0"/>
+    </transform>
+    <sampler type="independent"><integer name="sample_count" value="{MESH_SPP}"/></sampler>
+    <film type="hdrfilm"><integer name="width" value="{MESH_W}"/><integer name="height" value="{MESH_H}"/></film>
+  </sensor>
+  <emitter type="envmap"><string name="filename" value="sky.hdr"/></emitter>
+  <shape type="obj"><string name="filename" value="terrain.obj"/>
+    <bsdf type="diffuse"><rgb name="reflectance" value="0.55, 0.5, 0.42"/></bsdf>
+  </shape>
+  <shape type="serialized"><string name="filename" value="bumpy.serialized"/>
+    <transform name="to_world"><scale value="0.6"/><translate y="1.2"/></transform>
+    <bsdf type="principled"><rgb name="base_color" value="0.7, 0.6, 0.5"/>
+      <float name="roughness" value="0.4"/></bsdf>
+  </shape>
+  <shape type="rectangle">
+    <transform name="to_world"><scale value="1.2"/><rotate x="1" angle="90"/><translate y="4"/></transform>
+    <emitter type="area"><rgb name="radiance" value="14, 13.5, 12"/></emitter>
+  </shape>
+  {chr(10).join(shapes)}
+</scene>
+"""
+    path = os.path.join(d, "front.xml")
+    with open(path, "w") as f:
+        f.write(xml)
+    return path
+
+
+def write_mesh_json(d):
+    """Main path 13's JSON scene: terrain.obj (written by write_mitsuba) as
+    a "mesh" surface under a quad light; 512x256 @ 64 spp, MIS, depth 64."""
+    cfg = {
+        "camera": {"transform": {"from": [0, 2.2, 4.6], "at": [0, 0, 0],
+                                 "up": [0, 1, 0]},
+                   "resolution": [MESH_W, MESH_H], "vfov": 45},
+        "sampler": {"samples": MESH_SPP, "depth": 64},
+        "integrator": {"type": "mis"},
+        "materials": [{"name": "ground", "type": "lambertian",
+                       "albedo": [0.55, 0.5, 0.42]},
+                      {"name": "light", "type": "diffuse_light",
+                       "albedo": [14, 13.5, 12]}],
+        "surfaces": [
+            {"type": "mesh", "mat_name": "ground", "filename": "terrain.obj"},
+            {"type": "quad", "mat_name": "light",
+             "transform": [{"scale": 1.2},
+                           {"rotate": [0.7071068, 0, 0, 0.7071068]},
+                           {"translate": [0, 4, 0]}]}]}
+    path = os.path.join(d, "mesh.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return path
+
+
+def write_glb(d, terrain):
+    """Main path 12's glTF: terrain 100k with planar UVs and three 256^2
+    PNG textures (base colour, normal, metal-rough; film.write_png), an
+    emissive quad, a perspective camera (aspect 2), and its companion JSON
+    (spp 64, yres 256, MIS, depth 64, a constant sky)."""
+    import numpy as np
+    from vimg_tpu_torch.render import film
+    v, t = terrain
+    rs = np.random.RandomState(17)
+    yy, xx = np.meshgrid(np.arange(256), np.arange(256), indexing="ij")
+    checker = ((xx // 16 + yy // 16) % 2).astype(np.float32)
+    noise = rs.rand(256, 256).astype(np.float32)
+    base = np.stack([0.2 + 0.5 * checker + 0.1 * noise,
+                     0.35 + 0.25 * (1 - checker), 0.25 + 0.15 * noise], -1)
+    bump = np.stack([0.5 + 0.2 * np.sin(xx / 9.0), 0.5 + 0.2 * np.cos(
+        yy / 7.0), np.ones_like(noise)], -1)
+    mr = np.stack([np.zeros_like(noise), 0.2 + 0.6 * noise, 0.8 * checker],
+                  -1)
+    pngs = []
+    for k, img in enumerate((base, bump, mr)):
+        path = os.path.join(d, f"tex{k}.png")
+        film.write_png(path, img)
+        with open(path, "rb") as f:
+            pngs.append(f.read())
+    ext = v[:, [0, 2]]
+    uv = ((ext - ext.min(0)) / np.maximum(np.ptp(ext, 0), 1e-6) * 6.0).astype(
+        np.float32)
+    quad = np.array([[-1.2, 4, -1.2], [1.2, 4, -1.2], [1.2, 4, 1.2],
+                     [-1.2, 4, 1.2]], np.float32)
+    blob, views = bytearray(), []
+
+    def view(data):
+        blob.extend(b"\0" * (-len(blob) % 4))
+        views.append(dict(buffer=0, byteOffset=len(blob),
+                          byteLength=len(data)))
+        blob.extend(data)
+        return len(views) - 1
+    acc = [dict(bufferView=view(v.tobytes()), componentType=5126,
+                count=len(v), type="VEC3"),
+           dict(bufferView=view(uv.tobytes()), componentType=5126,
+                count=len(v), type="VEC2"),
+           dict(bufferView=view(t.astype(np.uint32).tobytes()),
+                componentType=5125, count=t.size, type="SCALAR"),
+           dict(bufferView=view(quad.tobytes()), componentType=5126, count=4,
+                type="VEC3"),
+           dict(bufferView=view(np.array([0, 1, 2, 0, 2, 3], np.uint32)
+                                .tobytes()),
+                componentType=5125, count=6, type="SCALAR")]
+    images_ = [dict(bufferView=view(b), mimeType="image/png") for b in pngs]
+    blob.extend(b"\0" * (-len(blob) % 4))
+    half = -0.5 * np.arctan2(2.2, 4.6)        # pitch down at the origin
+    doc = {
+        "asset": {"version": "2.0"}, "scene": 0,
+        "scenes": [{"nodes": [0, 1]}],
+        "nodes": [{"mesh": 0},
+                  {"camera": 0, "translation": [0, 2.2, 4.6],
+                   "rotation": [float(np.sin(half)), 0, 0,
+                                float(np.cos(half))]}],
+        "cameras": [{"type": "perspective", "perspective": {
+            "yfov": float(np.radians(45.0)), "aspectRatio": MESH_W / MESH_H,
+            "znear": 0.01}}],
+        "meshes": [{"primitives": [
+            {"attributes": {"POSITION": 0, "TEXCOORD_0": 1}, "indices": 2,
+             "material": 0},
+            {"attributes": {"POSITION": 3}, "indices": 4, "material": 1}]}],
+        "materials": [
+            {"pbrMetallicRoughness": {
+                "baseColorTexture": {"index": 0},
+                "metallicRoughnessTexture": {"index": 2}},
+             "normalTexture": {"index": 1, "scale": 1.0}},
+            {"emissiveFactor": [1.0, 0.96, 0.86], "extensions": {
+                "KHR_materials_emissive_strength":
+                    {"emissiveStrength": 14.0}}}],
+        "textures": [{"source": 0}, {"source": 1}, {"source": 2}],
+        "images": images_, "accessors": acc, "bufferViews": views,
+        "buffers": [{"byteLength": len(blob)}]}
+    js = json.dumps(doc).encode()
+    js += b" " * (-len(js) % 4)
+    body = (struct.pack("<II", len(js), 0x4E4F534A) + js
+            + struct.pack("<II", len(blob), 0x004E4942) + bytes(blob))
+    glb = os.path.join(d, "terrain.glb")
+    with open(glb, "wb") as f:
+        f.write(struct.pack("<III", 0x46546C67, 2, 12 + len(body)) + body)
+    comp = os.path.join(d, "terrain_glb.json")
+    with open(comp, "w") as f:
+        json.dump({"spp": MESH_SPP, "yres": MESH_H, "integrator": "mis",
+                   "depth": 64, "background": [0.25, 0.3, 0.38]}, f)
+    return glb, comp
+
+
+class Captured:
+    """Records what ``module.name`` returns while the context is open (the
+    CLI imports the render functions at each call, so it calls this)."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.calls = module, name, []
+
+    def __enter__(self):
+        self.orig = getattr(self.module, self.name)
+
+        def wrapped(*a, **kw):
+            import torch
+            torch.cuda.synchronize()
+            t0 = time.time()
+            out = self.orig(*a, **kw)
+            torch.cuda.synchronize()
+            self.calls.append((out, time.time() - t0))
+            return out
+        setattr(self.module, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def cli_run(argv):
+    """cli.main(argv) with its standard output kept: (rc, text)."""
+    import contextlib
+    import io
+    from vimg_tpu_torch import cli
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    return rc, buf.getvalue()
+
+
+def cli_frame(label, argv, png, allowed):
+    """Drive a CLI render with every count set to 0 just before and read
+    just after: the linear frame render_frame returned, its seconds, the
+    launches; only kernels in ``allowed`` may launch (each at least
+    once); the PNG written is read back."""
+    import numpy as np
+    from vimg_tpu_torch.render import render, wavefront
+    from vimg_tpu_torch.scene.images import decode_png
+    zero_counts()
+    with Captured(render, "render_frame") as cap:
+        rc, out = cli_run(argv + ["-o", png])
+    counts = read_counts()
+    nz = {k: v for k, v in counts.items() if v}
+    if rc != 0 or len(cap.calls) != 1:
+        fail(f"{label}: the CLI returned {rc} after {len(cap.calls)} frames")
+    img, secs = cap.calls[0]
+    if set(nz) != set(allowed):
+        fail(f"{label}: launches {nz}, expected {sorted(allowed)}")
+    with open(png, "rb") as f:
+        px = decode_png(f.read())
+    img_np = img.cpu().numpy()
+    if (img_np.shape != (MESH_H, MESH_W, 3) or not np.isfinite(img_np).all()
+            or px.shape != (MESH_H, MESH_W, 3) or px.max() == 0):
+        fail(f"{label}: image {img_np.shape} / PNG {px.shape} / non-finite")
+    stats = wavefront.LAST_STATS
+    paths = MESH_W * MESH_H * MESH_SPP
+    log(f"    {label}: {MESH_W}x{MESH_H} @ {MESH_SPP} spp, {secs:.3f} s "
+        f"(render loop {stats['seconds']:.3f} s), {paths / secs / 1e6:.3f} "
+        f"Mpaths/s, {(stats['segments'] + stats['shadow_rays']) / secs / 1e6:.2f}"
+        f" Mrays/s ({stats['segments']} segments + {stats['shadow_rays']} "
+        f"shadow rays), {stats['supersteps']} supersteps "
+        f"({1e3 * stats['seconds'] / stats['supersteps']:.2f} ms a "
+        f"superstep), launches {nz}; PNG mean {px.mean():.2f}")
+    for line in out.splitlines():
+        if line.startswith(("Scene loaded", "note:")):
+            log(f"      cli: {line}")
+    return img, secs, nz
+
+
+def one_spp_check(label, scene, st, kt, pt):
+    """The frame at 1 spp through the kernel's tracer ``kt`` and through
+    its plain twin ``pt`` (the wavefront): per pixel, equal ray counts.
+    Returns the plain frame."""
+    from vimg_tpu_torch.render import wavefront
+    st1 = dataclasses.replace(st, spp=1)
+    (img_k, sk), _ = timed(lambda: wavefront.render_wavefront(
+        scene, st1, tracer=kt, return_stats=True))
+    (img_p, sp), _ = timed(lambda: wavefront.render_wavefront(
+        scene, st1, tracer=pt, return_stats=True))
+    r = compare(f"{label} {st.width}x{st.height}@1 kernel vs plain walk",
+                img_p, img_k)
+    log(f"    kernel {sk['seconds']:.2f}s, plain walk {sp['seconds']:.2f}s; "
+        f"segments {sk['segments']} / {sp['segments']}, shadow rays "
+        f"{sk['shadow_rays']} / {sp['shadow_rays']}, supersteps "
+        f"{sk['supersteps']} / {sp['supersteps']}")
+    if not (r["mean"] < WF_MEAN and r["corr"] > WF_CORR):
+        fail(f"{label}: 1-spp kernel vs plain walk per pixel")
+    if (sk["segments"], sk["shadow_rays"]) != (sp["segments"],
+                                               sp["shadow_rays"]):
+        fail(f"{label}: 1-spp ray counts differ")
+    return img_p
+
+
+def mitsuba_main_path(files, png_dir, dev):
+    """Phase 24, main path 11: the Mitsuba scene through the CLI: the
+    wavefront (the env map makes the megakernel refuse it) over the BVH
+    tracer (128 spheres), X2 only; first the 1-spp frame through X2 and
+    through its plain walk."""
+    from vimg_tpu_torch.geometry import bvh
+    from vimg_tpu_torch.geometry.trace import make_tracer
+    from vimg_tpu_torch.render.mega import supports_megakernel
+    from vimg_tpu_torch.scene.mitsuba_loader import load_mitsuba_scene
+    t0 = time.time()
+    scene, st = load_mitsuba_scene(files["xml"], device=dev)
+    log(f"    scene: {scene.n_tris()} triangles, {scene.n_spheres()} "
+        f"spheres, {scene.n_mats()} materials, {scene.n_lights()} lights, "
+        f"env {tuple(scene.env_mips[0].shape[:2])}; {st}; load "
+        f"{time.time() - t0:.2f}s")
+    if supports_megakernel(scene, st):
+        fail("main path 11: the megakernel would take this frame")
+    kt = make_tracer(scene)
+    if not isinstance(kt, bvh.BVHTracer):
+        fail(f"main path 11: make_tracer gave {type(kt).__name__}")
+    plain = one_spp_check("main path 11", scene, st, kt,
+                               bvh.BVHTracer(scene, plain=True))
+    png = os.path.join(png_dir, "front_mitsuba.png")
+    img, secs, nz = cli_frame("main path 11", ["-f", files["xml"], "--spp",
+                                               str(MESH_SPP)], png,
+                              {"bvh_walk"})
+    check_mean(f"main path 11 {MESH_SPP} spp vs plain 1 spp", img, plain)
+    return nz["bvh_walk"]
+
+
+def gltf_main_path(files, png_dir, dev):
+    """Phase 25, main path 12: the GLB and its companion JSON through the
+    CLI: the wavefront with textures and ray cones over B3 only; first the
+    1-spp frame through B3 and through its plain walk."""
+    from vimg_tpu_torch.geometry import cluster_trace as ct
+    from vimg_tpu_torch.scene.gltf_loader import load_gltf_scene
+    t0 = time.time()
+    scene, st = load_gltf_scene(files["glb"], files["glb_json"], device=dev)
+    log(f"    scene: {scene.n_tris()} triangles, {scene.n_mats()} materials, "
+        f"{scene.n_lights()} lights, atlas {scene.atlas.shape[0]} texels, "
+        f"normal maps {scene.has_normal_maps}, cones {scene.needs_cones}; "
+        f"{st}; load {time.time() - t0:.2f}s")
+    if (st.width, st.height, st.spp) != (MESH_W, MESH_H, MESH_SPP):
+        fail(f"main path 12: settings {st}")
+    data = ct.ClusterData(scene)
+    kt = ct.ClusterTracer(scene, data=data)
+    if kt.walk != "wide":
+        fail(f"main path 12: the default walk is {kt.walk}, not wide")
+    plain = one_spp_check("main path 12", scene, st, kt,
+                               ct.ClusterTracer(scene, data=data, plain=True))
+    png = os.path.join(png_dir, "front_gltf.png")
+    img, secs, nz = cli_frame("main path 12", ["-f", files["glb"], "-j",
+                                               files["glb_json"]], png,
+                              {"cluster_wide"})
+    check_mean(f"main path 12 {MESH_SPP} spp vs plain 1 spp", img, plain)
+    return nz["cluster_wide"]
+
+
+def debug_pixel(argv):
+    import numpy as np
+    rc, out = cli_run(argv)
+    vals = {}
+    for line in out.splitlines():
+        for key in ("linear", "sRGB"):
+            if f") {key}:" in line:
+                vals[key] = np.array(json.loads(line.split(":", 1)[1]))
+    if rc != 0 or len(vals) != 2:
+        fail(f"-d {argv}: rc {rc}, output {out[-500:]}")
+    return vals
+
+
+def bvh_flag_main_path(files, png_dir, dev):
+    """Phase 26, main path 13: the JSON "mesh" scene through the CLI as it
+    is (B3) and with -b 1 (X2 over the sweep-SAH tree): the differing
+    pixels and the two means; then -m 4.0 on main path 11's file (the
+    heatmap through X2's cost counter) and -d on the card against the
+    CPU."""
+    import numpy as np
+    import torch
+    from vimg_tpu_torch.render import heatmap
+    from vimg_tpu_torch.scene.images import decode_png
+    a, _, nz_a = cli_frame("main path 13 (binned, B3)", ["-f", files["json"]],
+                           os.path.join(png_dir, "front_json.png"),
+                           {"cluster_wide"})
+    b, _, nz_b = cli_frame("main path 13 (-b 1, X2)", ["-f", files["json"],
+                                                       "-b", "1"],
+                           os.path.join(png_dir, "front_json_sweep.png"),
+                           {"bvh_walk"})
+    an, bn = a.cpu().numpy(), b.cpu().numpy()
+    ma, mb = an.reshape(-1, 3).mean(0), bn.reshape(-1, 3).mean(0)
+    differ = int((an != bn).any(-1).sum())
+    rel = np.abs(ma - mb) / np.maximum(ma, 1e-12)
+    log(f"    -b 0 vs -b 1: {differ} of {MESH_W * MESH_H} pixels differ "
+        f"(max |d| {float(np.abs(an - bn).max()):.3g}; B3 tests the host's "
+        f"plane rows, X2 the watertight test, so t, u, v differ in their "
+        f"last bits); means {ma.tolist()} / {mb.tolist()} (rel "
+        f"{rel.tolist()})")
+    if not (rel < MAIN_MEAN_REL).all():
+        fail("main path 13: the -b 1 frame's mean differs")
+    png = os.path.join(png_dir, "front_heatmap.png")
+    zero_counts()
+    with Captured(heatmap, "render_heatmap") as cap:
+        rc, _ = cli_run(["-f", files["xml"], "-m", str(HEATMAP_FACTOR),
+                         "-o", png])
+    nz_h = {k: v for k, v in read_counts().items() if v}
+    img, secs = cap.calls[0]
+    with open(png, "rb") as f:
+        px = decode_png(f.read())
+    log(f"    -m {HEATMAP_FACTOR}: {tuple(img.shape)} heatmap in {secs:.3f} s, "
+        f"launches {nz_h}; colours {len(np.unique(px.reshape(-1, 3), axis=0))}"
+        f" (turbo(floor(cost / spp) / factor) saturates at 1), PNG mean "
+        f"{px.mean():.2f}")
+    if (rc != 0 or nz_h != {"bvh_walk": HEATMAP_SPP}
+            or tuple(img.shape) != (MESH_H, MESH_W, 3)
+            or not bool(torch.isfinite(img).all())):
+        fail(f"-m: rc {rc}, launches {nz_h}, shape {tuple(img.shape)}")
+    x, y = DEBUG_PIXEL
+    zero_counts()
+    card = debug_pixel(["-f", files["xml"], "-d", f"{x} {y}"])
+    nz_d = {k: v for k, v in read_counts().items() if v}
+    cpu = debug_pixel(["-f", files["xml"], "--cpu", "-d", f"{x} {y}"])
+    d = np.abs(card["linear"] - cpu["linear"])
+    log(f"    -d {x} {y}: card {card['linear'].tolist()} (sRGB "
+        f"{card['sRGB'].tolist()}), CPU {cpu['linear'].tolist()}; max |d| "
+        f"{float(d.max()):.3g}; card launches {nz_d}")
+    if (set(nz_d) != {"bvh_walk"} or not np.isfinite(card["linear"]).all()
+            or (d > DEBUG_REL * np.abs(cpu["linear"]) + DEBUG_ABS).any()):
+        fail("-d: the card's pixel differs from the CPU's")
+    return (nz_a["cluster_wide"], nz_b["bvh_walk"] + nz_h["bvh_walk"]
+            + nz_d["bvh_walk"])
+
+
+def front_door_phases(terrain, terrain_rays_, png_dir, dev):
+    """Phases 23-26; returns X2's kernels-JSON row and the launches of B3
+    on main paths 12 and 13."""
+    from vimg_tpu_torch.scene.synthetic import terrain_mesh
+    res_t, res_l, err = x2_phase(terrain, terrain_rays_, dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
+        mesh = terrain_mesh(FRONT_TERRAIN_TRIS)
+        files = {"xml": write_mitsuba(tmp, mesh), "json": write_mesh_json(tmp)}
+        files["glb"], files["glb_json"] = write_glb(tmp, mesh)
+        log(f"    scene files written in {time.time() - t0:.2f}s: " + ", ".join(
+            f"{os.path.basename(p)} {os.path.getsize(p) / 1e6:.1f} MB"
+            for p in (*files.values(), os.path.join(tmp, "terrain.obj"),
+                      os.path.join(tmp, "bumpy.serialized"))))
+        out = png_dir or tmp
+        log("[24] main path 11: cli -f front.xml --spp 64 -> "
+            "load_mitsuba_scene -> render_frame -> wavefront over X2")
+        x2_11 = mitsuba_main_path(files, out, dev)
+        log("[25] main path 12: cli -f terrain.glb -j terrain_glb.json -> "
+            "load_gltf_scene -> render_frame -> wavefront (textures, cones) "
+            "over B3")
+        b3_12 = gltf_main_path(files, out, dev)
+        log("[26] main path 13: cli -f mesh.json [-b 1 | -m 4.0 | -d]")
+        b3_13, x2_13 = bvh_flag_main_path(files, out, dev)
+    c = res_t[("bounce", "closest")]
+    row = {
+        "name": "bvh_walk",
+        "route": "cuda",
+        "source": "vimg_tpu_torch/csrc/bvh_walk.cu",
+        # X2 replaces an XLA loop of vimg_tpu, not a Pallas kernel
+        "replaces": "vimg_tpu/geometry/bvh.py:341",
+        "launches": x2_11 + x2_13,
+        "launches_by_main_path": {"11": x2_11, "13": x2_13},
+        "max_abs_err": err,
+        "ms": c["ms"],
+        "plain_ms": c["plain_ms"],
+        "bound_ms": c["bound_ms"],
+        "bound_by": c["bound_by"],
+        "library_ms": None,
+        "clock": "events",
+        **{f"{k}_{m}_ms": res_t[(k, m)]["ms"] for k in ("camera", "shadow")
+           for m in ("closest", "occluded")},
+        "many_lights_bounce_ms": res_l[("bounce", "closest")]["ms"],
+        "many_lights_bound_ms": res_l[("bounce", "closest")]["bound_ms"]}
+    return row, b3_12, b3_13
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2373,6 +3078,10 @@ def main():
     probes += gather_probe_phase(dev)
     probes += lowering_probe_phase(dev)
 
+    # ---- 23-26. X2 and the scene-file front door (main paths 11-13) ----
+    x2, b3_12, b3_13 = front_door_phases(*phase6[TERRAINS[0][0]], png_dir,
+                                         dev)
+
     rows = [{
         "name": "megakernel_analytic",
         "route": "cuda",
@@ -2390,9 +3099,9 @@ def main():
             TERRAINS, ("vimg_tpu/geometry/cluster_trace.py:455",
                        "vimg_tpu/geometry/cluster_trace.py:800")):
         c = cmp[(n_tris, walk, "bounce")]
-        # B3 carries main paths 2, 9 and 10
+        # B3 carries main paths 2, 9, 10, 12 and 13 (its -b 0 frame)
         by_path = ({"2": launches[name], "9": envtex_launches,
-                    "10": train_launches}
+                    "10": train_launches, "12": b3_12, "13": b3_13}
                    if walk == "wide" else {"3": launches[name]})
         rows.append({
             "name": name,
@@ -2442,6 +3151,7 @@ def main():
                      source="vimg_tpu_torch/csrc/gather_row.cu",
                      replaces="vimg_tpu/ops/mxu_gather.py:57",
                      clock="events"))
+    rows.append(x2)
     rows += probes
     log(json.dumps({"kernels": rows}))
     log(card)

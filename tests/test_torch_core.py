@@ -186,8 +186,9 @@ def test_scene_numpy_roundtrip_and_builder():
 
 
 def test_unported_entries_raise(tmp_path):
-    """Mesh surfaces still raise; checkered textures (ported with the
-    envtex slice) now load into the scene vimg_tpu's loader builds."""
+    """Mesh surfaces (ported with the scene-file loaders) and checkered
+    textures (ported with the envtex slice) load into the scene vimg_tpu's
+    loader builds; a mesh whose OBJ is missing takes the cube stand-in."""
     from vimg_tpu.scene.json_loader import load_json_scene as jload
     from vimg_tpu_torch.scene.json_loader import load_json_scene
     p = tmp_path / "mesh.json"
@@ -195,8 +196,11 @@ def test_unported_entries_raise(tmp_path):
     p.write_text('{' + cam + '"materials": [{"name": "w", "type": "lambertian"}],'
                  ' "surfaces": [{"type": "mesh", "mat_name": "w",'
                  ' "filename": "cube.obj"}]}')
-    with pytest.raises(NotImplementedError, match="item A8"):
-        load_json_scene(p, device="cpu")
+    ts, tst = load_json_scene(p, device="cpu")
+    js, jst = jload(p)
+    assert ts.n_tris() == 12
+    assert dataclasses.asdict(tst) == dataclasses.asdict(jst)
+    _assert_same_scene(js, ts)
     p.write_text('{' + cam + '"materials": [{"name": "w", "type": "lambertian",'
                  ' "texture": {"type": "checkered", "col1": [0,0,0],'
                  ' "col2": [1,1,1], "width": 4, "height": 4}}]}')

@@ -968,3 +968,53 @@ def test_train_gradients_kernel_vs_plain_walk_on_card(cuda):
             assert bool(torch.isfinite(a).all()), k
             err = float((a - b).abs().max())
             assert err <= 1e-3 * float(b.abs().max()) + 1e-6, (k, err)
+
+
+def _bvh_scene(device):
+    """A 20k terrain with 100 spheres over it and among the rays."""
+    from vimg_tpu_torch.scene.synthetic import terrain_scene
+    scene = terrain_scene(20_000, 16, 8, device=device)
+    r = np.random.default_rng(3)
+    c = np.stack([r.uniform(-4, 4, 100), r.uniform(0.0, 1.5, 100),
+                  r.uniform(-4, 4, 100)], -1).astype(np.float32)
+    return scene.replace(
+        sph_center=torch.as_tensor(c, device=device),
+        sph_radius=torch.as_tensor(r.uniform(0.05, 0.4, 100), device=device,
+                                   dtype=torch.float32),
+        sph_mat=torch.zeros(100, dtype=torch.int64, device=device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("builder", ["auto", "sweep"])
+def test_bvh_kernel_bit_equal_to_plain(cuda, builder):
+    """X2 against bvh_traverse in its three modes: closest (t, prim type,
+    prim id, u, v), any hit and the cost counter, bit for bit, one launch
+    each; BVHTracer launches X2 and its plain twin never does."""
+    from vimg_tpu_torch.geometry import bvh as tb
+    scene = _bvh_scene(cuda)
+    tr = tb.BVHTracer(scene, builder=builder)
+    rays = _terrain_rays(cuda)
+    before = tb.LAUNCHES
+    hr = tb.bvh_trace(scene, tr.bvh, *rays)
+    occ = tb.bvh_trace(scene, tr.bvh, *rays, any_hit=True)
+    hc, cost = tb.bvh_trace(scene, tr.bvh, *rays, count_cost=True)
+    torch.cuda.synchronize()
+    assert tb.LAUNCHES == before + 3
+    ref = tb.bvh_traverse(scene, tr.bvh, *rays)
+    rocc = tb.bvh_traverse(scene, tr.bvh, *rays, any_hit=True)
+    _, rcost = tb.bvh_traverse(scene, tr.bvh, *rays, count_cost=True)
+    assert tb.LAUNCHES == before + 3
+    for got in (hr, hc):
+        for k in ("t", "u", "v"):
+            assert torch.equal(_bits(getattr(got, k)), _bits(getattr(ref, k)))
+        for k in ("prim_type", "prim_id"):
+            assert torch.equal(getattr(got, k), getattr(ref, k))
+    assert torch.equal(occ, rocc) and torch.equal(_bits(cost), _bits(rcost))
+    assert bool((ref.prim_type == ir.PRIM_SPHERE).any())
+    assert bool(ref.hit.any()) and not bool(ref.hit.all())
+    plain = tb.BVHTracer(scene, builder=builder, plain=True)
+    got = tr.closest(scene, *rays)
+    assert tb.LAUNCHES == before + 4
+    assert torch.equal(got.prim_id, plain.closest(scene, *rays).prim_id)
+    assert torch.equal(tr.occluded(scene, *rays), rocc)
+    assert tb.LAUNCHES == before + 5

@@ -7,6 +7,13 @@ import numpy as np
 import torch
 
 
+def vec3(x, y, z, dtype=torch.float32, device=None):
+    """(..., 3) tensor of the broadcast components x, y, z."""
+    parts = torch.broadcast_tensors(
+        *(torch.as_tensor(c, dtype=dtype, device=device) for c in (x, y, z)))
+    return torch.stack(parts, dim=-1)
+
+
 def dot(a, b):
     """Dot product along the last axis, keepdims=False."""
     p = a * b
@@ -77,6 +84,11 @@ def normalize(a):
     return a * torch.where(n2 > 0, inv, torch.zeros_like(inv))
 
 
+def reflect(wi, n):
+    """Mirror ``wi`` (pointing toward the surface) about the normal n."""
+    return wi - 2.0 * dotk(wi, n) * n
+
+
 def pow5(x):
     x2 = x * x
     return x2 * x2 * x
@@ -119,6 +131,25 @@ def world_to_onb(u, v, w, vec):
 def gram_schmidt(v, w):
     """v minus its projection on the unit vector w."""
     return v - dotk(v, w) * w
+
+
+def tgather(table, idx, limit=64):
+    """Rows ``table[idx]``. vimg_tpu selects rows of a table of at most
+    ``limit`` rows by a chain of ``where``s (no per-lane gather on its
+    TPU); both forms give the same rows, so here it is one gather."""
+    del limit
+    return table[idx]
+
+
+def xform_point(m, p):
+    """Points (..., 3) through the affine part of a (4, 4) row-major
+    matrix (numpy or tensor, as ``p``)."""
+    return p @ m[:3, :3].T + m[:3, 3]
+
+
+def xform_dir(m, d):
+    """Directions (..., 3) through the linear part of a (4, 4) matrix."""
+    return d @ m[:3, :3].T
 
 
 def look_at(look_from, look_to, up):

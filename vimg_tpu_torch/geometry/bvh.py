@@ -1,24 +1,91 @@
-"""Binned-SAH BVH build on the host (port of vimg_tpu.geometry.bvh's
-builder).
+"""BVH build on the host and the per-ray BVH walk (port of
+vimg_tpu.geometry.bvh).
 
-16 centroid bins, at most 8 primitives per leaf, SAH costs Ci = 1 and
-Ct = 0.5 and a median-split fallback: the algorithm of the reference's
-src/bvh/bin_bvh.cpp, iterative over numpy slices. ``build_bvh_numpy`` is
-the oracle; ``vimg_tpu_torch.runtime.native.build_bvh_native`` is the fast
-C++ builder with the same output format. The cluster tracer cuts either
-tree into treelet clusters (geometry/cluster_trace.py).
+Build (host, numpy): binned SAH, 16 bins, at most 8 primitives per leaf,
+SAH costs Ci = 1 and Ct = 0.5 and a median-split fallback: the algorithm
+of the reference's src/bvh/bin_bvh.cpp, iterative over numpy slices.
+``build_bvh_numpy`` is the oracle; ``runtime.native.build_bvh_native`` is
+the C++ builder with the same output format (mode 1: the reference's
+``-b 1`` exact sweep SAH). The cluster tracer cuts either tree into
+treelet clusters (geometry/cluster_trace.py); ``BVHTracer`` walks it.
 
-The per-ray BVH walk of vimg_tpu (``BVHTracer``, ``bvh_traverse``,
-``refit_bvh``) is not ported yet (ROADMAP queue A, item A4).
+Walk: the tree is laid out in DFS preorder and threaded with skip links,
+``next = aabb_hit(node) ? node + 1 : skip[node]``, and a leaf tests up to
+LEAF_SIZE primitives. ``bvh_traverse`` is that walk in tensor code, ray
+by ray as vimg_tpu's lockstep XLA loop computes it, and the plain version
+of kernel X2 (``csrc/bvh_walk.cu``), which ``bvh_trace`` launches for
+CUDA tensors. ``refit_bvh`` recomputes the boxes a level at a time.
 """
 from __future__ import annotations
 
+import dataclasses
+from dataclasses import dataclass
+
 import numpy as np
+import torch
+
+from vimg_tpu_torch.geometry.intersect import (HitResult, sphere_intersect,
+                                               tri_intersect)
+from vimg_tpu_torch.scene import ir
 
 N_BINS = 16
 LEAF_SIZE = 8
 COST_INTERSECT = 1.0   # reference BVHConst::intersection_cost
 COST_TRAVERSE = 0.5    # reference BVHConst::traversal_cost
+# operations of one test, for kernel X2's bound (the slab test as B3's;
+# the watertight triangle and the robust quadric sphere counted from
+# geometry/intersect.py)
+BOX_TEST_OPS = 25
+TRI_TEST_OPS = 56
+SPHERE_TEST_OPS = 40
+MODE_CLOSEST, MODE_ANY_HIT, MODE_COST = 0, 1, 2
+
+LAUNCHES = 0       # kernel X2 launches (bvh_trace on CUDA tensors)
+
+
+@dataclass(frozen=True)
+class BVHArrays:
+    """The flat tables of a preorder BVH, on the scene's device."""
+    node_min: torch.Tensor    # (N, 3) f32
+    node_max: torch.Tensor    # (N, 3) f32
+    node_start: torch.Tensor  # (N,) i32: first prim (leaf) / 0 (inner)
+    node_count: torch.Tensor  # (N,) i32: prim count; 0 == inner node
+    node_skip: torch.Tensor   # (N,) i32: DFS skip pointer
+    node_right: torch.Tensor  # (N,) i32: right child (inner; -1 leaf)
+    prim_type: torch.Tensor   # (P,) i32 (PRIM_TRI / PRIM_SPHERE)
+    prim_idx: torch.Tensor    # (P,) i32 index into the tri/sphere tables
+
+    @property
+    def n_nodes(self):
+        return self.node_min.shape[0]
+
+
+def _np(x):
+    return x.detach().cpu().numpy()
+
+
+def scene_prim_bounds(scene: ir.Scene):
+    """Per-primitive AABBs, centers, types and indices of the unified
+    primitive table (triangles, then spheres), numpy."""
+    mins, maxs, centers, ptype, pidx = [], [], [], [], []
+    if scene.n_tris() > 0:
+        p = _np(scene.verts)[_np(scene.tri_vidx)]          # (T, 3, 3)
+        mins.append(p.min(axis=1))
+        maxs.append(p.max(axis=1))
+        centers.append(p.mean(axis=1))
+        ptype.append(np.full(p.shape[0], ir.PRIM_TRI, np.int32))
+        pidx.append(np.arange(p.shape[0], dtype=np.int32))
+    if scene.n_spheres() > 0:
+        c = _np(scene.sph_center)
+        r = _np(scene.sph_radius)[:, None]
+        mins.append(c - r)
+        maxs.append(c + r)
+        centers.append(c)
+        ptype.append(np.full(c.shape[0], ir.PRIM_SPHERE, np.int32))
+        pidx.append(np.arange(c.shape[0], dtype=np.int32))
+    return (np.concatenate(mins), np.concatenate(maxs),
+            np.concatenate(centers), np.concatenate(ptype),
+            np.concatenate(pidx))
 
 
 def _half_sa(bmin, bmax):
@@ -160,3 +227,378 @@ def build_bvh_numpy(bmin, bmax, centers):
     return dict(node_min=node_min, node_max=node_max, node_start=node_start,
                 node_count=node_count, node_skip=node_skip, order=order,
                 node_right=node_right)
+
+
+def _bvh_levels(node_count, node_right):
+    """Depth of every node (preorder walk) -> list of per-level index
+    arrays, deepest first: the schedule of ``refit_bvh``."""
+    N = node_count.shape[0]
+    depth = np.zeros(N, np.int32)
+    stack = [(0, 0)]
+    while stack:
+        i, d = stack.pop()
+        depth[i] = d
+        if node_count[i] == 0:
+            stack.append((i + 1, d + 1))
+            stack.append((node_right[i], d + 1))
+    levels = []
+    for d in range(depth.max(), -1, -1):
+        idx = np.nonzero(depth == d)[0].astype(np.int32)
+        if idx.size:
+            levels.append(idx)
+    return levels
+
+
+def build_scene_bvh(scene: ir.Scene, builder="auto") -> BVHArrays:
+    """The scene's BVH on its device. ``builder``: auto | native | sweep
+    | numpy. "sweep" is the reference's ``-b 1`` exact sweep SAH
+    (native); "auto" and "native" the binned SAH in C++, "auto" falling
+    back to numpy where the C++ builder cannot be built, as vimg_tpu's.
+    "device" (vimg_tpu's sweep SAH on the accelerator) is ROADMAP item
+    A4b."""
+    if builder == "device":
+        raise NotImplementedError("builder='device' (the sweep-SAH build on "
+                                  "the accelerator) is ROADMAP item A4b")
+    if builder not in ("auto", "native", "sweep", "numpy"):
+        raise ValueError(f"unknown BVH builder {builder!r}")
+    bmin, bmax, centers, ptype, pidx = scene_prim_bounds(scene)
+    built = None
+    if builder in ("auto", "native", "sweep"):
+        try:
+            from vimg_tpu_torch.runtime.native import build_bvh_native
+            built = build_bvh_native(bmin, bmax, centers,
+                                     mode=1 if builder == "sweep" else 0)
+        except Exception:
+            if builder in ("native", "sweep"):
+                raise
+    if built is None:
+        built = build_bvh_numpy(bmin, bmax, centers)
+    order = built["order"]
+    if "node_right" in built:
+        node_right = built["node_right"]
+    else:
+        # preorder invariant: left child = i + 1, and skip(left) = right
+        count = built["node_count"]
+        skip = built["node_skip"]
+        N = count.shape[0]
+        node_right = np.full(N, -1, np.int32)
+        inner = np.nonzero(count == 0)[0]
+        node_right[inner] = skip[np.minimum(inner + 1, N - 1)]
+    dev = scene.device
+
+    def t(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(dev)
+    return BVHArrays(
+        node_min=t(built["node_min"], np.float32),
+        node_max=t(built["node_max"], np.float32),
+        node_start=t(built["node_start"], np.int32),
+        node_count=t(built["node_count"], np.int32),
+        node_skip=t(built["node_skip"], np.int32),
+        node_right=t(node_right, np.int32),
+        prim_type=t(ptype[order], np.int32),
+        prim_idx=t(pidx[order], np.int32))
+
+
+# ---------------------------------------------------------------------------
+# the walk in tensor code: kernel X2's plain version
+# ---------------------------------------------------------------------------
+
+def _aabb_hit(node_min, node_max, ro, inv_rd, minT, maxT):
+    """Slab test over [minT, maxT] with NaN-propagating min / max (XLA's
+    and kernel X2's)."""
+    t_lo = (node_min - ro) * inv_rd
+    t_hi = (node_max - ro) * inv_rd
+    t_near = torch.minimum(t_lo, t_hi)
+    t_far = torch.maximum(t_lo, t_hi)
+    t0 = torch.maximum(torch.maximum(torch.maximum(t_near[..., 0],
+                                                   t_near[..., 1]),
+                                     t_near[..., 2]), minT)
+    t1 = torch.minimum(torch.minimum(torch.minimum(t_far[..., 0],
+                                                   t_far[..., 1]),
+                                     t_far[..., 2]), maxT)
+    return t0 <= t1
+
+
+def _leaf_test(scene, bvh: BVHArrays, start, count, ro, rd, minT, maxT):
+    """Test up to LEAF_SIZE primitives of each ray's leaf: (t (R, K),
+    ptype, pidx, u, v) with +inf where missed, as vimg_tpu's."""
+    lanes = torch.arange(LEAF_SIZE, device=ro.device)[None, :]
+    slot = torch.clamp(start[:, None].long() + lanes, 0,
+                       bvh.prim_type.shape[0] - 1)
+    valid = lanes < count[:, None].long()
+    ptype = bvh.prim_type[slot]
+    pidx = bvh.prim_idx[slot]
+    t = torch.full(slot.shape, float("inf"), device=ro.device)
+    u = torch.zeros_like(t)
+    v = torch.zeros_like(t)
+    if scene.n_tris() > 0:
+        tid = torch.clamp(pidx.long(), 0, scene.n_tris() - 1)
+        p = scene.verts[scene.tri_vidx[tid]]                # (R, K, 3, 3)
+        tt, tu, tv, _, ok = tri_intersect(
+            ro[:, None, :], rd[:, None, :], p[..., 0, :], p[..., 1, :],
+            p[..., 2, :], minT[:, None], maxT[:, None])
+        m = (ptype == ir.PRIM_TRI) & valid & ok
+        t = torch.where(m, tt, t)
+        u = torch.where(m, tu, u)
+        v = torch.where(m, tv, v)
+    if scene.n_spheres() > 0:
+        sid = torch.clamp(pidx.long(), 0, scene.n_spheres() - 1)
+        st, ok = sphere_intersect(
+            ro[:, None, :], rd[:, None, :], scene.sph_center[sid],
+            scene.sph_radius[sid], minT[:, None], maxT[:, None])
+        m = (ptype == ir.PRIM_SPHERE) & valid & ok
+        t = torch.where(m, st, t)
+    return t, ptype, pidx, u, v
+
+
+def bvh_traverse(scene, bvh: BVHArrays, ro, rd, minT, maxT, any_hit=False,
+                 count_cost=False, stats=None):
+    """The skip-link walk of every ray (kernel X2's plain version).
+
+    Returns a HitResult (closest), a bool occlusion mask (``any_hit``),
+    or (HitResult, cost) with the reference's heatmap cost, 0.5 a node
+    visit and 1.0 a primitive test (bvh.h:17-20), when ``count_cost``.
+    Each ray computes what it computes in vimg_tpu's lockstep loop; here
+    only the rays still walking are carried. ``stats`` (a dict) counts
+    box_tests, tri_tests and sphere_tests."""
+    B, dev = ro.shape[0], ro.device
+    N = bvh.n_nodes
+    ro, rd = ro.detach(), rd.detach()
+    minT = minT.detach().expand(B)
+    inv_rd = 1.0 / torch.where(rd == 0.0, 1e-20, rd)
+    cur = torch.zeros(B, dtype=torch.int64, device=dev)
+    best_t = maxT.detach().expand(B).clone()
+    ptype = torch.zeros(B, dtype=torch.int64, device=dev)
+    pidx = torch.full((B,), -1, dtype=torch.int64, device=dev)
+    bu = torch.zeros(B, device=dev)
+    bv = torch.zeros(B, device=dev)
+    occ = torch.zeros(B, dtype=torch.bool, device=dev)
+    cost = torch.zeros(B, device=dev)
+    act = torch.arange(B, device=dev)
+    lanes = torch.arange(LEAF_SIZE, device=dev)[None, :]
+    tables = (bvh.node_min, bvh.node_max, bvh.node_count, bvh.node_start,
+              bvh.node_skip)
+    while act.numel():
+        n = cur[act]
+        nmin, nmax, count, start, skip = (x[n] for x in tables)
+        hit_box = _aabb_hit(nmin, nmax, ro[act], inv_rd[act], minT[act],
+                            best_t[act])
+        is_leaf = count > 0
+        do_leaf = hit_box & is_leaf
+        cost[act] += COST_TRAVERSE
+        _count(stats, "box_tests", act.numel())
+        if bool(do_leaf.any()):
+            i = act[do_leaf]
+            cnt = count[do_leaf]
+            t, lt, li, u, v = _leaf_test(scene, bvh, start[do_leaf], cnt,
+                                         ro[i], rd[i], minT[i], best_t[i])
+            if stats is not None:
+                valid = lanes < cnt[:, None]
+                _count(stats, "tri_tests",
+                       int((valid & (lt == ir.PRIM_TRI)).sum()))
+                _count(stats, "sphere_tests",
+                       int((valid & (lt == ir.PRIM_SPHERE)).sum()))
+            # the first lane of least t (vimg_tpu's argmin)
+            tmin = t.amin(dim=1)
+            lane = torch.where(t == tmin[:, None], lanes, LEAF_SIZE).amin(
+                dim=1, keepdim=True)
+            better = tmin < best_t[i]
+            j = i[better]
+            best_t[j] = tmin[better]
+            ptype[j] = lt.gather(1, lane)[better, 0].long()
+            pidx[j] = li.gather(1, lane)[better, 0].long()
+            bu[j] = u.gather(1, lane)[better, 0]
+            bv[j] = v.gather(1, lane)[better, 0]
+            cost[i] += COST_INTERSECT * cnt.float()
+            if any_hit:
+                occ[j[torch.isfinite(tmin[better])]] = True
+        nxt = torch.where(hit_box & ~is_leaf, n + 1, skip.long())
+        if any_hit:
+            nxt = torch.where(occ[act], N, nxt)
+        cur[act] = nxt
+        act = act[nxt < N]
+    if any_hit:
+        return occ
+    found = pidx >= 0
+    hr = HitResult(t=torch.where(found, best_t, float("inf")),
+                   prim_type=ptype, prim_id=torch.where(found, pidx, 0),
+                   u=bu, v=bv)
+    return (hr, cost) if count_cost else hr
+
+
+def _count(stats, key, n):
+    if stats is not None:
+        stats[key] = stats.get(key, 0) + int(n)
+
+
+# ---------------------------------------------------------------------------
+# kernel X2's wrapper
+# ---------------------------------------------------------------------------
+
+def _check(x, name, dtype, shape, device):
+    if (x.device != device or x.dtype != dtype or tuple(x.shape) != shape
+            or not x.is_contiguous()):
+        raise ValueError(f"{name}: expected a contiguous {dtype} tensor of "
+                         f"shape {shape} on {device}, got {x.dtype} "
+                         f"{tuple(x.shape)} on {x.device}")
+
+
+def bvh_trace(scene, bvh: BVHArrays, ro, rd, minT, maxT, any_hit=False,
+              count_cost=False):
+    """Kernel X2 (CUDA tensors) or ``bvh_traverse`` (CPU tensors), with
+    bvh_traverse's returns.
+
+    X2 has no Pallas counterpart: vimg_tpu walks the BVH with XLA (every
+    lane in lockstep, leaves tested 8 primitives wide by one-hot selects,
+    vimg_tpu/geometry/bvh.py:341-433). On the card a thread walks its
+    ray's skip links over the same tables with per-lane loads and
+    branches, in one of three modes: closest, any hit (leaving at its
+    first occluding leaf) and closest with the cost counter. What bounds
+    it: dependent table loads (node, primitive index, vertices) and warp
+    divergence, not bytes or operations. See csrc/bvh_walk.cu."""
+    global LAUNCHES
+    dev = ro.device
+    if dev.type == "cpu":
+        return bvh_traverse(scene, bvh, ro, rd, minT, maxT, any_hit=any_hit,
+                            count_cost=count_cost)
+    if dev.type != "cuda":
+        raise NotImplementedError(f"no BVH walk for device {dev}")
+    from vimg_tpu_torch.runtime.cuda import check, load_library
+    B, N = ro.shape[0], bvh.n_nodes
+    P = bvh.prim_type.shape[0]
+    T, S = scene.n_tris(), scene.n_spheres()
+    ro = ro.detach().contiguous()
+    rd = rd.detach().contiguous()
+    minT = minT.detach().expand(B).contiguous()
+    maxT = maxT.detach().expand(B).contiguous()
+    tri_vidx = scene.tri_vidx.to(torch.int32).contiguous()
+    tables = (("node_min", bvh.node_min, torch.float32, (N, 3)),
+              ("node_max", bvh.node_max, torch.float32, (N, 3)),
+              ("node_start", bvh.node_start, torch.int32, (N,)),
+              ("node_count", bvh.node_count, torch.int32, (N,)),
+              ("node_skip", bvh.node_skip, torch.int32, (N,)),
+              ("prim_type", bvh.prim_type, torch.int32, (P,)),
+              ("prim_idx", bvh.prim_idx, torch.int32, (P,)),
+              ("verts", scene.verts, torch.float32,
+               tuple(scene.verts.shape)),
+              ("tri_vidx", tri_vidx, torch.int32, (T, 3)),
+              ("sph_center", scene.sph_center, torch.float32, (S, 3)),
+              ("sph_radius", scene.sph_radius, torch.float32, (S,)),
+              ("ro", ro, torch.float32, (B, 3)),
+              ("rd", rd, torch.float32, (B, 3)),
+              ("minT", minT, torch.float32, (B,)),
+              ("maxT", maxT, torch.float32, (B,)))
+    for name, x, dtype, shape in tables:
+        _check(x, name, dtype, shape, dev)
+    mode = (MODE_ANY_HIT if any_hit else
+            MODE_COST if count_cost else MODE_CLOSEST)
+    t = torch.empty(B, dtype=torch.float32, device=dev)
+    ptype = torch.empty(B, dtype=torch.int32, device=dev)
+    pidx = torch.empty(B, dtype=torch.int32, device=dev)
+    u = torch.empty(B, dtype=torch.float32, device=dev)
+    v = torch.empty(B, dtype=torch.float32, device=dev)
+    occ = torch.empty(B, dtype=torch.uint8, device=dev)
+    cost = torch.empty(B, dtype=torch.float32, device=dev)
+    if B:
+        lib = load_library()
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = lib.vimg_bvh_walk(
+                *(x.data_ptr() for _, x, _, _ in tables), B, N, T, S, mode,
+                t.data_ptr(), ptype.data_ptr(), pidx.data_ptr(),
+                u.data_ptr(), v.data_ptr(), occ.data_ptr(), cost.data_ptr(),
+                stream)
+        check(rc, "vimg_bvh_walk")
+        LAUNCHES += 1
+    if any_hit:
+        return occ.bool()
+    hr = HitResult(t=t, prim_type=ptype.long(), prim_id=pidx.long(), u=u,
+                   v=v)
+    return (hr, cost) if count_cost else hr
+
+
+# ---------------------------------------------------------------------------
+# refit and the tracer facade
+# ---------------------------------------------------------------------------
+
+def refit_bvh(scene: ir.Scene, bvh: BVHArrays, levels) -> BVHArrays:
+    """Recompute every box bottom-up for the scene's current vertex and
+    sphere positions, keeping the topology (tensor code, a level at a
+    time; ``levels`` from ``_bvh_levels``, deepest first)."""
+    dev = bvh.node_min.device
+    P = bvh.prim_type.shape[0]
+    inf = float("inf")
+    pmin = torch.full((P, 3), inf, device=dev)
+    pmax = torch.full((P, 3), -inf, device=dev)
+    if scene.n_tris() > 0:
+        tid = torch.clamp(bvh.prim_idx.long(), 0, scene.n_tris() - 1)
+        tri = scene.verts[scene.tri_vidx[tid]]               # (P, 3, 3)
+        is_tri = (bvh.prim_type == ir.PRIM_TRI)[:, None]
+        pmin = torch.where(is_tri, tri.amin(dim=1), pmin)
+        pmax = torch.where(is_tri, tri.amax(dim=1), pmax)
+    if scene.n_spheres() > 0:
+        sid = torch.clamp(bvh.prim_idx.long(), 0, scene.n_spheres() - 1)
+        c = scene.sph_center[sid]
+        r = scene.sph_radius[sid][:, None]
+        is_sph = (bvh.prim_type == ir.PRIM_SPHERE)[:, None]
+        pmin = torch.where(is_sph, c - r, pmin)
+        pmax = torch.where(is_sph, c + r, pmax)
+
+    node_min = bvh.node_min.clone()
+    node_max = bvh.node_max.clone()
+    n_nodes = node_min.shape[0]
+    lanes = torch.arange(LEAF_SIZE, device=dev)[None, :]
+    for idx in levels:
+        idx = torch.as_tensor(idx, dtype=torch.int64, device=dev)
+        count = bvh.node_count[idx].long()
+        start = bvh.node_start[idx].long()
+        is_leaf = (count > 0)[:, None]
+        slot = torch.clamp(start[:, None] + lanes, 0, P - 1)
+        valid = (lanes < count[:, None])[..., None]
+        leaf_min = torch.where(valid, pmin[slot], inf).amin(dim=1)
+        leaf_max = torch.where(valid, pmax[slot], -inf).amax(dim=1)
+        left = torch.clamp(idx + 1, 0, n_nodes - 1)
+        right = torch.clamp(bvh.node_right[idx].long(), 0, n_nodes - 1)
+        in_min = torch.minimum(node_min[left], node_min[right])
+        in_max = torch.maximum(node_max[left], node_max[right])
+        node_min[idx] = torch.where(is_leaf, leaf_min, in_min)
+        node_max[idx] = torch.where(is_leaf, leaf_max, in_max)
+    return dataclasses.replace(bvh, node_min=node_min, node_max=node_max)
+
+
+class BVHTracer:
+    """The per-ray BVH tracer: kernel X2 on CUDA, ``bvh_traverse`` on the
+    CPU (``plain=True``: bvh_traverse on any device, X2's reference on the
+    card). ``builder`` as build_scene_bvh's."""
+
+    # the rays reach the walk detached (zero tangent through traversal,
+    # as the cluster and packet tracers): vimg_tpu's lax.while_loop walk
+    # cannot be reverse-differentiated either
+    differentiable = True
+
+    def __init__(self, scene: ir.Scene, builder="auto", plain=False):
+        if scene.device.type not in ("cpu", "cuda"):
+            raise NotImplementedError(f"no BVH walk for device "
+                                      f"{scene.device}")
+        self.builder = builder
+        self.plain = plain
+        self.bvh = build_scene_bvh(scene, builder=builder)
+        self.levels = _bvh_levels(_np(self.bvh.node_count),
+                                  _np(self.bvh.node_right))
+
+    def refit(self, scene):
+        """Update the boxes for moved geometry (topology kept)."""
+        self.bvh = refit_bvh(scene, self.bvh, self.levels)
+        return self
+
+    def trace(self, scene, ro, rd, minT, maxT, any_hit=False,
+              count_cost=False):
+        walk = bvh_traverse if self.plain else bvh_trace
+        return walk(scene, self.bvh, ro, rd, minT, maxT, any_hit=any_hit,
+                    count_cost=count_cost)
+
+    def closest(self, scene, ro, rd, minT, maxT) -> HitResult:
+        return self.trace(scene, ro, rd, minT, maxT)
+
+    def occluded(self, scene, ro, rd, minT, maxT):
+        return self.trace(scene, ro, rd, minT, maxT, any_hit=True)

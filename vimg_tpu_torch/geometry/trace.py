@@ -9,12 +9,16 @@ backend for a scene.
   most 64 spheres;
 - ``packet``: the packet tracer (kernel B5 on CUDA, its plain walk on the
   CPU), only when asked for, as in vimg_tpu: the same hits as the cluster
-  walk, for scenes whose packed triangle table fits its 10 MiB budget.
+  walk, for scenes whose packed triangle table fits its 10 MiB budget;
+- ``bvh`` / ``sweep``: the per-ray BVH tracer (kernel X2 on CUDA, its
+  plain walk on the CPU) over the binned-SAH or the exact sweep-SAH tree
+  (the CLI's ``-b 1``); the default for every other scene: no triangles
+  and more than 64 primitives, or more than 64 spheres.
 
-vimg_tpu picks its BVH tracer on the CPU; that per-ray BVH walk is not
-ported (ROADMAP queue A, item A4), so in this package the CPU takes the
-cluster tracer with its plain walks, which return the same hits as the
-kernels.
+One recorded deviation from vimg_tpu: its CPU backend gives the BVH tracer
+also to scenes with triangles and at most 64 spheres; this package gives
+them the cluster tracer on the CPU as on the card, whose plain walks
+return the same closest hits.
 """
 from __future__ import annotations
 
@@ -39,20 +43,24 @@ class BruteForceTracer:
 
 
 def make_tracer(scene: ir.Scene, force=None, differentiable=False):
-    """Pick the intersection backend: ``soa``, ``brute``, ``cluster`` or
-    ``packet`` (``force`` names one; None picks as the module docstring
-    says).
+    """Pick the intersection backend: ``soa``, ``brute``, ``cluster``,
+    ``packet``, ``bvh`` or ``sweep`` (``force`` names one; None picks as
+    the module docstring says).
 
     ``differentiable=True`` (vimg_tpu's keyword) is met by every backend:
     the dense tracers are tensor code that autograd runs through (t and
-    so the hit point's motion included), and the cluster and packet
+    so the hit point's motion included), and the cluster, packet and BVH
     tracers detach their rays (zero tangent through traversal, as
-    vimg_tpu's Pallas tracers), so kernels B3, B4 and B5 carry gradient
-    renders unchanged."""
+    vimg_tpu's Pallas tracers), so kernels B3, B4, B5 and X2 carry
+    gradient renders unchanged."""
     del differentiable
     n_prims = scene.n_tris() + scene.n_spheres()
     if force == "brute":
         return BruteForceTracer(scene)
+    if force == "mxu":
+        raise NotImplementedError(
+            "force='mxu' is vimg_tpu's parked matrix-unit formulation "
+            "(about 2e-3 intersection error); it is not ported")
     if force == "soa" or (force is None and n_prims <= BRUTE_FORCE_MAX_PRIMS):
         from vimg_tpu_torch.geometry.soa_intersect import SoATracer
         return SoATracer(scene)
@@ -63,7 +71,5 @@ def make_tracer(scene: ir.Scene, force=None, differentiable=False):
                               and scene.n_spheres() <= CLUSTER_MAX_SPHERES):
         from vimg_tpu_torch.geometry.cluster_trace import ClusterTracer
         return ClusterTracer(scene)
-    raise NotImplementedError(
-        f"tracer {force or 'auto'} for {scene.n_tris()} triangles and "
-        f"{scene.n_spheres()} spheres is not ported yet (the BVH tracer is "
-        f"ROADMAP queue A, item A4)")
+    from vimg_tpu_torch.geometry.bvh import BVHTracer
+    return BVHTracer(scene, builder="sweep" if force == "sweep" else "auto")

@@ -76,6 +76,15 @@ def prefer_wavefront_for_mesh(scene, settings):
             and settings.integrator == "mis")
 
 
+def megakernel_takes(scene, settings):
+    """Whether ``render_frame`` sends this MIS or material frame of a CUDA
+    scene to the megakernel (B1 or B2)."""
+    from vimg_tpu_torch.render.mega import supports_megakernel
+    return (settings.integrator in ("mis", "material")
+            and supports_megakernel(scene, settings)
+            and not prefer_wavefront_for_mesh(scene, settings))
+
+
 def render_frame(scene, settings, tracer=None, progress=False,
                  integrator=None, use_wavefront=True, tracer_force=None):
     """Render dispatch, vimg_tpu's rule (``integrator`` overrides
@@ -92,8 +101,7 @@ def render_frame(scene, settings, tracer=None, progress=False,
     when needed) is the wavefront's and the loop's tracer; it does not
     change the megakernel dispatch. Devices other than the CPU and CUDA
     raise."""
-    from vimg_tpu_torch.render.mega import (render_megakernel,
-                                            supports_megakernel)
+    from vimg_tpu_torch.render.mega import render_megakernel
     from vimg_tpu_torch.render.wavefront import render_wavefront
     dev = scene.device
     if dev.type not in ("cpu", "cuda"):
@@ -101,8 +109,7 @@ def render_frame(scene, settings, tracer=None, progress=False,
     name = integrator or settings.integrator
     if use_wavefront and name in ("mis", "material"):
         st = dataclasses.replace(settings, integrator=name)
-        if (dev.type == "cuda" and supports_megakernel(scene, st)
-                and not prefer_wavefront_for_mesh(scene, st)):
+        if dev.type == "cuda" and megakernel_takes(scene, st):
             return render_megakernel(scene, st, progress=progress)
         if name == "mis":
             tracer = tracer or make_tracer(scene, force=tracer_force)

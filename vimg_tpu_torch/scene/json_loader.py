@@ -1,13 +1,14 @@
 """Loader for the reference's JSON scene schema (port of
 vimg_tpu.scene.json_loader): camera, sampler, integrator, materials
 (lambertian / diffuse_light / dielectric / principled, constant or
-checkered textures), quads and spheres with transform stacks; and the
-SceneBuilder that procedural scenes use (image textures through an atlas,
-env maps, normal-map and metal-rough UV sets).
+checkered textures), quads, spheres and OBJ meshes with transform
+stacks; and the SceneBuilder that the other loaders and procedural scenes
+use (image textures through an atlas, env maps, normal-map and metal-rough
+UV sets).
 
-Mesh/OBJ surfaces are not ported yet and raise ``NotImplementedError``.
 As in vimg_tpu, the parsed ``background`` color is ignored and a black
-background installed.
+background installed, and a mesh whose OBJ file is missing takes a
+procedural stand-in where one is registered (``cube.obj``).
 """
 from __future__ import annotations
 
@@ -16,8 +17,9 @@ from pathlib import Path
 
 import numpy as np
 
-from vimg_tpu_torch.core.math import look_at
+from vimg_tpu_torch.core.math import look_at, xform_point
 from vimg_tpu_torch.scene import ir
+from vimg_tpu_torch.scene.obj_loader import load_obj
 
 
 def _quat_to_mat3(q):
@@ -54,14 +56,34 @@ def parse_transform(surf_json) -> np.ndarray:
     return xform
 
 
+def _synth_mesh_asset(filename):
+    """Procedural stand-ins for reference assets absent from the scene
+    folder. ``cube.obj`` (used by MIS_light_tests/odyssey_mis.json) is a
+    unit cube centered at the origin: the scene's translate(0,.5,0) +
+    scale(1,9,4) stack then yields the 1:4:9 monolith standing on the
+    floor, as in the reference render."""
+    if Path(str(filename)).name == "cube.obj":
+        h = 0.5
+        v = np.array([[-h, -h, -h], [h, -h, -h], [h, h, -h], [-h, h, -h],
+                      [-h, -h, h], [h, -h, h], [h, h, h], [-h, h, h]],
+                     np.float32)
+        idx = np.array([
+            [0, 2, 1], [0, 3, 2],      # -z (outward CCW)
+            [4, 5, 6], [4, 6, 7],      # +z
+            [0, 1, 5], [0, 5, 4],      # -y
+            [3, 7, 6], [3, 6, 2],      # +y
+            [0, 4, 7], [0, 7, 3],      # -x
+            [1, 2, 6], [1, 6, 5],      # +x
+        ], np.int64)
+        return v, idx
+    raise FileNotFoundError(f"mesh asset not found and no synthetic "
+                            f"stand-in registered: {filename}")
+
+
 QUAD_VERTS = np.array([[-1, -1, 0], [-1, 1, 0], [1, 1, 0], [1, -1, 0]],
                       np.float32)
 QUAD_UVS = np.array([[0, 0], [0, 1], [1, 1], [1, 0]], np.float32)
 QUAD_IDX = np.array([[0, 2, 1], [2, 0, 3]], np.uint32)
-
-_MESH_TODO = ("mesh/OBJ surfaces are not ported yet (the OBJ loader is "
-              "ROADMAP queue A, item A8)")
-
 
 class SceneBuilder:
     """Accumulates host-side buffers, then emits an ir.Scene."""
@@ -140,8 +162,8 @@ class SceneBuilder:
                 self.light_idx.append(i)
 
     def add_quad(self, mat_id, xform):
-        v = QUAD_VERTS @ xform[:3, :3].T + xform[:3, 3]
-        self.add_mesh(v, QUAD_IDX, mat_id, uvs=QUAD_UVS)
+        self.add_mesh(xform_point(xform, QUAD_VERTS), QUAD_IDX, mat_id,
+                      uvs=QUAD_UVS)
 
     def add_sphere(self, center, radius, mat_id):
         self.sph_center.append(np.asarray(center, np.float32))
@@ -280,7 +302,13 @@ def load_json_scene(path, device="cuda"):
         elif s["type"] == "sphere":
             b.add_sphere(s["center"], s.get("radius", 1.0), mat_id)
         elif s["type"] == "mesh":
-            raise NotImplementedError(_MESH_TODO)
+            xform = parse_transform(s)
+            obj_path = path.parent / s["filename"]
+            if obj_path.exists():
+                v, idx = load_obj(obj_path)
+            else:
+                v, idx = _synth_mesh_asset(s["filename"])
+            b.add_mesh(xform_point(xform, v), idx, mat_id)
         else:
             raise ValueError(f"unknown surface type {s['type']}")
 

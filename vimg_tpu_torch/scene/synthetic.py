@@ -1,11 +1,11 @@
 """Synthetic mesh scenes for benchmarks and tests (port of
 vimg_tpu.scene.synthetic): a displacement-mapped sphere ("bumpy sphere")
-and a fractal heightfield ("terrain"), each with an area light, and the
-env-lit textured terrain. The meshes, textures and env maps are vimg_tpu's
-numpy code verbatim, so both packages build the same bytes from the same
-seed. The scenes land on ``device``, CUDA by default (raises without CUDA
-unless ``device="cpu"`` is passed). The many-lights and multi-material
-scenes are not ported yet.
+and a fractal heightfield ("terrain"), each with an area light, the
+env-lit textured terrain, and the many-lights and multi-material scenes.
+The meshes, textures and env maps are vimg_tpu's numpy code verbatim, so
+both packages build the same bytes from the same seed. The scenes land on
+``device``, CUDA by default (raises without CUDA unless ``device="cpu"``
+is passed).
 """
 from __future__ import annotations
 
@@ -177,3 +177,68 @@ def textured_terrain_scene(n_tris=100_000, width=512, height=256, seed=0,
     return b.build(camera=cam, bg_color=(0.25, 0.3, 0.38), env=env,
                    atlas=dict(atlas=atlas_arr, atlas_meta=atlas_meta),
                    bg_light=bg_light, device=device)
+
+
+def many_lights_scene(n_lights=256, width=512, height=256, seed=0,
+                      device="cuda"):
+    """Analytic scene with ``n_lights`` emissive spheres over a ground
+    quad: real glTF scenes register every emissive primitive as a light
+    (reference gltf_loading.cpp:87-104). Above 64 spheres make_tracer
+    gives it the BVH tracer."""
+    rs = np.random.RandomState(seed + 3)
+    b = SceneBuilder()
+    ground = b.add_material(ir.MAT_LAMBERTIAN, base=(0.55, 0.52, 0.48))
+    b.add_quad(ground, np.diag([30.0, 1e-3, 30.0, 1.0]).astype(np.float32))
+    # an 8-material emissive palette shared across lights keeps the
+    # material count flat while the light count sweeps
+    palette = [b.add_material(ir.MAT_DIFFUSE_LIGHT,
+                              base=tuple(2.0 + 6.0 * rs.rand(3)))
+               for _ in range(8)]
+    side = int(np.ceil(np.sqrt(n_lights)))
+    for k in range(n_lights):
+        i, j = divmod(k, side)
+        x = (i - side / 2) * 1.6 + 0.3 * rs.randn()
+        z = (j - side / 2) * 1.6 + 0.3 * rs.randn()
+        y = 2.0 + rs.rand() * 2.0
+        b.add_sphere((x, y, z), 0.12, palette[k % 8])
+    cam = Camera.make(look_at([0.0, 3.5, 14.0], [0.0, 1.0, 0.0],
+                              [0.0, 1.0, 0.0]), width, height, 50.0,
+                      device=device)
+    return b.build(camera=cam, bg_color=(0.02, 0.02, 0.03), device=device)
+
+
+def multi_material_terrain_scene(n_tris=100_000, n_mats=128, width=512,
+                                 height=256, seed=0, device="cuda"):
+    """Terrain with ``n_mats`` distinct Principled materials striped
+    across the mesh: the glTF-scale material count (the reference turns
+    every glTF material into a Principled one, gltf_loading.cpp:547-690)."""
+    rs = np.random.RandomState(seed + 11)
+    verts, tris = terrain_mesh(n_tris, seed)
+    b = SceneBuilder()
+    mats = []
+    for k in range(n_mats):
+        base = tuple(0.2 + 0.7 * rs.rand(3))
+        mats.append(b.add_material(
+            ir.MAT_PRINCIPLED, base=base,
+            scalars={ir.MS_IOR: 1.5,
+                     ir.MS_SPECULAR: float(rs.rand()),
+                     ir.MS_SPEC_TINT: 0.0,
+                     ir.MS_SUBSURFACE: 0.0,
+                     ir.MS_SHEEN_TINT: 0.5,
+                     ir.MS_CLEARCOAT_GLOSS: 0.5,
+                     ir.MS_METALLIC: float(0.8 * rs.rand()),
+                     ir.MS_ROUGHNESS: float(0.15 + 0.8 * rs.rand())}))
+    # stripe materials over contiguous triangle chunks
+    order = np.argsort(tris[:, 0], kind="stable")
+    chunks = np.array_split(order, n_mats)
+    for k, ch in enumerate(chunks):
+        if len(ch):
+            b.add_mesh(verts, tris[ch], mats[k])
+    light = b.add_material(ir.MAT_DIFFUSE_LIGHT, base=(14.0, 13.5, 12.0))
+    lv = np.array([[-1.2, 4.0, -1.2], [1.2, 4.0, -1.2],
+                   [1.2, 4.0, 1.2], [-1.2, 4.0, 1.2]], np.float32)
+    b.add_mesh(lv, np.array([[0, 1, 2], [0, 2, 3]]), light)
+    cam = Camera.make(look_at([0.0, 2.2, 4.6], [0.0, 0.0, 0.0],
+                              [0.0, 1.0, 0.0]), width, height, 45.0,
+                      device=device)
+    return b.build(camera=cam, bg_color=(0.25, 0.3, 0.38), device=device)
