@@ -121,14 +121,21 @@ Phases:
 22. B-3: kernels P23-P31 (tools/probe_pallas.py, probe_constructs.py)
     through their probes (every check's verdict must hold), against their
     plain versions;
-23. kernel X2 (the per-ray BVH walk, csrc/bvh_walk.cu) against its plain
-    version bvh_traverse on the card, on terrain 100k (phase 6's camera,
-    bounce and shadow rays) and on many_lights_scene (131,072 camera,
-    cosine-bounce and shadow rays each), in its three modes (closest t,
-    prim type, prim id, u, v; any hit; the heatmap's cost), bit for bit;
-    timed with CUDA events beside its bound; its registers and spills;
-    X2's closest hits against B3's on terrain 100k (the same prim ids but
-    at ties in t, counted);
+23. kernel X2 (the BVH walk, csrc/bvh_walk.cu: nodes per lane, the
+    posted leaves per warp) against its plain version bvh_traverse on the
+    card, on terrain 100k (phase 6's camera, bounce and shadow rays) over
+    its binned-SAH and its sweep-SAH tree and on many_lights_scene
+    (131,072 camera, cosine-bounce and shadow rays each), in its three
+    modes (closest t, prim type, prim id, u, v; any hit; the heatmap's
+    cost), bit for bit; timed with CUDA events beside its bound and the
+    packed tables' bytes; a counted launch of each mode whose warp node
+    and leaf steps must equal the replay of its schedule
+    (geometry/bvh_schedule.py::warp_schedule, whose hits must be the plain
+    walk's too), the leaf lane fill (primitive tests / (32 x leaf steps))
+    and the replayed steps of the first, per-lane design beside them; its
+    registers, spills and resident warps per SM in each mode; X2's
+    closest hits against B3's on terrain 100k (the same prim ids but at
+    ties in t, counted);
 24. main path 11: a Mitsuba XML scene written here (terrain 100k as .obj,
     a 20k-triangle bumpy sphere as .serialized, 128 spheres, a rectangle
     area emitter, a 64x128 .hdr env map) -> cli.main(["-f", ..., "--spp",
@@ -2271,22 +2278,86 @@ def x2_bound(st, nbytes):
                                  else "operations")
 
 
-def x2_vs_plain(label, scene, rays):
-    """X2 against bvh_traverse on one scene, each ray kind in the three
-    modes (closest, any hit, cost), bit for bit; X2 timed with CUDA events
-    (TIMED_LAUNCHES launches), the plain walk once; the bound of each."""
+def x2_differ(got, ref, mode):
+    """Values that differ in any bit between two of X2's returns in
+    ``mode`` (closest, occluded, cost), and max |d| of the finite floats."""
+    import torch
+    if mode == "occluded":
+        return int((got != ref).sum()), 0.0
+    (gh, gc), (rh, rc) = ((got, None), (ref, None)) \
+        if mode == "closest" else (got, ref)
+    outs = [(getattr(gh, f), getattr(rh, f)) for f in
+            ("t", "prim_type", "prim_id", "u", "v")]
+    if gc is not None:
+        outs.append((gc, rc))
+    bad, err = 0, 0.0
+    for a, b in outs:
+        if a.dtype == torch.float32:
+            bad += int((a.view(torch.int32) != b.view(torch.int32)).sum())
+            fin = torch.isfinite(a) & torch.isfinite(b)
+            if bool(fin.any()):
+                err = max(err, float((a[fin] - b[fin]).abs().max()))
+        else:
+            bad += int((a != b).sum())
+    return bad, err
+
+
+def x2_steps(label, scene, tr, r, mode, got):
+    """X2's warp node and leaf steps (one counted launch of ``mode``, not
+    timed), held equal to the replay of its schedule, whose hits must be
+    X2's; its leaf lane fill; the replayed steps of the per-lane first
+    design beside them."""
+    import torch
+    from vimg_tpu_torch.geometry import bvh
+    from vimg_tpu_torch.geometry import bvh_schedule as bs
+    kw = dict(any_hit=mode == "occluded", count_cost=mode == "cost")
+    steps = torch.zeros(2, dtype=torch.int64, device=r[0].device)
+    counted = bvh.bvh_trace(scene, tr.bvh, *r, steps=steps, **kw)
+    node, leaf = (int(x) for x in steps.cpu())
+    nodes, rows = bvh.packed_tables(scene, tr.bvh)
+    replay, warp = bs.warp_schedule(nodes, rows, *r, **kw)
+    _, lane = bs.lane_schedule(nodes, rows, *r, **kw)
+    bad = x2_differ(counted, got, mode)[0] + x2_differ(replay, got, mode)[0]
+    if bad or (warp["node_steps"], warp["leaf_steps"]) != (node, leaf):
+        fail(f"X2 {label} {mode}: counted launch steps {node}, {leaf} "
+             f"against the replay's {warp['node_steps']}, "
+             f"{warp['leaf_steps']}; {bad} values differ")
+    fill = warp["prim_tests"] / max(32 * leaf, 1)
+    lane_fill = lane["prim_tests"] / max(32 * lane["leaf_steps"], 1)
+    return dict(node_steps=node, leaf_steps=leaf, fill=fill,
+                lane_node_steps=lane["node_steps"],
+                lane_leaf_steps=lane["leaf_steps"], lane_fill=lane_fill)
+
+
+def x2_vs_plain(label, scene, rays, builder="auto"):
+    """X2 against bvh_traverse on one scene and tree, each ray kind in the
+    three modes (closest, any hit, cost), bit for bit; X2 timed with CUDA
+    events (TIMED_LAUNCHES launches), the plain walk once; the bound of
+    each; the warp steps of a counted launch against the replays
+    (x2_steps)."""
     import torch
     from vimg_tpu_torch.geometry import bvh
     t0 = time.time()
-    tr = bvh.BVHTracer(scene)
+    tr = bvh.BVHTracer(scene, builder=builder)
+    build_s = time.time() - t0
+    # the bound's bytes: the tables as the plain walk reads them (the same
+    # count as the first design's row, so that old and new rows compare)
     tables = sum(x.numel() * x.element_size() for x in (
         *(getattr(tr.bvh, f) for f in ("node_min", "node_max", "node_start",
                                        "node_count", "node_skip",
                                        "prim_type", "prim_idx")),
         scene.verts, scene.tri_vidx, scene.sph_center, scene.sph_radius))
-    log(f"  {label}: {scene.n_tris()} triangles, {scene.n_spheres()} "
-        f"spheres, {tr.bvh.n_nodes} BVH nodes, tables {tables / 1e6:.1f} MB; "
-        f"host build {time.time() - t0:.2f}s")
+    t0 = time.time()
+    packed = bvh.packed_tables(scene, tr.bvh)
+    torch.cuda.synchronize()
+    pack_s = time.time() - t0
+    packed_bytes = sum(x.numel() * x.element_size() for x in packed)
+    log(f"  {label} ({builder} tree): {scene.n_tris()} triangles, "
+        f"{scene.n_spheres()} spheres, {tr.bvh.n_nodes} BVH nodes, tables "
+        f"{tables / 1e6:.2f} MB, packed {packed_bytes / 1e6:.2f} MB (nodes "
+        f"{packed[0].numel() * 4 / 1e6:.2f} MB, rows "
+        f"{packed[1].numel() * 4 / 1e6:.2f} MB); host build {build_s:.2f}s, "
+        f"pack {pack_s:.3f}s")
     res, err = {}, 0.0
     for kind, r in rays.items():
         for mode in ("closest", "occluded", "cost"):
@@ -2301,27 +2372,12 @@ def x2_vs_plain(label, scene, rays):
             st = {}
             ref, plain_ms = event_ms(lambda: bvh.bvh_traverse(
                 scene, tr.bvh, *r, stats=st, **kw), 1)
+            bad, e = x2_differ(got, ref, mode)
+            err = max(err, e)
             if mode == "occluded":
-                bad = int((got != ref).sum())
                 summary = f"occluded {int(got.sum())}/{N_RAYS}"
             else:
-                (gh, gc), (rh, rc) = ((got, None), (ref, None)) \
-                    if mode == "closest" else (got, ref)
-                outs = [(getattr(gh, f), getattr(rh, f)) for f in
-                        ("t", "prim_type", "prim_id", "u", "v")]
-                if gc is not None:
-                    outs.append((gc, rc))
-                bad = 0
-                for a, b in outs:
-                    if a.dtype == torch.float32:
-                        bad += int((a.view(torch.int32)
-                                    != b.view(torch.int32)).sum())
-                        fin = torch.isfinite(a) & torch.isfinite(b)
-                        if bool(fin.any()):
-                            err = max(err, float((a[fin] - b[fin]).abs()
-                                                 .max()))
-                    else:
-                        bad += int((a != b).sum())
+                gh, gc = (got, None) if mode == "closest" else got
                 summary = (f"hits {int(gh.hit.sum())}/{N_RAYS} (spheres "
                            f"{int((gh.prim_type == 1).sum())})")
                 if gc is not None:
@@ -2329,15 +2385,24 @@ def x2_vs_plain(label, scene, rays):
             nbytes = N_RAYS * 48 + tables
             bound, by = x2_bound(st, nbytes)
             res[(kind, mode)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                                     bound_by=by, mismatches=bad, **st)
+                                     bound_by=by, mismatches=bad,
+                                     packed_bytes=packed_bytes, **st)
             log(f"    X2 {kind:6s} {mode:8s}: {summary}; kernel vs plain "
                 f"mismatches {bad}; kernel {ms:.4f} ms, plain "
                 f"{plain_ms:.1f} ms; {st.get('box_tests', 0)} box + "
                 f"{st.get('tri_tests', 0)} tri + "
                 f"{st.get('sphere_tests', 0)} sphere tests -> bound "
-                f"{bound:.4f} ms ({by}); {ms / bound:.1f}x the bound")
+                f"{bound:.4f} ms ({by}; tables {tables / 1e6:.2f} MB, packed "
+                f"{packed_bytes / 1e6:.2f} MB); {ms / bound:.1f}x the bound")
             if bad:
                 fail(f"X2 {label} {kind} {mode}: {bad} mismatches")
+            w = x2_steps(label, scene, tr, r, mode, got)
+            res[(kind, mode)].update(w)
+            log(f"      warp steps node {w['node_steps']} leaf "
+                f"{w['leaf_steps']} (equal to the replay of its schedule), "
+                f"leaf lane fill {w['fill']:.4f}; the per-lane first "
+                f"design, replayed: node {w['lane_node_steps']} leaf "
+                f"{w['lane_leaf_steps']}, fill {w['lane_fill']:.4f}")
     return res, err, tr
 
 
@@ -2378,22 +2443,29 @@ def x2_against_b3(scene, rays, tr):
 
 def x2_phase(terrain, terrain_rays_, dev):
     """Phase 23: X2 against its plain version on terrain 100k (phase 6's
-    rays) and on many_lights_scene; X2 against B3 on terrain 100k;
-    X2's registers and spills."""
+    rays; binned- and sweep-SAH trees) and on many_lights_scene; X2
+    against B3 on terrain 100k; X2's registers, spills and resident warps
+    in each mode."""
+    from vimg_tpu_torch.geometry import bvh
     from vimg_tpu_torch.runtime import cuda
     from vimg_tpu_torch.scene.synthetic import many_lights_scene
     log("[23] X2 (the BVH walk) vs its plain version, "
         f"{N_RAYS} rays a kind, three modes")
     for m, mode in enumerate(("closest", "any hit", "cost")):
-        for line in cuda.ptxas_lines(cuda.BUILD_INFO["log"],
-                                     f"bvh_walk_kernelILi{m}E"):
-            log(f"    ptxas X2 {mode}: {line}")
+        occ = bvh.occupancy(m)
+        log(f"    X2 {mode}: {occ['regs']} registers, {occ['local_bytes']} B "
+            f"local memory a thread, {occ['blocks_per_sm']} blocks = "
+            f"{occ['warps_per_sm']} resident warps per SM; ptxas: "
+            + " | ".join(cuda.ptxas_lines(cuda.BUILD_INFO["log"],
+                                          f"bvh_walk_kernelILi{m}ELb0E")))
     res_t, err_t, tr = x2_vs_plain("terrain 100k", terrain, terrain_rays_)
     x2_against_b3(terrain, terrain_rays_, tr)
+    res_s, err_s, _ = x2_vs_plain("terrain 100k", terrain, terrain_rays_,
+                                  builder="sweep")
     lights = many_lights_scene(256, MESH_W, MESH_H, device=dev)
     res_l, err_l, _ = x2_vs_plain("many_lights_scene", lights,
                                   light_rays(lights))
-    return res_t, res_l, max(err_t, err_l)
+    return res_t, res_l, max(err_t, err_s, err_l)
 
 
 FRONT_SPHERES = 128
@@ -2887,7 +2959,10 @@ def front_door_phases(terrain, terrain_rays_, png_dir, dev):
         **{f"{k}_{m}_ms": res_t[(k, m)]["ms"] for k in ("camera", "shadow")
            for m in ("closest", "occluded")},
         "many_lights_bounce_ms": res_l[("bounce", "closest")]["ms"],
-        "many_lights_bound_ms": res_l[("bounce", "closest")]["bound_ms"]}
+        "many_lights_bound_ms": res_l[("bounce", "closest")]["bound_ms"],
+        "packed_bytes": c["packed_bytes"],
+        "lane_fill": c["fill"],
+        "warp_steps": [c["node_steps"], c["leaf_steps"]]}
     return row, b3_12, b3_13
 
 

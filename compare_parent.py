@@ -1,5 +1,6 @@
-"""Time this checkout's kernels B2-B5, the packet cull and P19 and main
-paths 1-10 against another checkout of the port, on one GPU, in turns.
+"""Time this checkout's kernels B2-B5, X2, the packet cull and P19 and
+main paths 1-11 and 13 against another checkout of the port, on one GPU,
+in turns.
 
 Unpack the other commit into a directory that .gitignore lists and run,
 from the repository root on a machine with an NVIDIA GPU:
@@ -58,6 +59,25 @@ index_add_ adds in no fixed order), prints the table and the card's name
 and power limit, and writes the readings as JSON. Exits non-zero on any
 failure.
 
+X2 and the scene-file front door:
+
+- X2 (the BVH walk) on terrain 100k's camera, bounce and shadow rays in
+  its three modes (closest, any hit, cost), over the checkout's
+  BVHTracer: one launch kept, then three readings of 20 launches between
+  CUDA events and three of probes.common.device_ms (launches queued
+  behind a spin, so that the host's time to queue them does not show);
+  the warp steps where the checkout's bvh_trace counts them;
+- main path 11 (the Mitsuba file that the checkout's chip_smoke.py
+  writes, through cli.main at 64 spp, the wavefront over X2) and main
+  path 13's -b 1 frame (its JSON "mesh" file, X2 over the sweep-SAH
+  tree), each after a 1-spp warm-up frame: timed once, then rendered
+  again under torch.use_deterministic_algorithms (the film's index_add_
+  then sums in a fixed order), whose film is held bit for bit; the
+  heatmap (-m 4.0 on the Mitsuba file), held bit for bit (its costs are
+  multiples of 0.5, so their sums are exact in any order); each frame
+  also once with every X2 call between CUDA events, their sum X2's device
+  time in the frame.
+
 Main path 9 (the envtex frame: textured_terrain_scene(100_000) at
 512x256 @ 64 spp through the wavefront over B3) is timed once after a
 1-spp warm-up frame and checked as main paths 2 and 3. Main path 10 (the
@@ -93,6 +113,98 @@ def _smoke(tree):
     return mod
 
 
+def x2_readings(cs, scene, rays, dev):
+    """X2 on terrain 100k's phase-6 rays in its three modes: the outputs
+    of one launch, three readings of 20 launches between CUDA events and
+    three of device_ms, the warp steps where the checkout counts them."""
+    import torch
+    from vimg_tpu_torch.geometry import bvh
+    from vimg_tpu_torch.probes.common import device_ms
+    counts = "steps" in inspect.signature(bvh.bvh_trace).parameters
+    tr = bvh.BVHTracer(scene)
+    res, outs = {}, {}
+    for kind, r in rays.items():
+        for mode in ("closest", "occluded", "cost"):
+            kw = dict(any_hit=mode == "occluded", count_cost=mode == "cost")
+            fn = lambda: bvh.bvh_trace(scene, tr.bvh, *r, **kw)
+            got = fn()
+            steps = None
+            if counts:
+                st = torch.zeros(2, dtype=torch.int64, device=dev)
+                bvh.bvh_trace(scene, tr.bvh, *r, steps=st, **kw)
+                steps = [int(x) for x in st.cpu()]
+            for _ in range(2):
+                fn()
+            ms = [cs.event_ms(fn, cs.TIMED_LAUNCHES)[1]
+                  for _ in range(READINGS)]
+            dms = [device_ms(fn, cs.TIMED_LAUNCHES) for _ in range(READINGS)]
+            if mode == "occluded":
+                flat = [got]
+            else:
+                hr, cost = (got, None) if mode == "closest" else got
+                flat = [hr.t, hr.prim_type, hr.prim_id, hr.u, hr.v]
+                flat += [] if cost is None else [cost]
+            outs[f"{kind}/{mode}"] = [x.cpu() for x in flat]
+            res[f"{kind}/{mode}"] = dict(ms=ms, device_ms=dms, steps=steps)
+    return res, outs
+
+
+def front_readings(cs, dev):
+    """Main path 11 and main path 13's -b 1 frame through the checkout's
+    CLI on the files its chip_smoke.py writes: a 1-spp warm-up frame, the
+    frame timed once, then again under deterministic algorithms for its
+    film; the heatmap. Returns (seconds and counts, films)."""
+    import torch
+    from vimg_tpu_torch.geometry import bvh
+    from vimg_tpu_torch.render import heatmap, render, wavefront
+    from vimg_tpu_torch.scene.synthetic import terrain_mesh
+    res, imgs = {}, {}
+    trace, events = bvh.bvh_trace, []
+
+    def timed_trace(*a, **kw):
+        """bvh_trace between CUDA events (X2's device time in a frame)."""
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = trace(*a, **kw)
+        ev[1].record()
+        events.append(ev)
+        return out
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh = terrain_mesh(cs.FRONT_TERRAIN_TRIS)
+        xml, js = cs.write_mitsuba(tmp, mesh), cs.write_mesh_json(tmp)
+        png = os.path.join(tmp, "out.png")
+        for key, argv in (("main11", ["-f", xml]),
+                          ("main13_b1", ["-f", js, "-b", "1"])):
+            cs.cli_run(argv + ["--spp", "1", "-o", png])
+            with cs.Captured(render, "render_frame") as cap:
+                cs.cli_run(argv + ["--spp", str(cs.MESH_SPP), "-o", png])
+            _, secs = cap.calls[0]
+            res[key] = dict(s=secs, **_wf_stats(wavefront.LAST_STATS))
+            # the frame once more with every X2 call between CUDA events
+            events.clear()
+            bvh.bvh_trace = timed_trace
+            try:
+                cs.cli_run(argv + ["--spp", str(cs.MESH_SPP), "-o", png])
+            finally:
+                bvh.bvh_trace = trace
+            torch.cuda.synchronize()
+            res[key].update(x2_calls=len(events), x2_ms=sum(
+                a.elapsed_time(b) for a, b in events))
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                with cs.Captured(render, "render_frame") as cap:
+                    cs.cli_run(argv + ["--spp", str(cs.MESH_SPP), "-o", png])
+            finally:
+                torch.use_deterministic_algorithms(False)
+            imgs[key] = cap.calls[0][0].cpu()
+            res[key]["det"] = _wf_stats(wavefront.LAST_STATS)
+        with cs.Captured(heatmap, "render_heatmap") as cap:
+            cs.cli_run(["-f", xml, "-m", str(cs.HEATMAP_FACTOR), "-o", png])
+        imgs["heatmap"], res["heatmap"] = cap.calls[0][0].cpu(), dict(
+            s=cap.calls[0][1])
+    return res, imgs
+
+
 def worker(tree, out):
     import torch
     cs = _smoke(tree)
@@ -109,6 +221,8 @@ def worker(tree, out):
     res = {"tree": tree, "b5": {}}
     scene = terrain_scene(100_000, cs.MESH_W, cs.MESH_H, device=dev)
     rays = cs.terrain_rays(scene, ct.ClusterTracer(scene, walk="wide"))
+    res["x2"], x2_outs = x2_readings(cs, scene, rays, dev)
+    res["front"], front_imgs = front_readings(cs, dev)
     slist = pt.PacketTracer(scene)
     tracers = {"slist": slist,
                "f2b": pt.PacketTracer(scene, variant="f2b", data=slist.data)}
@@ -161,8 +275,8 @@ def worker(tree, out):
         res["main10"] = train_readings(cs, dev)
     torch.save({"b5": outs, "meta": metas, "img": img.cpu(),
                 "walks": walk_outs, "b2": b2_outs, "img2": img2,
-                "img3": img3, "img9": img9, "main1": main1, **imgs78},
-               out + ".pt")
+                "img3": img3, "img9": img9, "main1": main1, **imgs78,
+                "x2": x2_outs, **front_imgs}, out + ".pt")
     with open(out, "w") as f:
         json.dump(res, f)
 
@@ -370,6 +484,7 @@ def main():
     bad = []
     ref = runs[1]["data"]
     for res in runs:
+        bad += x2_checks(res, runs[1])
         for key, (t, code) in res["data"]["b5"].items():
             rt, rc = ref["b5"][key]
             n = int(((t.view(torch.int32) != rt.view(torch.int32))
@@ -425,6 +540,7 @@ def main():
         xs = [x for res in runs if res["name"] == key for x in get(res)]
         return f"{min(xs):.6f}-{max(xs):.6f}"
 
+    x2_report(runs, span)
     print(f"cull and B5 ms (20 calls between CUDA events, {READINGS} "
           f"readings a run; other runs 1 and 4, this runs 2 and 3):")
     for key in runs[0]["b5"]:
@@ -493,10 +609,68 @@ def main():
                 failures=bad), f, indent=1)
     if bad:
         sys.exit("FAIL: " + "; ".join(bad))
-    print("all meta, B3, B4, B5 outputs, B1 and B2 films and counters "
-          "(main paths 1, 4, 5) and the films of main paths 7 and 8 "
-          "bit-equal across the runs, P19 held, the wavefront frames' "
-          "counts equal and their films agree")
+    print("all meta, B3, B4, B5 and X2 outputs, B1 and B2 films and "
+          "counters (main paths 1, 4, 5), the films of main paths 7 and 8, "
+          "the heatmap and the deterministic films of main paths 11 and 13 "
+          "(-b 1) bit-equal across the runs, P19 held, the wavefront "
+          "frames' counts equal and their films agree")
+
+def x2_checks(res, ref):
+    """X2's outputs, the heatmap and main paths 11 and 13's deterministic
+    films bit-equal to run 2's (this checkout), the frames' counts equal."""
+    import torch
+    bad = []
+    for key, got in res["data"]["x2"].items():
+        n = sum(int((a.view(torch.int32) != b.view(torch.int32)).sum())
+                if a.dtype == torch.float32 else int((a != b).sum())
+                for a, b in zip(got, ref["data"]["x2"][key]))
+        if n:
+            bad.append(f"X2 {key} run {res['name']}: {n} values differ")
+    for key in ("main11", "main13_b1", "heatmap"):
+        a, b = res["data"][key], ref["data"][key]
+        n = int((a.view(torch.int32) != b.view(torch.int32)).any(-1).sum())
+        if n:
+            bad.append(f"{key} run {res['name']}: {n} pixels differ")
+        if key == "heatmap":
+            continue
+        for det in (False, True):
+            got, want = ([(x["front"][key]["det"] if det else
+                           x["front"][key])[k]
+                          for k in ("segments", "shadow_rays", "supersteps")]
+                         for x in (res, ref))
+            if got != want:
+                bad.append(f"{key}{' (deterministic)' if det else ''} run "
+                           f"{res['name']}: segments, shadow rays, "
+                           f"supersteps {got} != {want}")
+    return bad
+
+
+def x2_report(runs, span):
+    """X2's times beside the other checkout's, and the front frames."""
+    print(f"X2 ms, terrain 100k (20 launches between CUDA events / queued "
+          f"behind a spin (device), {READINGS} readings a run; other runs "
+          f"1 and 4, this runs 2 and 3):")
+    for key in runs[0]["x2"]:
+        print(f"  {key:16s} events other "
+              f"{span('other', lambda r: r['x2'][key]['ms'])}  this "
+              f"{span('this', lambda r: r['x2'][key]['ms'])}; device other "
+              f"{span('other', lambda r: r['x2'][key]['device_ms'])}  this "
+              f"{span('this', lambda r: r['x2'][key]['device_ms'])}; warp "
+              f"steps (node, leaf; this) {runs[1]['x2'][key]['steps']}")
+    for key, name in (("main11", "main path 11"),
+                      ("main13_b1", "main path 13 -b 1")):
+        f = runs[1]["front"][key]
+        print(f"{name} frame s (render loop s), in run order: " + ", ".join(
+            f"{r['name']} {r['front'][key]['s']:.3f} "
+            f"({r['front'][key]['loop_s']:.3f})" for r in runs)
+              + f"; {f['segments']} segments + {f['shadow_rays']} shadow "
+              f"rays, {f['supersteps']} supersteps")
+        print(f"  X2 device ms in the frame ({f['x2_calls']} calls, CUDA "
+              f"events around each), in run order: " + ", ".join(
+                  f"{r['name']} {r['front'][key]['x2_ms']:.1f}"
+                  for r in runs))
+    print("heatmap s, in run order: " + ", ".join(
+        f"{r['name']} {r['front']['heatmap']['s']:.3f}" for r in runs))
 
 
 if __name__ == "__main__":

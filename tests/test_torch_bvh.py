@@ -158,6 +158,28 @@ def test_walk_bit_equal(scenes, refs, builder):
     assert st["sphere_tests"] > 0
 
 
+@pytest.mark.parametrize("builder", ("numpy", "sweep"))
+def test_warp_replay_matches_reference(scenes, refs, builder):
+    """Kernel X2's warp schedule (geometry/bvh_schedule.py), replayed over
+    its packed tables, against vimg_tpu's walk: closest with cost and any
+    hit, bit for bit."""
+    from vimg_tpu_torch.geometry import bvh_schedule as bs
+    _, ts = scenes
+    bvh = tb.build_scene_bvh(ts, builder)
+    nodes, rows = tb.packed_tables(ts, bvh)
+    rays = [torch.from_numpy(x) for x in _rays()]
+    (hr, cost), _ = bs.warp_schedule(nodes, rows, *rays, count_cost=True)
+    occ, _ = bs.warp_schedule(nodes, rows, *rays, any_hit=True)
+    for k in ("t", "prim_type", "prim_id", "u", "v"):
+        got, ref = getattr(hr, k).numpy(), refs[f"{builder}_{k}"]
+        if got.dtype == np.float32:
+            assert np.array_equal(got.view(np.int32), ref.view(np.int32)), k
+        else:
+            assert np.array_equal(got, ref), k
+    assert np.array_equal(cost.numpy(), refs[f"{builder}_cost"])
+    assert np.array_equal(occ.numpy(), refs[f"{builder}_occ"])
+
+
 def test_refit(scenes):
     """Unmoved geometry gives the built boxes back; moved vertices and
     spheres give vimg_tpu's refit boxes."""

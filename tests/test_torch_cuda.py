@@ -984,16 +984,26 @@ def _bvh_scene(device):
         sph_mat=torch.zeros(100, dtype=torch.int64, device=device))
 
 
+def _bvh_case(kind, device):
+    """(scene, rays) of an X2 test: the 20k terrain with spheres, or
+    tests/test_torch_bvh_warp.py's stacks of coincident triangles (equal t
+    within a leaf and across leaves)."""
+    if kind == "terrain":
+        return _bvh_scene(device), _terrain_rays(device)
+    from test_torch_bvh_warp import _stack_rays, _stack_scene
+    return _stack_scene(device), _stack_rays(device=device)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("builder", ["auto", "sweep"])
-def test_bvh_kernel_bit_equal_to_plain(cuda, builder):
+@pytest.mark.parametrize("kind", ["terrain", "stacks"])
+def test_bvh_kernel_bit_equal_to_plain(cuda, kind, builder):
     """X2 against bvh_traverse in its three modes: closest (t, prim type,
     prim id, u, v), any hit and the cost counter, bit for bit, one launch
     each; BVHTracer launches X2 and its plain twin never does."""
     from vimg_tpu_torch.geometry import bvh as tb
-    scene = _bvh_scene(cuda)
+    scene, rays = _bvh_case(kind, cuda)
     tr = tb.BVHTracer(scene, builder=builder)
-    rays = _terrain_rays(cuda)
     before = tb.LAUNCHES
     hr = tb.bvh_trace(scene, tr.bvh, *rays)
     occ = tb.bvh_trace(scene, tr.bvh, *rays, any_hit=True)
@@ -1011,6 +1021,7 @@ def test_bvh_kernel_bit_equal_to_plain(cuda, builder):
             assert torch.equal(getattr(got, k), getattr(ref, k))
     assert torch.equal(occ, rocc) and torch.equal(_bits(cost), _bits(rcost))
     assert bool((ref.prim_type == ir.PRIM_SPHERE).any())
+    assert bool((ref.prim_type == ir.PRIM_TRI).any())
     assert bool(ref.hit.any()) and not bool(ref.hit.all())
     plain = tb.BVHTracer(scene, builder=builder, plain=True)
     got = tr.closest(scene, *rays)
@@ -1018,3 +1029,76 @@ def test_bvh_kernel_bit_equal_to_plain(cuda, builder):
     assert torch.equal(got.prim_id, plain.closest(scene, *rays).prim_id)
     assert torch.equal(tr.occluded(scene, *rays), rocc)
     assert tb.LAUNCHES == before + 5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["terrain", "stacks"])
+def test_bvh_kernel_steps_equal_replay(cuda, kind):
+    """X2's counted launch: its warp node and leaf steps equal the replay
+    of its schedule (geometry/bvh_schedule.py::warp_schedule) on the same
+    rays, and its outputs are the uncounted launch's, in each mode."""
+    from vimg_tpu_torch.geometry import bvh as tb
+    from vimg_tpu_torch.geometry import bvh_schedule as bs
+    scene, rays = _bvh_case(kind, cuda)
+    tr = tb.BVHTracer(scene)
+    nodes, rows = tb.packed_tables(scene, tr.bvh)
+    for any_hit, count_cost in ((False, False), (True, False), (False, True)):
+        kw = dict(any_hit=any_hit, count_cost=count_cost)
+        steps = torch.zeros(2, dtype=torch.int64, device=cuda)
+        got = tb.bvh_trace(scene, tr.bvh, *rays, steps=steps, **kw)
+        ref = tb.bvh_trace(scene, tr.bvh, *rays, **kw)
+        replay, counts = bs.warp_schedule(nodes, rows, *rays, **kw)
+        assert [int(x) for x in steps.cpu()] == [counts["node_steps"],
+                                                 counts["leaf_steps"]]
+        if any_hit:
+            assert torch.equal(got, ref) and torch.equal(got, replay)
+            continue
+        if count_cost:
+            (got, gc), (ref, rc), (replay, pc) = got, ref, replay
+            assert torch.equal(_bits(gc), _bits(rc))
+            assert torch.equal(_bits(gc), _bits(pc))
+        for k in ("t", "u", "v"):
+            assert torch.equal(_bits(getattr(got, k)), _bits(getattr(ref, k)))
+            assert torch.equal(_bits(getattr(got, k)),
+                               _bits(getattr(replay, k)))
+        for k in ("prim_type", "prim_id"):
+            assert torch.equal(getattr(got, k), getattr(replay, k))
+
+
+@pytest.mark.cuda
+def test_bvh_kernel_follows_scene(cuda):
+    """X2's packed tables on the card follow the scene: after the vertices
+    and sphere centres are replaced and the tree refit, and after the
+    vertices are written in place (the rows at once, the boxes at the next
+    refit), X2 stays bvh_traverse's on the scene as it is then."""
+    from vimg_tpu_torch.geometry import bvh as tb
+    scene = _bvh_scene(cuda)
+    rays = _terrain_rays(cuda)
+    tr = tb.BVHTracer(scene)
+
+    def held(sc):
+        got = tr.closest(sc, *rays)
+        ref = tb.bvh_traverse(sc, tr.bvh, *rays)
+        for k in ("t", "u", "v"):
+            assert torch.equal(_bits(getattr(got, k)), _bits(getattr(ref, k)))
+        for k in ("prim_type", "prim_id"):
+            assert torch.equal(getattr(got, k), getattr(ref, k))
+        return got
+
+    first = held(scene)
+    r = np.random.default_rng(9)
+    dv = torch.as_tensor(r.normal(0, 0.05, tuple(scene.verts.shape)),
+                         dtype=torch.float32, device=cuda)
+    dc = torch.as_tensor(r.normal(0, 0.1, tuple(scene.sph_center.shape)),
+                         dtype=torch.float32, device=cuda)
+    moved = scene.replace(verts=scene.verts + dv,
+                          sph_center=scene.sph_center + dc)
+    tr.refit(moved)
+    second = held(moved)
+    assert not torch.equal(first.t, second.t)
+    with torch.no_grad():
+        moved.verts.add_(dv)
+    third = held(moved)
+    assert not torch.equal(second.t, third.t)
+    tr.refit(moved)
+    held(moved)

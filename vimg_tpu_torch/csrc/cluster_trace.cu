@@ -119,20 +119,12 @@ __device__ __forceinline__ void add_steps(const cwalk::Steps& steps,
 
 // B3's slab test of a wide child or cluster box (lo xyz, hi xyz at b[0..5],
 // the row 16-byte aligned): cwalk::slab6's arithmetic, with min / max that
-// return NaN when either input is NaN in one instruction each (PTX
-// min.NaN / max.NaN, sm_80+) where jmin / jmax take three. Only the
-// comparison tin <= tout leaves it, so a NaN's bits and the sign of a
-// zero do not matter: the result is slab6's.
-__device__ __forceinline__ float nmin(float a, float b) {
-  float r;
-  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
-  return r;
-}
-__device__ __forceinline__ float nmax(float a, float b) {
-  float r;
-  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
-  return r;
-}
+// return NaN when either input is NaN in one instruction each
+// (cwalk::nmin / nmax) where jmin / jmax take three. Only the comparison
+// tin <= tout leaves it, so a NaN's bits and the sign of a zero do not
+// matter: the result is slab6's.
+using cwalk::nmax;
+using cwalk::nmin;
 __device__ __forceinline__ bool wide_slab(const float* __restrict__ b,
                                           const Ray& r, float bt) {
   const float4 p = cwalk::ldg4(b), q = cwalk::ldg4(b + 4);

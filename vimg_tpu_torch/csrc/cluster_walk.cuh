@@ -43,6 +43,19 @@ __device__ __forceinline__ float jmax(float a, float b) {
 __device__ __forceinline__ float jmin(float a, float b) {
   return (isnan_(a) || isnan_(b)) ? qnan() : (a < b ? a : b);
 }
+// The same in one instruction each (PTX min.NaN / max.NaN, sm_80+), as
+// torch.minimum / torch.maximum: NaN when either input is NaN (B3's node
+// boxes, X2's boxes and sphere roots)
+__device__ __forceinline__ float nmin(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+__device__ __forceinline__ float nmax(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
 
 struct Ray {
   float ox, oy, oz, dx, dy, dz, ix, iy, iz, minT;

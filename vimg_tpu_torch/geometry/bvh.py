@@ -14,7 +14,10 @@ Walk: the tree is laid out in DFS preorder and threaded with skip links,
 LEAF_SIZE primitives. ``bvh_traverse`` is that walk in tensor code, ray
 by ray as vimg_tpu's lockstep XLA loop computes it, and the plain version
 of kernel X2 (``csrc/bvh_walk.cu``), which ``bvh_trace`` launches for
-CUDA tensors. ``refit_bvh`` recomputes the boxes a level at a time.
+CUDA tensors over the tables ``packed_tables`` packs for it (32-byte node
+records, 48-byte primitive rows in leaf-slot order), cached on the tree
+and checked against the scene's tensors and their versions. ``refit_bvh``
+recomputes the boxes a level at a time.
 """
 from __future__ import annotations
 
@@ -39,7 +42,20 @@ BOX_TEST_OPS = 25
 TRI_TEST_OPS = 56
 SPHERE_TEST_OPS = 40
 MODE_CLOSEST, MODE_ANY_HIT, MODE_COST = 0, 1, 2
+# kernel X2's packed tables: a node is 8 words (lo xyz, skip; hi xyz, start
+# << COUNT_BITS | count), a primitive row 12 (a triangle's p0 p1 p2 or a
+# sphere's centre and radius, then ROW_KIND, ROW_TYPE, ROW_IDX); ints are
+# stored as their bits
+NODE_WORDS, ROW_WORDS, COUNT_BITS = 8, 12, 4
+ROW_KIND, ROW_TYPE, ROW_IDX = 9, 10, 11
+KIND_NONE = -1            # a slot whose primitive the walk cannot test
+# X2 runs a warp's posted leaves once POST_MIN lanes wait on one, or when no
+# lane walks on (csrc/bvh_walk.cu kPostMin; 33 would wait for every lane,
+# 1 run a round at every post); 8 gave the least time on 4 of terrain
+# 100k's 6 ray sets of the thresholds 1-33 (x2_study.py post-min; PERF.md)
+POST_MIN = 8
 
+X2_BLOCK = 128     # csrc/bvh_walk.cu kThreads
 LAUNCHES = 0       # kernel X2 launches (bvh_trace on CUDA tensors)
 
 
@@ -54,6 +70,10 @@ class BVHArrays:
     node_right: torch.Tensor  # (N,) i32: right child (inner; -1 leaf)
     prim_type: torch.Tensor   # (P,) i32 (PRIM_TRI / PRIM_SPHERE)
     prim_idx: torch.Tensor    # (P,) i32 index into the tri/sphere tables
+    # kernel X2's packed tables (packed_tables); a refit's new tree starts
+    # empty
+    packed: dict = dataclasses.field(default_factory=dict, init=False,
+                                     repr=False, compare=False)
 
     @property
     def n_nodes(self):
@@ -432,6 +452,102 @@ def _count(stats, key, n):
 
 
 # ---------------------------------------------------------------------------
+# kernel X2's packed tables
+# ---------------------------------------------------------------------------
+
+def pack_nodes(bvh: BVHArrays):
+    """X2's node records, (N, NODE_WORDS) float32: lo xyz and the skip
+    link's bits, hi xyz and the bits of start << COUNT_BITS | count."""
+    start = bvh.node_start.to(torch.int32)
+    count = bvh.node_count.to(torch.int32)
+    if bvh.n_nodes and (int(count.min()) < 0 or int(start.min()) < 0
+                        or int(count.max()) >= 1 << COUNT_BITS
+                        or int(start.max()) >= 1 << (31 - COUNT_BITS)):
+        raise ValueError("X2's node record holds 0 <= count < "
+                         f"{1 << COUNT_BITS} and 0 <= start < "
+                         f"{1 << (31 - COUNT_BITS)}")
+    words = torch.cat([
+        bvh.node_min.contiguous().view(torch.int32),
+        bvh.node_skip.to(torch.int32)[:, None],
+        bvh.node_max.contiguous().view(torch.int32),
+        ((start << COUNT_BITS) | count)[:, None]], dim=1)
+    return words.contiguous().view(torch.float32)
+
+
+def pack_rows(scene: ir.Scene, bvh: BVHArrays):
+    """X2's primitive rows, (P, ROW_WORDS) float32 in leaf-slot order: the
+    triangle's vertices ``verts[tri_vidx[i]]`` or the sphere's centre and
+    radius, as bvh_traverse reads them (the index clamped as there), then
+    the test kind, the prim type and the prim index as int bits."""
+    P, dev = bvh.prim_type.shape[0], bvh.prim_type.device
+    ptype = bvh.prim_type.to(torch.int32)
+    words = torch.zeros((P, ROW_WORDS), dtype=torch.int32, device=dev)
+    kind = torch.full((P,), KIND_NONE, dtype=torch.int32, device=dev)
+    if scene.n_tris() > 0:
+        tid = torch.clamp(bvh.prim_idx.long(), 0, scene.n_tris() - 1)
+        verts = scene.verts.detach().contiguous().view(torch.int32)
+        p = verts[scene.tri_vidx[tid].long()].reshape(P, 9)
+        is_tri = ptype == ir.PRIM_TRI
+        words[:, 0:9] = torch.where(is_tri[:, None], p, words[:, 0:9])
+        kind = torch.where(is_tri, ir.PRIM_TRI, kind)
+    if scene.n_spheres() > 0:
+        sid = torch.clamp(bvh.prim_idx.long(), 0, scene.n_spheres() - 1)
+        c = scene.sph_center.detach().contiguous().view(torch.int32)[sid]
+        r = scene.sph_radius.detach().contiguous().view(torch.int32)[sid]
+        is_sph = ptype == ir.PRIM_SPHERE
+        words[:, 0:3] = torch.where(is_sph[:, None], c, words[:, 0:3])
+        words[:, 3] = torch.where(is_sph, r, words[:, 3])
+        kind = torch.where(is_sph, ir.PRIM_SPHERE, kind)
+    words[:, ROW_KIND] = kind
+    words[:, ROW_TYPE] = ptype
+    words[:, ROW_IDX] = bvh.prim_idx.to(torch.int32)
+    return words.view(torch.float32)
+
+
+def node_fields(nodes):
+    """A packed node table's fields: (lo, hi, skip, start, count)."""
+    w = nodes.view(torch.int32)
+    return (nodes[:, 0:3], nodes[:, 4:7], w[:, 3], w[:, 7] >> COUNT_BITS,
+            w[:, 7] & ((1 << COUNT_BITS) - 1))
+
+
+def row_fields(rows):
+    """A packed row table's int fields: (test kind, prim type, prim idx)."""
+    w = rows.view(torch.int32)
+    return w[:, ROW_KIND], w[:, ROW_TYPE], w[:, ROW_IDX]
+
+
+def _cached(bvh, tag, sources, make):
+    """``make()``, kept in ``bvh.packed`` while every source is the same
+    tensor at the same version (an in-place write bumps the version, so
+    nothing is read stale)."""
+    versions = tuple(x._version for x in sources)
+    hit = bvh.packed.get(tag)
+    if (hit is not None and hit[1] == versions
+            and all(a is b for a, b in zip(hit[0], sources))):
+        return hit[2]
+    with torch.no_grad():
+        out = make()
+    bvh.packed[tag] = (sources, versions, out)
+    return out
+
+
+def packed_tables(scene: ir.Scene, bvh: BVHArrays):
+    """Kernel X2's (nodes, rows) for this tree and scene: packed once per
+    tree, packed anew when a node table or a geometry tensor (``verts``,
+    ``tri_vidx``, ``sph_center``, ``sph_radius``) is another tensor or was
+    written in place. They live as long as the tree."""
+    nodes = _cached(bvh, "nodes", (bvh.node_min, bvh.node_max,
+                                   bvh.node_start, bvh.node_count,
+                                   bvh.node_skip), lambda: pack_nodes(bvh))
+    rows = _cached(bvh, "rows", (bvh.prim_type, bvh.prim_idx, scene.verts,
+                                 scene.tri_vidx, scene.sph_center,
+                                 scene.sph_radius),
+                   lambda: pack_rows(scene, bvh))
+    return nodes, rows
+
+
+# ---------------------------------------------------------------------------
 # kernel X2's wrapper
 # ---------------------------------------------------------------------------
 
@@ -444,18 +560,19 @@ def _check(x, name, dtype, shape, device):
 
 
 def bvh_trace(scene, bvh: BVHArrays, ro, rd, minT, maxT, any_hit=False,
-              count_cost=False):
+              count_cost=False, steps=None):
     """Kernel X2 (CUDA tensors) or ``bvh_traverse`` (CPU tensors), with
     bvh_traverse's returns.
 
     X2 has no Pallas counterpart: vimg_tpu walks the BVH with XLA (every
     lane in lockstep, leaves tested 8 primitives wide by one-hot selects,
-    vimg_tpu/geometry/bvh.py:341-433). On the card a thread walks its
-    ray's skip links over the same tables with per-lane loads and
-    branches, in one of three modes: closest, any hit (leaving at its
-    first occluding leaf) and closest with the cost counter. What bounds
-    it: dependent table loads (node, primitive index, vertices) and warp
-    divergence, not bytes or operations. See csrc/bvh_walk.cu."""
+    vimg_tpu/geometry/bvh.py:341-433). On the card each lane walks its
+    ray's skip links over ``packed_tables`` and posts each live leaf; the
+    warp runs the posted leaves together, a lane a (leaf, slot) pair, in
+    one of three modes: closest, any hit (leaving at its first occluding
+    leaf) and closest with the cost counter. ``steps`` (CUDA int64 (2,)):
+    the launch adds its warp node and leaf steps (geometry/bvh_schedule.py
+    replays them). See csrc/bvh_walk.cu."""
     global LAUNCHES
     dev = ro.device
     if dev.type == "cpu":
@@ -466,30 +583,21 @@ def bvh_trace(scene, bvh: BVHArrays, ro, rd, minT, maxT, any_hit=False,
     from vimg_tpu_torch.runtime.cuda import check, load_library
     B, N = ro.shape[0], bvh.n_nodes
     P = bvh.prim_type.shape[0]
-    T, S = scene.n_tris(), scene.n_spheres()
+    nodes, rows = packed_tables(scene, bvh)
     ro = ro.detach().contiguous()
     rd = rd.detach().contiguous()
     minT = minT.detach().expand(B).contiguous()
     maxT = maxT.detach().expand(B).contiguous()
-    tri_vidx = scene.tri_vidx.to(torch.int32).contiguous()
-    tables = (("node_min", bvh.node_min, torch.float32, (N, 3)),
-              ("node_max", bvh.node_max, torch.float32, (N, 3)),
-              ("node_start", bvh.node_start, torch.int32, (N,)),
-              ("node_count", bvh.node_count, torch.int32, (N,)),
-              ("node_skip", bvh.node_skip, torch.int32, (N,)),
-              ("prim_type", bvh.prim_type, torch.int32, (P,)),
-              ("prim_idx", bvh.prim_idx, torch.int32, (P,)),
-              ("verts", scene.verts, torch.float32,
-               tuple(scene.verts.shape)),
-              ("tri_vidx", tri_vidx, torch.int32, (T, 3)),
-              ("sph_center", scene.sph_center, torch.float32, (S, 3)),
-              ("sph_radius", scene.sph_radius, torch.float32, (S,)),
+    tables = (("nodes", nodes, torch.float32, (N, NODE_WORDS)),
+              ("rows", rows, torch.float32, (P, ROW_WORDS)),
               ("ro", ro, torch.float32, (B, 3)),
               ("rd", rd, torch.float32, (B, 3)),
               ("minT", minT, torch.float32, (B,)),
               ("maxT", maxT, torch.float32, (B,)))
     for name, x, dtype, shape in tables:
         _check(x, name, dtype, shape, dev)
+    if steps is not None:
+        _check(steps, "steps", torch.int64, (2,), dev)
     mode = (MODE_ANY_HIT if any_hit else
             MODE_COST if count_cost else MODE_CLOSEST)
     t = torch.empty(B, dtype=torch.float32, device=dev)
@@ -504,10 +612,10 @@ def bvh_trace(scene, bvh: BVHArrays, ro, rd, minT, maxT, any_hit=False,
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             rc = lib.vimg_bvh_walk(
-                *(x.data_ptr() for _, x, _, _ in tables), B, N, T, S, mode,
+                *(x.data_ptr() for _, x, _, _ in tables), B, N, P, mode,
                 t.data_ptr(), ptype.data_ptr(), pidx.data_ptr(),
                 u.data_ptr(), v.data_ptr(), occ.data_ptr(), cost.data_ptr(),
-                stream)
+                None if steps is None else steps.data_ptr(), stream)
         check(rc, "vimg_bvh_walk")
         LAUNCHES += 1
     if any_hit:
@@ -515,6 +623,21 @@ def bvh_trace(scene, bvh: BVHArrays, ro, rd, minT, maxT, any_hit=False,
     hr = HitResult(t=t, prim_type=ptype.long(), prim_id=pidx.long(), u=u,
                    v=v)
     return (hr, cost) if count_cost else hr
+
+
+def occupancy(mode):
+    """X2's registers a thread, local bytes a thread (stack frame and
+    spills) and resident blocks and warps per SM in ``mode`` (MODE_*), from
+    cudaFuncGetAttributes and the occupancy API."""
+    import ctypes
+    from vimg_tpu_torch.runtime.cuda import check, load_library
+    per_sm, regs, local = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    check(load_library().vimg_bvh_occupancy(
+        mode, ctypes.byref(per_sm), ctypes.byref(regs), ctypes.byref(local)),
+        "vimg_bvh_occupancy")
+    return dict(regs=regs.value, local_bytes=local.value,
+                blocks_per_sm=per_sm.value,
+                warps_per_sm=per_sm.value * X2_BLOCK // 32)
 
 
 # ---------------------------------------------------------------------------
@@ -587,7 +710,8 @@ class BVHTracer:
                                   _np(self.bvh.node_right))
 
     def refit(self, scene):
-        """Update the boxes for moved geometry (topology kept)."""
+        """Update the boxes for moved geometry (topology kept); X2 packs
+        the new tree's tables at its next walk."""
         self.bvh = refit_bvh(scene, self.bvh, self.levels)
         return self
 

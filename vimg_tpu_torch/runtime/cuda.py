@@ -49,11 +49,12 @@ SIGNATURES = {
     # int64 or null), octants (device int32 or null), n_work, n_clusters,
     # cp, entry_scale, meta, stream
     "vimg_packet_cull": ([_P] * 8 + [_I] * 3 + [_F] + [_P] * 2, _I),
-    # csrc/bvh_walk.cu (X2): node_min, node_max, node_start, node_count,
-    # node_skip, prim_type, prim_idx, verts, tri_vidx, sph_center,
-    # sph_radius, ro, rd, minT, maxT, n_rays, n_nodes, n_tris, n_spheres,
-    # mode, t, prim_type, prim_id, u, v, occluded, cost, stream
-    "vimg_bvh_walk": ([_P] * 15 + [_I] * 5 + [_P] * 8, _I),
+    # csrc/bvh_walk.cu (X2): nodes, rows, ro, rd, minT, maxT, n_rays,
+    # n_nodes, n_prims, mode, t, prim_type, prim_id, u, v, occluded, cost,
+    # steps (device uint64[2] or null), stream
+    "vimg_bvh_walk": ([_P] * 6 + [_I] * 4 + [_P] * 9, _I),
+    # mode, per_sm, regs, local_bytes (host int*)
+    "vimg_bvh_occupancy": ([_I] + [_P] * 3, _I),
     # csrc/gather_row.cu: hi, mid, lo, ids, p, n_rows, n_ids, out, stream
     "vimg_gather_rows": ([_P] * 4 + [_I] * 3 + [_P] * 2, _I),
     # csrc/probe_walk.cu (P1): aabb, cid, skip, tri, n_nodes, ro, rd, tmin,
