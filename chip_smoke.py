@@ -154,6 +154,35 @@ Phases:
     tree): the pixels that differ and the two means; then -m 4.0 on main
     path 11's file (the 512x256 heatmap, 4 spp, through X2's cost
     counter) and -d "256 128" on the card against the CPU.
+27. main path 14: the flagship file (1800x800 @ 512 spp) through
+    render_with_checkpoints in slabs of 128 spp (one B1 launch a slab),
+    stopped at 256 spp and resumed to 512: the resumed film bit for bit
+    the uninterrupted slabs' film, within 1e-5 of main path 1's frame;
+28. main path 15: terrain 100k at 512x256 @ 64 spp MIS through
+    render_with_checkpoints in slabs of 16 spp (the wavefront, B3),
+    stopped at 32 and resumed: within 1e-5 of main path 2's frame, the
+    slabs' segment and shadow-ray counts summing to its counts exactly;
+29. main path 16: render_megakernel_sharded over a mesh of the card (one
+    range) and over three ranges launched in turn there, on the flagship
+    (B1) and on main path 4's frame (B2): each bit for bit the single
+    launch's film;
+30. main path 17: terrain 100k at 512x256 @ 4 spp through render_sharded
+    over the card against render() over the same B3 tracer (unit-scale
+    bounds); render_distributed under a one-rank NCCL group equal to
+    render_sharded; the NCCL all-reduce's milliseconds on a 1800x800 film;
+31. main path 18: main path 10's envtex step (131,072 rays) through
+    make_train_step(mesh=global_mesh()) under that group against the
+    unsharded step: the loss bit for bit, the gradients within GRAD_RTOL
+    (and the count of elements whose bits differ), then both steps again
+    under torch.use_deterministic_algorithms with loss and gradients bit
+    for bit; forward, backward and all-reduce milliseconds;
+32. main path 19: the CLI with --trace on main path 13's JSON: the trace
+    file names B3's kernel; walk_roofline of main path 5's B2 launch;
+33. main path 20: terrain 100k at 512x256 @ 64 spp through render_frame
+    with VIMG_PREPASS=1 beside the same frame without it: the pre-pass
+    engages, equal supersteps, segments within 0.1%, the film within
+    tests/test_cluster_trace.py's pre-pass bounds; both frame times and
+    peak memories.
 The probe kernels lie on no render path: their rows report 0 launches,
 and each probe phase prints the launches its entry points made. Every
 probe record carries the card's name and power limit. Each kernel is
@@ -278,6 +307,15 @@ ENVTEX_SMALL, ENVTEX_SMALL_SPP = (64, 32), 4
 NORMAL_SPP = 4            # the CLI's (and the reference's) normal-view spp
 # phase 20: probe_prims' iterations where the plain version is held
 PRIMS_PLAIN_ITERS = 2000
+# phases 27-33: sample slabs and scale-out (main paths 14-20)
+FLAGSHIP_SPP, FLAG_W, FLAG_H = 512, 1800, 800      # the flagship file's
+CKPT_FLAGSHIP_SLAB, CKPT_TERRAIN_SLAB = 128, 16
+# a slab film against the one-shot frame, max |d|: the per-pixel sums
+# group differently (tests/test_checkpoint.py's bound)
+CKPT_ONESHOT = 1e-5
+SHARD_SPP = 4
+ALLREDUCE_REPS = 20
+B3_SYMBOL = "cluster_wide_kernel"
 # a frame's mean is compared within MAIN_MEAN_REL, widened to 4 standard
 # errors of the difference where the two frames' own pixel noise says 2%
 # is less (the material integrator's light hits are rare and bright)
@@ -684,7 +722,7 @@ def mesh_main_path(n_tris, walk, name, png_dir, card, dev):
         f"{stats['shadow_rays']} shadow rays), {stats['supersteps']} "
         f"supersteps ({1e3 * stats['seconds'] / stats['supersteps']:.2f} ms "
         f"a superstep), launches {counts}, on {card}")
-    return counts[name], r["max"], img
+    return counts[name], r["max"], img, dict(stats)
 
 
 # ---------------------------------------------------------------------------
@@ -1136,7 +1174,7 @@ def b2_timing(scene, nbytes, st=None):
     t_bytes = 1e3 * (nbytes + MESH_W * MESH_H * 3 * 4) / HBM_BYTES_PER_S
     res = dict(ms=ms, bound_ms=max(t_ops, t_bytes),
                bound_by="operations" if t_ops >= t_bytes else "bytes",
-               lane_fill=b2_fill(ks))
+               lane_fill=b2_fill(ks), stats=ks)
     log(f"    B2 @ {st.spp} spp {st.integrator}: {ms:.3f} ms (CUDA events); "
         f"{ks['segments']} segments, {ks['shadow_rays']} shadow rays, "
         f"{ks['box_tests']} box + {ks['tri_tests']} triangle tests, warp "
@@ -1205,6 +1243,7 @@ def b2_phases(dev, png_dir, card):
         f"{wf_s:.3f} s")
     b2_launches = b2_main_path(10, "terrain 100k mis", sc, st4, wf_ref,
                                "terrain100k_b2.png", png_dir, card)
+    main4 = (sc, st4, b2_launches)
 
     # ---- 11. main path 5: smooth bumpy 100k, material, through B2 -------
     log(f"[11] main path 5: bumpy sphere 100k (vertex normals) -> "
@@ -1216,13 +1255,15 @@ def b2_phases(dev, png_dir, card):
     log(f"    reference: the plain version at {MAIN5_REF_SPP} spp, "
         f"{ref5_s:.1f} s")
     st5 = b2_settings("material", MAIN5_SPP)
-    b2_launches += b2_main_path(11, "bumpy 100k smooth material", sc, st5,
-                                ref5, "bumpy100k_b2.png", png_dir, card)
+    main5_launches = b2_main_path(11, "bumpy 100k smooth material", sc,
+                                  st5, ref5, "bumpy100k_b2.png", png_dir,
+                                  card)
     log(f"    main path 5's launch alone (not counted as a main-path "
         f"launch):")
     m5 = b2_timing(sc, b2_scenes["bumpy 100k smooth material"][1], st5)
 
-    return dict(b2, launches=b2_launches, max_abs_err=b2_err,
+    return dict(b2, launches_4=b2_launches, launches_5=main5_launches,
+                max_abs_err=b2_err, main4=main4, main5_stats=m5["stats"],
                 main5_ms=m5["ms"], main5_bound_ms=m5["bound_ms"],
                 main5_bound_by=m5["bound_by"], main5_lane_fill=m5["lane_fill"])
 
@@ -2966,6 +3007,391 @@ def front_door_phases(terrain, terrain_rays_, png_dir, dev):
     return row, b3_12, b3_13
 
 
+# ---------------------------------------------------------------------------
+# phases 27-33: sample slabs and scale-out (main paths 14-20)
+# ---------------------------------------------------------------------------
+
+def ckpt_run(label, scene, st, slab, tracer=None):
+    """Main paths 14/15: ``st`` through render_with_checkpoints in slabs of
+    ``slab`` spp, stopped at half the samples and resumed (every count set
+    to 0 just before the first run and read just after the second), then
+    the same slabs uninterrupted into another file. Returns the resumed
+    film, the uninterrupted one, the stopped and resumed runs' summed
+    slab counts, the launches and the seconds of each run."""
+    from vimg_tpu_torch.render.checkpoint import render_with_checkpoints
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "a.ckpt")
+        stats = {}
+        zero_counts()
+        _, stop_s = timed(lambda: render_with_checkpoints(
+            scene, dataclasses.replace(st, spp=st.spp // 2), path,
+            slab_spp=slab, tracer=tracer, stats=stats))
+        resumed, resume_s = timed(lambda: render_with_checkpoints(
+            scene, st, path, slab_spp=slab, tracer=tracer, stats=stats))
+        counts = nonzero(read_counts())
+        whole, whole_s = timed(lambda: render_with_checkpoints(
+            scene, st, os.path.join(tmp, "b.ckpt"), slab_spp=slab,
+            tracer=tracer))
+    log(f"    {label}: stop at {st.spp // 2} spp {stop_s:.3f} s, resume to "
+        f"{st.spp} spp {resume_s:.3f} s ({stats['slabs']} slabs of {slab} "
+        f"spp, launches {counts}); uninterrupted slabs {whole_s:.3f} s")
+    return resumed, whole, stats, counts, (stop_s, resume_s, whole_s)
+
+
+def checkpoint_phases(flag_img, terrain, terrain_stats, terrain_img, card):
+    """Phases 27/28, main paths 14 and 15; returns the launches of B1 and
+    of B3."""
+    import torch
+    from vimg_tpu_torch.geometry import cluster_trace as ct
+    from vimg_tpu_torch.scene import ir
+    from vimg_tpu_torch.scene.json_loader import load_json_scene
+    dev = terrain.device
+    log(f"[27] main path 14: the flagship ({FLAGSHIP_SPP} spp) -> "
+        f"render_with_checkpoints in slabs of {CKPT_FLAGSHIP_SLAB} spp "
+        f"through B1, stopped at {FLAGSHIP_SPP // 2} and resumed")
+    scene, st = load_json_scene(FLAGSHIP, device=dev)
+    if st.spp != FLAGSHIP_SPP:
+        fail(f"the flagship file asks {st.spp} spp, not {FLAGSHIP_SPP}")
+    resumed, whole, stats, counts, secs = ckpt_run(
+        "flagship", scene, st, CKPT_FLAGSHIP_SLAB)
+    slabs = FLAGSHIP_SPP // CKPT_FLAGSHIP_SLAB
+    if counts != {"megakernel_analytic": slabs}:
+        fail(f"main path 14: launches {counts}, expected one B1 a slab")
+    if not torch.equal(resumed.view(torch.int32), whole.view(torch.int32)):
+        fail("main path 14: the resumed film is not the uninterrupted "
+             "slabs' film bit for bit")
+    d = float((resumed - flag_img).abs().max())
+    log(f"    resumed film bit-equal to the uninterrupted slabs'; max |d| "
+        f"against main path 1's one-shot frame {d:.3e} (bound "
+        f"{CKPT_ONESHOT:g}); on {card}")
+    if not d <= CKPT_ONESHOT:
+        fail("main path 14: the slab film differs from the one-shot frame")
+    b1 = counts.get("megakernel_analytic", 0)
+
+    log(f"[28] main path 15: terrain 100k ({MESH_W}x{MESH_H} @ {MESH_SPP} "
+        f"spp MIS) -> render_with_checkpoints in slabs of "
+        f"{CKPT_TERRAIN_SLAB} spp through the wavefront and B3, stopped at "
+        f"{MESH_SPP // 2} and resumed")
+    st = ir.RenderSettings(MESH_W, MESH_H, spp=MESH_SPP, max_depth=64,
+                           integrator="mis", tonemap="agx",
+                           batch_size=MESH_BATCH)
+    tracer = ct.ClusterTracer(terrain)
+    resumed, whole, stats, counts, secs = ckpt_run(
+        "terrain 100k", terrain, st, CKPT_TERRAIN_SLAB, tracer)
+    if set(counts) != {"cluster_wide"}:
+        fail(f"main path 15: launches {counts}")
+    d = float((resumed - terrain_img).abs().max())
+    dw = float((resumed - whole).abs().max())
+    log(f"    slab counts {stats['segments']} segments + "
+        f"{stats['shadow_rays']} shadow rays; one-shot (main path 2) "
+        f"{terrain_stats['segments']} + {terrain_stats['shadow_rays']}; "
+        f"max |d| against the one-shot frame {d:.3e} (bound "
+        f"{CKPT_ONESHOT:g}), against the uninterrupted slabs {dw:.3e}; on "
+        f"{card}")
+    if (stats["segments"], stats["shadow_rays"]) != (
+            terrain_stats["segments"], terrain_stats["shadow_rays"]):
+        fail("main path 15: the slabs' ray counts differ from the one-shot "
+             "frame's")
+    if not d <= CKPT_ONESHOT:
+        fail("main path 15: the slab film differs from the one-shot frame")
+    return b1, counts.get("cluster_wide", 0)
+
+
+def sharded_mega_phase(flag_img, main4, card):
+    """Phase 29, main path 16: render_megakernel_sharded over a mesh of
+    the one card and over three ranges in turn there, on the flagship (B1)
+    and on main path 4's frame (B2), each bit for bit the single launch's;
+    returns the launches of B1 and of B2."""
+    import torch
+    from vimg_tpu_torch.parallel.sharding import make_mesh
+    from vimg_tpu_torch.render.mega import kernel
+    from vimg_tpu_torch.scene.json_loader import load_json_scene
+    sc4, st4, _ = main4
+    dev = sc4.device
+    log("[29] main path 16: render_megakernel_sharded over the card (one "
+        "range, then three in turn) on the flagship (B1) and main path 4's "
+        "frame (B2)")
+    fscene, fst = load_json_scene(FLAGSHIP, device=dev)
+    one4 = kernel.render_megakernel(sc4, st4)          # outside the count
+    frames = (("flagship", fscene, fst, flag_img), ("main path 4", sc4, st4,
+                                                     one4))
+    out = {}
+    zero_counts()
+    for label, sc, st, _ in frames:
+        for n in (1, 3):
+            out[(label, n)] = timed(lambda: kernel.render_megakernel_sharded(
+                sc, st, mesh=make_mesh([dev] * n)))
+    counts = nonzero(read_counts())
+    for label, sc, st, ref in frames:
+        for n in (1, 3):
+            img, secs = out[(label, n)]
+            same = torch.equal(img.view(torch.int32), ref.view(torch.int32))
+            log(f"    {label}, {n} range(s): {secs:.3f} s, bit-equal to the "
+                f"single launch: {same}")
+            if not same:
+                fail(f"main path 16: {label} over {n} range(s) differs")
+    log(f"    launches {counts}, on {card}")
+    if counts != {"megakernel_analytic": 4, "megakernel_mesh": 4}:
+        fail(f"main path 16: launches {counts}")
+    return 4, 4
+
+
+def nccl_group():
+    """A one-rank NCCL group on this card (a free localhost port)."""
+    import datetime
+    import socket
+    from vimg_tpu_torch.parallel import distributed
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    import torch
+    import torch.distributed as dist
+    t0 = time.time()
+    distributed.initialize(f"tcp://127.0.0.1:{port}", 1, 0, device="cuda",
+                           timeout=datetime.timedelta(seconds=120))
+    t1 = time.time()
+    # NCCL builds its communicator at the first collective
+    dist.all_reduce(torch.ones(1, device="cuda"))
+    torch.cuda.synchronize()
+    log(f"    process group: {dist.get_backend()}, world "
+        f"{dist.get_world_size()}, rank {dist.get_rank()}; joined in "
+        f"{t1 - t0:.3f} s, first all-reduce (communicator set-up) "
+        f"{time.time() - t1:.3f} s")
+
+
+def scale_out_phases(terrain, card):
+    """Phases 30/31, main paths 17 and 18; returns B3's launches on each."""
+    import numpy as np
+    import torch
+    from vimg_tpu_torch.geometry import cluster_trace as ct
+    from vimg_tpu_torch.parallel import distributed, sharding
+    from vimg_tpu_torch.render.render import render
+    from vimg_tpu_torch.scene import ir
+    dev = terrain.device
+    log(f"[30] main path 17: terrain 100k ({MESH_W}x{MESH_H} @ "
+        f"{SHARD_SPP} spp MIS) -> render_sharded over the card, against "
+        f"render() over the same B3 tracer; render_distributed under a "
+        f"one-rank NCCL group")
+    st = ir.RenderSettings(MESH_W, MESH_H, spp=SHARD_SPP, max_depth=64,
+                           integrator="mis", batch_size=1 << 20)
+    tracer = ct.ClusterTracer(terrain)
+    mesh = sharding.make_mesh([dev])
+    ref, ref_s = timed(lambda: render(terrain, st, tracer=tracer))
+    zero_counts()
+    img, secs = timed(lambda: sharding.render_sharded(terrain, st, tracer,
+                                                      mesh=mesh))
+    counts = nonzero(read_counts())
+    r = compare("render_sharded vs render()", ref, img)
+    log(f"    render_sharded {secs:.3f} s, render() {ref_s:.3f} s; bit-equal "
+        f"{torch.equal(img, ref)}; launches {counts}")
+    if not (r["mean"] < UNIT_MEAN and r["frac"] < UNIT_FRAC
+            and r["corr"] > UNIT_CORR):
+        fail("main path 17: render_sharded vs render()")
+    if set(counts) != {"cluster_wide"}:
+        fail(f"main path 17: launches {counts}")
+    b3_17 = counts.get("cluster_wide", 0)
+    nccl_group()
+    zero_counts()
+    stats = {}
+    dimg, dsecs = timed(lambda: distributed.render_distributed(
+        terrain, st, tracer, stats=stats))
+    counts = nonzero(read_counts())
+    same = torch.equal(dimg, img)
+    log(f"    render_distributed {dsecs:.3f} s (all-reduce "
+        f"{stats.get('allreduce_ms', float('nan')):.3f} ms), equal to "
+        f"render_sharded: {same}; "
+        f"launches {counts}")
+    if not same or set(counts) != {"cluster_wide"}:
+        fail("main path 17: render_distributed differs from render_sharded")
+    b3_17 += counts.get("cluster_wide", 0)
+    film = torch.ones((FLAG_H, FLAG_W, 3), device=dev)
+    ms = []
+    for _ in range(ALLREDUCE_REPS):
+        s = {}
+        distributed.reduce_films(film.clone(), 1, s)
+        ms.append(s.get("allreduce_ms", float("nan")))
+    log(f"    all-reduce (NCCL SUM, one rank) of the {FLAG_W}x{FLAG_H} "
+        f"film ({film.numel() * 4 / 2 ** 20:.2f} MiB): "
+        f"{min(ms):.4f}-{max(ms):.4f} ms over {ALLREDUCE_REPS} calls (CUDA "
+        f"events), on {card}")
+
+    log(f"[31] main path 18: main path 10's envtex step ({MESH_W * MESH_H} "
+        f"rays, B3) through make_train_step(mesh=global_mesh()) under the "
+        f"one-rank NCCL group, against the unsharded step")
+    from vimg_tpu_torch.diff import grad
+    from vimg_tpu_torch.geometry.trace import make_tracer
+    st1 = ir.RenderSettings(MESH_W, MESH_H, spp=1, max_depth=64,
+                            integrator="mis")
+    scene = envtex_scene(dev)
+    start = train_start(scene)
+    tracer = make_tracer(start, differentiable=True)
+    rays = train_rays(scene, st1, tracer, 0)
+
+    def steps(quiet=False):
+        res = {}
+        for name, mesh in (("unsharded", None),
+                           ("sharded", distributed.global_mesh())):
+            step, opt, params = grad.make_train_step(
+                start, st1, tracer, bounded_depth=TRAIN_DEPTH,
+                integrator="mis", optimizer=train_optimizer(TRAIN_RATES),
+                mesh=mesh)
+            stats = {}
+            zero_counts()
+            params, opt, loss = step(params, opt, *rays, stats=stats)
+            counts = nonzero(read_counts())
+            g = {f"{k}/{i}": t.grad.detach().clone()
+                 for k, v in params.items()
+                 for i, t in enumerate(v if isinstance(v, tuple) else (v,))}
+            res[name] = (loss.detach().clone(), g, counts)
+            nan = float("nan")
+            if not quiet:
+                log(f"    {name}: loss {float(loss):.8g}, forward "
+                    f"{stats.get('forward_ms', nan):.1f} ms, backward "
+                    f"{stats.get('backward_ms', nan):.1f} ms"
+                    + (f", all-reduce {stats['allreduce_ms']:.3f} ms"
+                       if "allreduce_ms" in stats else "")
+                    + f", launches {counts}")
+            if set(counts) != {"cluster_wide"}:
+                fail(f"main path 18 ({name}): launches {counts}")
+        (l0, g0, _), (l1, g1, c1) = res["unsharded"], res["sharded"]
+        differ = sum(int((g0[k].view(torch.int32) != g1[k].view(torch.int32))
+                         .sum()) for k in g0)
+        same_loss = torch.equal(l0.view(torch.int32), l1.view(torch.int32))
+        return same_loss, differ, sum(g.numel() for g in g0.values()), \
+            g0, g1, c1
+
+    same_loss, differ, total, g0, g1, c1 = steps()
+    if not same_loss:
+        fail("main path 18: the sharded loss differs from the unsharded")
+    log(f"    loss bit-equal; gradients: {differ} of {total} elements differ "
+        f"in their bits (the backward's atomic adds order freely)")
+    grads_agree("sharded vs unsharded step gradients",
+                {k: v.cpu().double() for k, v in g1.items()},
+                {k: v.cpu().double() for k, v in g0.items()})
+    # both steps again under deterministic algorithms (the backward's
+    # scatter-adds then sum in a fixed order): loss and gradients bit for
+    # bit; the ops without a deterministic form are named
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            same_loss, differ, total, _, _, _ = steps(quiet=True)
+        finally:
+            torch.use_deterministic_algorithms(False)
+    notes = sorted({str(w.message).splitlines()[0][:160] for w in caught
+                    if "deterministic" in str(w.message)})
+    log(f"    deterministic algorithms: loss bit-equal {same_loss}; "
+        f"gradients: {differ} of {total} elements differ in their bits; "
+        f"{len(notes)} ops without a deterministic form"
+        + "".join(f"\n      {n}" for n in notes))
+    if not same_loss or differ:
+        fail("main path 18: under deterministic algorithms the sharded "
+             "step's loss or gradients differ from the unsharded in bits")
+    import torch.distributed as dist
+    dist.destroy_process_group()
+    return b3_17, c1.get("cluster_wide", 0)
+
+
+def trace_phase(main5_stats, card, dev):
+    """Phase 32, main path 19: the CLI on main path 13's JSON with
+    --trace; the trace must name B3's kernel. Then walk_roofline on main
+    path 5's B2 counts. Returns B3's launches."""
+    from vimg_tpu_torch.scene.synthetic import terrain_mesh
+    from vimg_tpu_torch.utils.profiling import FP32_FLOPS_PER_S, walk_roofline
+    log("[32] main path 19: cli -f mesh.json --trace DIR (a warm render, "
+        "then the traced one) through B3")
+    with tempfile.TemporaryDirectory() as tmp:
+        write_obj(os.path.join(tmp, "terrain.obj"),
+                  *terrain_mesh(FRONT_TERRAIN_TRIS))
+        path = write_mesh_json(tmp)
+        zero_counts()
+        (rc, out), secs = timed(lambda: cli_run(
+            ["-f", path, "--trace", os.path.join(tmp, "tr"),
+             "-o", os.path.join(tmp, "t.png")]))
+        counts = nonzero(read_counts())
+        trace = os.path.join(tmp, "tr", "trace.json")
+        size = os.path.getsize(trace) if os.path.exists(trace) else 0
+        named = False
+        if size:
+            with open(trace) as f:
+                named = B3_SYMBOL in f.read()
+    for line in out.splitlines():
+        if line.startswith(("Render took", "Device trace")):
+            log(f"      cli: {line}")
+    log(f"    rc {rc}, {secs:.2f} s (both renders and the export), trace "
+        f"{size / 2 ** 20:.1f} MiB, names {B3_SYMBOL}: {named}; launches "
+        f"{counts}")
+    if rc != 0 or not named or set(counts) != {"cluster_wide"}:
+        fail("main path 19: no trace naming B3's kernel")
+    roof = walk_roofline(main5_stats, main5_stats["seconds"])
+    log(f"    walk_roofline of main path 5's B2 launch "
+        f"({main5_stats['seconds'] * 1e3:.3f} ms): "
+        + ", ".join(f"{k} {v:.6g}" for k, v in roof.items())
+        + f" (peak {FP32_FLOPS_PER_S:.3g} flop/s float32, the H100 SXM "
+        f"data sheet's at 700 W; this card: {card})")
+    return counts.get("cluster_wide", 0)
+
+
+def prepass_phase(terrain, card):
+    """Phase 33, main path 20: terrain 100k at 512x256 @ 64 spp through
+    render_frame with VIMG_PREPASS=1, beside the same frame without it;
+    returns B3's launches on the pre-pass frame."""
+    import numpy as np
+    import torch
+    from vimg_tpu_torch.render import wavefront
+    from vimg_tpu_torch.render.render import render_frame
+    from vimg_tpu_torch.scene import ir
+    log(f"[33] main path 20: terrain 100k -> render_frame ({MESH_W}x"
+        f"{MESH_H} @ {MESH_SPP} spp) with VIMG_PREPASS=1 (the primary "
+        f"pre-pass) beside the same frame without it")
+    st = ir.RenderSettings(MESH_W, MESH_H, spp=MESH_SPP, max_depth=64,
+                           integrator="mis", tonemap="agx",
+                           batch_size=MESH_BATCH)
+    total = MESH_W * MESH_H * MESH_SPP
+    res = {}
+    for on in (False, True):
+        if on:
+            os.environ["VIMG_PREPASS"] = "1"
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts()
+            img, secs = timed(lambda: render_frame(terrain, st))
+            counts = nonzero(read_counts())
+            peak = torch.cuda.max_memory_allocated()
+        finally:
+            os.environ.pop("VIMG_PREPASS", None)
+        stats = dict(wavefront.LAST_STATS)
+        res[on] = (img, stats, counts)
+        log(f"    pre-pass {'on ' if on else 'off'}: {secs:.3f} s (render "
+            f"{stats['seconds']:.3f} s, pre-pass "
+            f"{stats['prepass_seconds']:.3f} s), {stats['supersteps']} "
+            f"supersteps, {stats['segments']} segments + "
+            f"{stats['shadow_rays']} shadow rays, peak memory "
+            f"{peak / 2 ** 20:.1f} MiB, launches {counts}")
+        if set(counts) != {"cluster_wide"}:
+            fail(f"main path 20: launches {counts}")
+    (a, sa, _), (b, sb, cb) = res[False], res[True]
+    log(f"    the table: {total} paths x 64 B = "
+        f"{total * 64 / 2 ** 20:.1f} MiB (PREPASS_MAX_TOTAL "
+        f"{wavefront.PREPASS_MAX_TOTAL}); on {card}")
+    if not sb["prepass_seconds"] > 0 or sa["prepass_seconds"] != 0:
+        fail("main path 20: the pre-pass did not engage")
+    if sb["supersteps"] != sa["supersteps"] or abs(
+            sb["segments"] - sa["segments"]) > 1e-3 * sa["segments"]:
+        fail("main path 20: supersteps or segments differ")
+    on, off = b.cpu().numpy(), a.cpu().numpy()
+    d = np.abs(on - off)
+    frac = float((d.max(-1) > 1e-5).mean())
+    corr = float(np.corrcoef(on.ravel(), off.ravel())[0, 1])
+    log(f"    pre-pass vs plain frame: mean |d| {d.mean():.3e}, pixels above "
+        f"1e-5 {100 * frac:.3f}%, corr {corr:.6f}, max |d| {d.max():.3e}")
+    if not (np.isfinite(on).all() and d.mean() < 1e-4 and frac < 0.01
+            and corr > 0.999):
+        fail("main path 20: the pre-pass frame misses the parity bounds")
+    return cb.get("cluster_wide", 0)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3107,13 +3533,14 @@ def main():
         phase6[n_tris] = (scene, rays)
 
     # ---- 7/8. main paths 2 and 3: the mesh wavefront ---------------------
-    launches, wf_err, wf_img = {}, {}, {}
+    launches, wf_err, wf_img, wf_stats = {}, {}, {}, {}
     for phase, (n_tris, walk, name) in zip((7, 8), TERRAINS):
         log(f"[{phase}] main path {phase - 5}: terrain {n_tris} -> "
             f"render_frame ({MESH_W}x{MESH_H} @ {MESH_SPP} spp, batch "
             f"{MESH_BATCH}) -> finalize -> write_png through {name}")
-        launches[name], wf_err[name], wf_img[name] = mesh_main_path(
-            n_tris, walk, name, png_dir, card, dev)
+        (launches[name], wf_err[name], wf_img[name],
+         wf_stats[name]) = mesh_main_path(n_tris, walk, name, png_dir, card,
+                                          dev)
 
     # ---- 8b. main path 9: the env-lit textured terrain through B3 -------
     log(f"[8b] main path 9: textured_terrain_scene({ENVTEX_TRIS}) -> "
@@ -3157,12 +3584,23 @@ def main():
     x2, b3_12, b3_13 = front_door_phases(*phase6[TERRAINS[0][0]], png_dir,
                                          dev)
 
+    # ---- 27-33. sample slabs and scale-out (main paths 14-20) ----------
+    t100 = phase6[TERRAINS[0][0]][0]
+    b1_14, b3_15 = checkpoint_phases(img, t100, wf_stats["cluster_wide"],
+                                     wf_img["cluster_wide"], card)
+    b1_16, b2_16 = sharded_mega_phase(img, b2["main4"], card)
+    b3_17, b3_18 = scale_out_phases(t100, card)
+    b3_19 = trace_phase(b2["main5_stats"], card, dev)
+    b3_20 = prepass_phase(t100, card)
+
     rows = [{
         "name": "megakernel_analytic",
         "route": "cuda",
         "source": "vimg_tpu_torch/csrc/megakernel.cu",
         "replaces": "vimg_tpu/render/mega/kernel.py:404",
-        "launches": mega_launches,
+        "launches": mega_launches + b1_14 + b1_16,
+        "launches_by_main_path": {"1": mega_launches, "14": b1_14,
+                                  "16": b1_16},
         "max_abs_err": unit_err,
         "ms": 1e3 * k_s,
         "plain_ms": 1e3 * p_s,
@@ -3176,7 +3614,9 @@ def main():
         c = cmp[(n_tris, walk, "bounce")]
         # B3 carries main paths 2, 9, 10, 12 and 13 (its -b 0 frame)
         by_path = ({"2": launches[name], "9": envtex_launches,
-                    "10": train_launches, "12": b3_12, "13": b3_13}
+                    "10": train_launches, "12": b3_12, "13": b3_13,
+                    "15": b3_15, "17": b3_17, "18": b3_18, "19": b3_19,
+                    "20": b3_20}
                    if walk == "wide" else {"3": launches[name]})
         rows.append({
             "name": name,
@@ -3202,7 +3642,9 @@ def main():
         # the walk it runs is in vimg_tpu_torch/csrc/cluster_walk.cuh
         "source": "vimg_tpu_torch/csrc/megakernel.cu",
         "replaces": "vimg_tpu/render/mega/kernel.py:404 (mesh mode)",
-        "launches": b2["launches"],
+        "launches": b2["launches_4"] + b2["launches_5"] + b2_16,
+        "launches_by_main_path": {"4": b2["launches_4"],
+                                  "5": b2["launches_5"], "16": b2_16},
         "max_abs_err": b2["max_abs_err"],
         "ms": b2["ms"],
         "plain_ms": b2["plain_ms"],

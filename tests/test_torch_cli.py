@@ -96,14 +96,13 @@ def test_parser_flags_match():
                 for a in p._actions if a.dest != "help"}
     jf, tf = flags(jp), flags(tp)
     assert set(tf) - set(jf) == {"device"}
-    assert set(jf) - set(tf) == {"trace"}
+    assert set(jf) - set(tf) == set()
     for k in set(jf) & set(tf):
         assert jf[k] == tf[k], k
     argv = ["-f", "a.glb", "-j", "c.json", "-m", "4", "-t", "8", "-c", "2",
             "-d", "3 4", "-b", "1", "-o", "x.png", "--spp", "9",
-            "--depth", "-1", "--integrator", "mis", "--cpu"]
+            "--depth", "-1", "--integrator", "mis", "--cpu", "--trace", "tr"]
     ja, ta = vars(jp.parse_args(argv)), vars(tp.parse_args(argv))
-    ja.pop("trace")
     assert ta.pop("device") == "cuda"
     assert ja == ta
 

@@ -480,6 +480,35 @@ def test_mesh_kernel_bit_identical_to_plain(cuda, frame):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["analytic", "mesh"])
+def test_megakernel_group_ranges_on_card(cuda, mode):
+    """B1's and B2's pixel-group range: the whole-frame range given
+    explicitly is the default launch bit for bit, three ranges launched in
+    turn assemble the same film with the same counts, and (B2) a range is
+    its plain version's range bit for bit."""
+    from vimg_tpu_torch.parallel.sharding import make_mesh
+    if mode == "analytic":
+        scene, st = _unit_scene(cuda, "mis", spp=2, width=256, height=192)
+    else:
+        scene = terrain_scene(5000, 48, 32, device=cuda)
+        st = ir.RenderSettings(width=48, height=32, spp=1, max_depth=64,
+                               integrator="mis")
+    n = kernel.n_groups(scene, st)
+    whole, ws = kernel.render_megakernel(scene, st, return_stats=True)
+    full = kernel.render_megakernel(scene, st, groups=(0, n))
+    assert torch.equal(_bits(full), _bits(whole))
+    img, ss = kernel.render_megakernel_sharded(
+        scene, st, mesh=make_mesh([cuda] * 3), return_stats=True)
+    assert torch.equal(_bits(img.contiguous()), _bits(whole.contiguous()))
+    assert (ss["segments"], ss["shadow_rays"]) == (ws["segments"],
+                                                   ws["shadow_rays"])
+    if mode == "mesh":
+        part = kernel.render_megakernel(scene, st, groups=(5, n - 7))
+        ref = kernel.render_megakernel_plain(scene, st, groups=(5, n - 7))
+        assert torch.equal(_bits(part), _bits(ref))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("variant", ["slist", "f2b"])
 def test_packet_kernel_matches_plain_walk(cuda, variant):
     """B5 against packet_walk_plain on the same meta, closest and any hit,

@@ -432,7 +432,31 @@ def test_c20_trained_sky_two_steps():
     assert len(tenv._PYRAMIDS) <= 9
 
 
-def test_mesh_raises():
+def test_mesh_raises(monkeypatch):
+    """The sharded step (``mesh=``) in one process is the unsharded step
+    bit for bit; it raises where the step's rays do not split evenly over
+    the group's ranks, and for a mesh of more than one device (a process
+    runs its share on one)."""
+    from vimg_tpu_torch.parallel import distributed
+    from vimg_tpu_torch.parallel.sharding import make_mesh
     ts, st = _port(*_simple_scene())
-    with pytest.raises(NotImplementedError, match="A7"):
-        tg.make_train_step(ts, st, tmake(ts), mesh=object())
+    pix, samp, target = (torch.as_tensor(x) for x in _rays(5, n=64))
+    pix, samp = pix.long(), samp.long()
+    out = []
+    for mesh in (None, make_mesh(["cpu"])):
+        step, state, params = tg.make_train_step(ts, st, tmake(ts),
+                                                 bounded_depth=2, mesh=mesh)
+        params, state, loss = step(params, state, pix, samp, target)
+        out.append((float(loss), _flat({k: tuple(m.detach() for m in v)
+                                        if isinstance(v, tuple)
+                                        else v.detach()
+                                        for k, v in params.items()})))
+    assert out[0][0] == out[1][0]
+    for k in out[0][1]:
+        assert np.array_equal(out[0][1][k], out[1][1][k]), k
+    monkeypatch.setattr(distributed, "world", lambda: (3, 0))
+    with pytest.raises(ValueError, match="3 ranks"):
+        step(params, state, pix, samp, target)
+    with pytest.raises(ValueError, match="one device a process"):
+        tg.make_train_step(ts, st, tmake(ts), bounded_depth=2,
+                           mesh=make_mesh(["cpu", "cpu"]))

@@ -14,10 +14,13 @@ Flags:
   --integrator       s_normal | g_normal | material | mis
   --device           torch device (default cuda; raises without CUDA)
   --cpu              the same as --device cpu
+  --trace LOGDIR     render once to warm up, then again under
+                     torch.profiler; writes LOGDIR/trace.json (Chrome trace)
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import sys
 import time
@@ -47,6 +50,9 @@ def build_argparser():
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; no silent fallback)")
     p.add_argument("--cpu", action="store_true", help="same as --device cpu")
+    p.add_argument("--trace", default=None, metavar="LOGDIR",
+                   help="capture a torch.profiler trace of the render "
+                        "into LOGDIR/trace.json")
     return p
 
 
@@ -139,12 +145,23 @@ def main(argv=None):
         print("note: -b 1 (sweep SAH) only affects the wavefront/BVH "
               "paths; this render takes the megakernel (binned-SAH "
               "cluster tables)")
+    trace_cm = contextlib.nullcontext()
+    if args.trace:
+        from vimg_tpu_torch.utils.profiling import device_trace
+        # warm once outside the trace, so that it shows the steady state
+        # (kernel library build and first-call set-up excluded)
+        _sync(render_frame(scene, settings, tracer_force=force))
+        trace_cm = device_trace(args.trace, device=scene.device)
     t0 = time.time()
-    img = render_frame(scene, settings, tracer_force=force, progress=True)
-    _sync(img)
+    with trace_cm as trace_path:
+        img = render_frame(scene, settings, tracer_force=force,
+                           progress=True)
+        _sync(img)
     dt = time.time() - t0
     n_paths = settings.width * settings.height * settings.spp
     print(f"Render took {dt:.2f}s ({n_paths / dt / 1e6:.2f} Mpaths/s)")
+    if args.trace:
+        print(f"Device trace captured to {trace_path}")
 
     out = args.output or _default_name("v_img")
     film.write_png(out, film.finalize(img, tonemap=settings.tonemap))

@@ -149,12 +149,22 @@ def make_train_step(scene: ir.Scene, settings: ir.RenderSettings, tracer,
 
     ``tracer`` comes from ``make_tracer(scene, differentiable=True)``:
     every backend qualifies (a mesh's cluster tracer runs B3/B4 at zero
-    tangent). A ``mesh`` (the sharded step) raises: it is ROADMAP queue A
-    item A7, the gradient all-reduce over ``torch.distributed``."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "the sharded train step is not ported yet (ROADMAP queue A, "
-            "item A7: gradient all-reduce over torch.distributed)")
+    tangent).
+
+    With a ``mesh`` (``parallel.sharding.Mesh``, say ``global_mesh()``)
+    the step is sharded over the processes of the ``torch.distributed``
+    group (one process without a group): each rank takes its contiguous
+    slice of the step's rays (their count must divide by the group's
+    size), and the loss and every gradient are averaged across ranks by
+    one SUM all-reduce and a division by the group's size (vimg_tpu's
+    ``pmean``; gloo has no AVG), so Adam steps every rank with the same
+    gradients. ``stats`` then also gets ``allreduce_ms`` on the card.
+    A process runs its share on one device: a mesh of more devices raises
+    ``ValueError``."""
+    if mesh is not None and mesh.size > 1:
+        raise ValueError(f"the sharded step runs one device a process, not "
+                         f"the mesh's {mesh.size}: give each process a mesh "
+                         f"of its own device (distributed.global_mesh())")
     if optimizer is None:
         def optimizer(params):
             return torch.optim.Adam(_leaves(params), lr=1e-2)
@@ -166,12 +176,55 @@ def make_train_step(scene: ir.Scene, settings: ir.RenderSettings, tracer,
                else leaf(v) for k, v in get_params(scene).items()}
 
     def step(params, opt_state, pix, samp, target, stats=None):
+        if mesh is not None:
+            pix, samp, target = (_rank_slice(x) for x in (pix, samp, target))
         loss, grads = value_and_grad(scene, settings, tracer, params, pix,
                                      samp, target, bounded_depth, integrator,
                                      stats)
+        if mesh is not None:
+            loss, grads = _mean_over_ranks(loss, grads, stats)
         for t, g in zip(_leaves(params), _leaves(grads)):
             t.grad = g
         opt_state.step()
         return params, opt_state, loss
 
     return step, optimizer(params0), params0
+
+
+def _rank_slice(x):
+    """This rank's contiguous share of the step's rays."""
+    from vimg_tpu_torch.parallel.distributed import world
+    n, rank = world()
+    if x.shape[0] % n:
+        raise ValueError(f"{x.shape[0]} rays do not split over {n} ranks")
+    per = x.shape[0] // n
+    return x[rank * per:(rank + 1) * per]
+
+
+def _mean_over_ranks(loss, grads, stats=None):
+    """The loss and the gradients averaged over the group's ranks: one
+    SUM all-reduce of them packed flat, then ``div`` by the group's size
+    (the identity without a group)."""
+    import torch.distributed as dist
+    from vimg_tpu_torch.core.math import div
+    from vimg_tpu_torch.parallel.distributed import world
+    if not dist.is_initialized():
+        return loss, grads
+    n, _ = world()
+    leaves = _leaves(grads)
+    flat = torch.cat([loss.reshape(1)] + [g.reshape(-1) for g in leaves])
+    ev = ([torch.cuda.Event(enable_timing=True) for _ in range(2)]
+          if stats is not None and flat.is_cuda else None)
+    if ev:
+        ev[0].record()
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM)
+    if ev:
+        ev[1].record()
+        ev[1].synchronize()
+        stats["allreduce_ms"] = ev[0].elapsed_time(ev[1])
+    flat = div(flat, n)
+    out, i = [], 1
+    for g in leaves:
+        out.append(flat[i:i + g.numel()].view_as(g))
+        i += g.numel()
+    return flat[0], _like(grads, out)

@@ -756,6 +756,9 @@ class ClusterTracer:
     # traversal inputs are detached (zero-tangent semantics, as vimg_tpu's
     # stop_gradient): gradients never flow through the walk
     differentiable = True
+    # closest / occluded take ``sort``: the wavefront's primary pre-pass
+    # hands over coherent batches with sort=False
+    presortable = True
 
     def __init__(self, scene: ir.Scene, walk="auto", sort_rays=True,
                  plain=False, data=None):
@@ -798,14 +801,16 @@ class ClusterTracer:
         key = torch.where(maxT == -float("inf"), 2 ** 31 - 1, key)
         return torch.argsort(key, stable=True)
 
-    def trace(self, ro, rd, minT, maxT, any_hit):
+    def trace(self, ro, rd, minT, maxT, any_hit, sort=None):
         """(t, slot, u, v) of the configured walk on the given rays, in
-        their order (the Morton sort above SORT_MIN_RAYS is undone)."""
+        their order (the Morton sort above SORT_MIN_RAYS, on unless
+        ``sort`` or else ``sort_rays`` is false, is undone)."""
         B = ro.shape[0]
         ro, rd = ro.contiguous(), rd.contiguous()
         minT = minT.expand(B).contiguous()
         maxT = maxT.expand(B).contiguous()
-        do_sort = self.sort_rays and B > SORT_MIN_RAYS
+        do_sort = (self.sort_rays if sort is None else sort) \
+            and B > SORT_MIN_RAYS
         if do_sort:
             order = self.sort_order(ro, rd, maxT)
             ro, rd, minT, maxT = ro[order], rd[order], minT[order], maxT[order]
@@ -835,9 +840,10 @@ class ClusterTracer:
     # traversal), on the card and on the CPU alike, so no kernel needs a
     # backward; material, emission, texture and env gradients equal the
     # tensor-code tracers', and the hit point's motion with t is dropped.
-    def closest(self, scene, ro, rd, minT, maxT) -> HitResult:
+    def closest(self, scene, ro, rd, minT, maxT, sort=None) -> HitResult:
         ro, rd, minT, maxT = detached_rays(ro, rd, minT, maxT)
-        bt, slot, bu, bv = self.trace(ro, rd, minT, maxT, False)
+        kw = {} if sort is None else dict(sort=sort)
+        bt, slot, bu, bv = self.trace(ro, rd, minT, maxT, False, **kw)
         found = slot >= 0
         tri_id = self.perm[slot.clamp(0, self.perm.shape[0] - 1).long()]
         zero = torch.zeros_like(bt)
@@ -852,9 +858,10 @@ class ClusterTracer:
             hr = merge_spheres(self.sph_c, hr, ro, rd, minT, maxT)
         return hr
 
-    def occluded(self, scene, ro, rd, minT, maxT):
+    def occluded(self, scene, ro, rd, minT, maxT, sort=None):
         ro, rd, minT, maxT = detached_rays(ro, rd, minT, maxT)
-        bt = self.trace(ro, rd, minT, maxT, True)[0]
+        kw = {} if sort is None else dict(sort=sort)
+        bt = self.trace(ro, rd, minT, maxT, True, **kw)[0]
         occ = bt == -float("inf")
         if self.sph_c is not None:
             occ = occ | _trace_impl(None, self.sph_c, ro, rd, minT, maxT,

@@ -19,6 +19,12 @@ kernel (port of vimg_tpu.render.mega.kernel), in two modes:
   mode) or the cluster tracer's plain skip walk (mesh mode), so it never
   launches a kernel, with the same segment and shadow-ray counts the
   kernel keeps, and in analytic mode its warp steps (``warp_steps``).
+- Both shade the frame by pixel groups (``n_groups``, ``group_pixels``):
+  32 consecutive pixels in analytic mode, an 8 x 4 tile in mesh mode.
+  ``groups=(begin, end)`` renders groups [begin, end) only, the other
+  pixels staying 0; ``render_megakernel_sharded`` gives each device of a
+  mesh one range and assembles the film, bit for bit the whole-frame
+  launch's, since a pixel's value does not depend on who shades it.
 - ``LAUNCHES`` counts analytic-mode launches, ``LAUNCHES_MESH`` mesh-mode
   launches (plain renders count neither); ``LAST_COUNTS`` is the int64
   device tensor of the latest launch's counters: segments, shadow rays,
@@ -362,6 +368,42 @@ def plain_tracer(scene: ir.Scene):
     return SoATracer(scene)
 
 
+GROUP_W, GROUP_H = 8, 4      # mesh mode's pixel tile (csrc/megakernel.cu)
+
+
+def n_groups(scene: ir.Scene, settings: ir.RenderSettings) -> int:
+    """The frame's pixel groups in the scene's mode."""
+    W, H = settings.width, settings.height
+    if not is_mesh_mode(scene):
+        return -(-W * H // 32)
+    return -(-W // GROUP_W) * -(-H // GROUP_H)
+
+
+def group_pixels(scene: ir.Scene, settings: ir.RenderSettings, begin, end):
+    """The pixel ids (int64, on the scene's device) of groups [begin, end),
+    group by group, each in lane order; lanes outside the image drop out."""
+    W, H = settings.width, settings.height
+    dev = scene.device
+    if not is_mesh_mode(scene):
+        return torch.arange(32 * begin, min(32 * end, W * H), device=dev)
+    g = torch.arange(begin, end, device=dev)[:, None]
+    lane = torch.arange(32, device=dev)[None, :]
+    gx = -(-W // GROUP_W)
+    x = (g % gx) * GROUP_W + lane % GROUP_W
+    row = (g // gx) * GROUP_H + lane // GROUP_W
+    keep = (x < W) & (row < H)
+    return (row * W + x)[keep]
+
+
+def _group_range(scene, settings, groups):
+    n = n_groups(scene, settings)
+    begin, end = (0, n) if groups is None else (int(g) for g in groups)
+    if not 0 <= begin <= end <= n:
+        raise ValueError(f"groups [{begin}, {end}) outside the frame's "
+                         f"{n} groups")
+    return begin, end, (begin, end) == (0, n)
+
+
 def warp_steps(pixel_segments: torch.Tensor, group=32) -> int:
     """The analytic kernel's warp steps from the segments of each pixel
     (all its samples): a warp shades ``group`` consecutive pixels and
@@ -376,21 +418,24 @@ def warp_steps(pixel_segments: torch.Tensor, group=32) -> int:
 
 def render_megakernel_plain(scene: ir.Scene, settings: ir.RenderSettings,
                             sample_offset=0, return_stats=False,
-                            progress=False):
+                            progress=False, groups=None):
     """Plain PyTorch version: the loop renderer over trace_radiance with
     ``plain_tracer``, on any device, counting segments and shadow rays
     like the kernel, and in analytic mode (with ``return_stats``) its warp
-    steps from the segments of each pixel."""
+    steps from the segments of each pixel; ``groups`` as the kernel's."""
     from vimg_tpu_torch.render.render import render
     stats = {"segments": 0, "shadow_rays": 0}
     if return_stats and not is_mesh_mode(scene):
         stats["pixel_segments"] = torch.zeros(
             settings.width * settings.height, dtype=torch.int64,
             device=scene.device)
+    begin, end, whole = _group_range(scene, settings, groups)
     t0 = time.time()
     img = render(scene, settings, progress=progress,
                  sample_offset=sample_offset, stats=stats,
-                 tracer=plain_tracer(scene))
+                 tracer=plain_tracer(scene),
+                 pixels=None if whole else group_pixels(scene, settings,
+                                                        begin, end))
     if "pixel_segments" in stats:
         stats["warp_steps"] = warp_steps(stats.pop("pixel_segments"))
     if scene.device.type == "cuda":
@@ -400,29 +445,32 @@ def render_megakernel_plain(scene: ir.Scene, settings: ir.RenderSettings,
 
 
 def render_megakernel(scene: ir.Scene, settings: ir.RenderSettings,
-                      sample_offset=0, return_stats=False, progress=False):
+                      sample_offset=0, return_stats=False, progress=False,
+                      groups=None):
     """Full-frame render through the CUDA megakernel of the scene's mode
     (CUDA scenes) or its plain version (CPU scenes). Returns the linear
     (H, W, 3) image on the scene's device, plus a stats dict (segments,
     shadow_rays, seconds; in analytic mode also warp_steps, in mesh mode
     the walk's box_tests and tri_tests and its warp_node_steps and
     warp_tri_steps: the lane fill is tri_tests / (32 x warp_tri_steps))
-    with ``return_stats``."""
+    with ``return_stats``. ``groups=(begin, end)`` shades pixel groups
+    [begin, end) only (default: all); the other pixels are 0."""
     dev = scene.device
     if dev.type == "cpu":
         return render_megakernel_plain(scene, settings, sample_offset,
-                                       return_stats, progress)
+                                       return_stats, progress, groups)
     if dev.type != "cuda":
         raise NotImplementedError(f"no megakernel for device {dev}")
-    return _launch(scene, settings, sample_offset, return_stats, progress)
+    return _launch(scene, settings, sample_offset, return_stats, progress,
+                   groups=groups)
 
 
 def _launch(scene, settings, sample_offset=0, return_stats=False,
-            progress=False, blocks=0, lib=None):
+            progress=False, blocks=0, lib=None, groups=None):
     """The kernel launch of ``render_megakernel`` on ``blocks`` persistent
     blocks (0: as many as the card holds at once), from the kernel library
-    ``lib`` (default: ``runtime.cuda``'s). The film does not depend on
-    ``blocks``."""
+    ``lib`` (default: ``runtime.cuda``'s), over pixel groups ``groups``
+    (default: all). The film does not depend on ``blocks``."""
     global LAUNCHES, LAUNCHES_MESH, LAST_COUNTS
     dev = scene.device
     if not supports_megakernel(scene, settings):
@@ -439,17 +487,23 @@ def _launch(scene, settings, sample_offset=0, return_stats=False,
                shapes[k], dev)
     W, H, spp = settings.width, settings.height, settings.spp
     nt, ns, nl = scene.n_tris(), scene.n_spheres(), scene.n_lights()
+    begin, end, whole = _group_range(scene, settings, groups)
     run = (W, H, spp, min(settings.max_depth, 2 ** 31 - 1),
-           int(sample_offset), _flags(scene, settings))
-    film = torch.empty((H * W, 3), dtype=torch.float32, device=dev)
+           int(sample_offset), _flags(scene, settings), begin, end)
+    # a range launch leaves the other pixels unwritten
+    film = (torch.empty if whole else torch.zeros)(
+        (H * W, 3), dtype=torch.float32, device=dev)
     if mesh:
         # the walk reads node boxes and triangle rows 16 bytes at a time
         for k in ("node_aabbs", "tri_rows"):
             if tabs[k].data_ptr() % 16:
                 raise ValueError(f"{k}: not 16-byte aligned")
-    # the kernel's counters, then its pixel-group counter (zeroed here)
+    # the kernel's counters, then its pixel-group counter, which starts at
+    # the range's first group
     counts = torch.zeros((7 if mesh else 4,), dtype=torch.int64, device=dev)
     next_group = counts[-1:].view(torch.int32)
+    if begin:
+        next_group[0] = begin
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev)
         start = torch.cuda.Event(enable_timing=True)
@@ -510,3 +564,46 @@ def occupancy(scene: ir.Scene, settings: ir.RenderSettings, lib=None):
     per_sm, regs, local = (v.value for v in vals)
     return dict(blocks_per_sm=per_sm, warps_per_sm=4 * per_sm,
                 registers=regs, local_bytes=local)
+
+
+def render_megakernel_sharded(scene: ir.Scene, settings: ir.RenderSettings,
+                              mesh=None, return_stats=False,
+                              sample_offset=0):
+    """The frame's pixel groups split into one contiguous range per device
+    of ``mesh`` (``parallel.sharding.make_mesh``; default: every visible
+    CUDA device), each range rendered by ``render_megakernel`` on its
+    device (the scene copied to devices other than its own) and its
+    pixels copied into one film on the scene's device: bit for bit the
+    whole-frame launch's. A mesh may name one device more than once: its
+    ranges then launch in turn there. With ``return_stats`` the shards'
+    counts are summed and ``seconds`` is the host's time to the assembled
+    film."""
+    from vimg_tpu_torch.parallel.sharding import make_mesh, replicate
+    mesh = mesh or make_mesh()
+    W, H = settings.width, settings.height
+    n = n_groups(scene, settings)
+    per = -(-n // mesh.size)
+    t0 = time.time()
+    parts = []
+    for i, d in enumerate(mesh.devices):
+        begin, end = min(i * per, n), min((i + 1) * per, n)
+        sc = replicate(scene, d)
+        out = render_megakernel(sc, settings, sample_offset=sample_offset,
+                                return_stats=return_stats,
+                                groups=(begin, end))
+        parts.append((sc, begin, end, out))
+    film = torch.zeros((H * W, 3), dtype=torch.float32, device=scene.device)
+    stats = {}
+    for sc, begin, end, out in parts:
+        img, st = out if return_stats else (out, {})
+        pix = group_pixels(sc, settings, begin, end)
+        film[pix.to(scene.device)] = img.reshape(-1, 3)[pix].to(scene.device)
+        for k, v in st.items():
+            if k != "seconds":
+                stats[k] = stats.get(k, 0) + v
+    img = film.view(H, W, 3)
+    if scene.device.type == "cuda":
+        torch.cuda.synchronize(scene.device)
+    if not return_stats:
+        return img
+    return img, dict(stats, seconds=time.time() - t0)

@@ -1,8 +1,8 @@
 """Frame renderer and dispatch (port of vimg_tpu.render.render).
 
-``render`` is the chunked loop over (pixel, sample) work: every chunk
-holds whole pixels with all their samples, and each pixel's samples are
-summed in sample order, as vimg_tpu's film accumulates them.
+``render`` is the chunked loop over (pixel, sample) work (``film_sum``):
+every chunk holds whole pixels with all their samples, and each pixel's
+samples are summed in sample order, as vimg_tpu's film accumulates them.
 ``render_frame`` dispatches as vimg_tpu does: on CUDA the frames that the
 megakernel covers go to the hand-written kernel of the scene's mode (B1
 analytic, B2 mesh), except mesh MIS frames at production sample counts;
@@ -27,39 +27,61 @@ from vimg_tpu_torch.scene import ir
 
 
 def render(scene: ir.Scene, settings: ir.RenderSettings, tracer=None,
-           progress=False, integrator=None, sample_offset=0, stats=None):
+           progress=False, integrator=None, sample_offset=0, stats=None,
+           pixels=None):
     """Render a full frame with the loop integrator. Returns the linear
     (H, W, 3) float32 image on the scene's device. ``tracer`` defaults to
     ``make_tracer(scene)``; ``integrator`` overrides
     ``settings.integrator``; ``sample_offset`` shifts every sample id (and
     so every RNG stream); ``stats`` (a dict) collects segment and shadow-ray
-    counts."""
+    counts; ``pixels`` (an int64 tensor of pixel ids) renders only those
+    pixels, the rest of the image staying 0."""
     if integrator is not None:
         settings = dataclasses.replace(settings, integrator=integrator)
+    tracer = tracer or make_tracer(scene)
+
+    def trace(sc, pix, samp):
+        return trace_radiance(sc, settings, tracer, pix, samp, stats=stats)
+
+    return div(film_sum(scene, settings, trace, progress, sample_offset,
+                        pixels), settings.spp)
+
+
+def film_sum(scene: ir.Scene, settings: ir.RenderSettings, trace,
+             progress=False, sample_offset=0, pixels=None):
+    """The (H, W, 3) sum over each pixel's ``settings.spp`` samples
+    [sample_offset, sample_offset + spp): the loop of ``render`` and of
+    ``parallel.sharding.render_sharded``. ``trace(scene, pix, samp)``
+    gives the (B, 3) radiance of a chunk of whole pixels (about
+    ``settings.batch_size`` rays, default 2^20); each pixel's samples are
+    summed in sample order, so the film has no atomic adds. ``pixels`` as
+    ``render``'s."""
     W, H, spp = settings.width, settings.height, settings.spp
     dev = scene.device
-    tracer = tracer or make_tracer(scene)
-    n_pix = W * H
+    n_pix = W * H if pixels is None else pixels.shape[0]
     pix_per_chunk = max((settings.batch_size or (1 << 20)) // spp, 1)
-    accum = torch.zeros((n_pix, 3), dtype=torch.float32, device=dev)
+    accum = torch.zeros((W * H, 3), dtype=torch.float32, device=dev)
     samp_ids = torch.arange(spp, device=dev) + sample_offset
     t0 = time.time()
     for p0 in range(0, n_pix, pix_per_chunk):
         p1 = min(p0 + pix_per_chunk, n_pix)
-        pix = torch.arange(p0, p1, device=dev).repeat_interleave(spp)
-        samp = samp_ids.repeat(p1 - p0)
-        col = trace_radiance(scene, settings, tracer, pix, samp, stats=stats)
-        col = col.view(p1 - p0, spp, 3)
-        acc = accum[p0:p1]
+        ids = (torch.arange(p0, p1, device=dev) if pixels is None
+               else pixels[p0:p1])
+        col = trace(scene, ids.repeat_interleave(spp),
+                    samp_ids.repeat(p1 - p0)).view(p1 - p0, spp, 3)
+        acc = (accum[p0:p1] if pixels is None else
+               torch.zeros((p1 - p0, 3), dtype=torch.float32, device=dev))
         for s in range(spp):
             acc += col[:, s]
+        if pixels is not None:
+            accum[ids] = acc
         if progress:
             rate = (p1 * spp) / max(time.time() - t0, 1e-9)
             print(f"\r{100.0 * p1 / n_pix:.2f} % done "
                   f"({rate / 1e6:.2f} Mpaths/s)", end="", flush=True)
     if progress:
         print("\nRender Completed")
-    return div(accum.view(H, W, 3), spp)
+    return accum.view(H, W, 3)
 
 
 MESH_WAVEFRONT_MIN_SPP = 8

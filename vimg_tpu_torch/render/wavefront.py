@@ -30,13 +30,24 @@ none of this.
 
 The run loop is a host loop over supersteps that reads ``n_done`` once per
 superstep, with vimg_tpu's safety valve on the superstep count. Segment and
-shadow-ray counters are exact int64. vimg_tpu's primary pre-pass
-(``trace_primaries``, ``VIMG_PREPASS``), the raster-order switch
-(``VIMG_NO_MORTON``), the ``ablate`` hook and the ``sample_offset`` of
-checkpoint slabs are not ported.
+shadow-ray counters are exact int64.
+
+``sample_offset`` shifts every sample id the refill hands out, so disjoint
+sample slabs of one frame (checkpoint slabs, per-process slabs) draw
+disjoint RNG streams: a (pixel, sample) path depends only on that pair.
+``VIMG_NO_MORTON`` (set to anything) hands out work in raster order.
+
+The primary pre-pass (opt-in: ``VIMG_PREPASS``, see ``_want_prepass``)
+traces every camera ray of the frame first, in (Morton pixel, sample)
+order and unsorted, into one packed (total, 16) float32 table of first
+hits and the rays that produced them (``trace_primaries``); a refilled
+lane then reads its row and skips its camera trace in the superstep. The
+table is allocated once and the chunks are written into it, so its peak
+is its own 64 bytes a path. vimg_tpu's ``ablate`` hook is not ported.
 """
 from __future__ import annotations
 
+import os
 import time
 
 import numpy as np
@@ -59,6 +70,14 @@ from vimg_tpu_torch.scene import ir
 # default lane count (vimg_tpu's; settings.batch_size overrides it)
 MAX_LANES = 1 << 17
 INF = float("inf")
+# pre-pass table cap: 64 bytes a path (first hit, camera ray and cone,
+# three pad columns), 2^23 paths = 512 MiB. Bigger frames trace their
+# primaries in the superstep (or render in sample slabs).
+PREPASS_MAX_TOTAL = 1 << 23
+# the pre-pass table's first five columns: (lane state, HitResult field)
+_PRE_FIELDS = (("pre_t", "t"), ("pre_ptype", "prim_type"),
+               ("pre_pid", "prim_id"), ("pre_u", "u"), ("pre_v", "v"))
+_PRE_INT = ("prim_type", "prim_id")
 # stats dict of the latest render_wavefront (what return_stats returns)
 LAST_STATS = None
 
@@ -84,9 +103,10 @@ def morton_pixel_order(W, H):
     return pid[order].astype(np.int32)
 
 
-def init_state(B, device, cones=False):
+def init_state(B, device, cones=False, prepass=False, sample_offset=0):
     """All lanes idle; the first superstep's refill hands out work. With
-    ``cones`` the lanes carry a ray cone too."""
+    ``cones`` the lanes carry a ray cone too, with ``prepass`` the first
+    hit of their pending camera ray (valid while ``fresh``)."""
     def z(*shape, dtype=torch.float32):
         return torch.zeros((B, *shape), dtype=dtype, device=device)
 
@@ -94,6 +114,10 @@ def init_state(B, device, cones=False):
         return torch.zeros((), dtype=torch.int64, device=device)
 
     extra = dict(cone_w=z(), cone_s=z()) if cones else {}
+    if prepass:
+        extra.update({f: z(dtype=torch.int64 if h in _PRE_INT
+                             else torch.float32)
+                      for f, h in _PRE_FIELDS})
     return dict(
         **extra,
         alive=z(dtype=torch.bool),         # lane holds an in-flight path
@@ -105,15 +129,18 @@ def init_state(B, device, cones=False):
         non_spec=z(dtype=torch.bool), eta_scale=z() + 1.0,
         prev_pdf=z(), prev_delta=z(dtype=torch.bool),
         next_work=scalar(), n_done=scalar(),
+        samp_off=scalar() + sample_offset,
         # exact counters: segments traced, shadow rays cast
         n_segments=scalar(), n_shadow=scalar(),
     )
 
 
 def make_superstep(scene: ir.Scene, settings: ir.RenderSettings, tracer,
-                   total_paths: int, morton_pix):
+                   total_paths: int, morton_pix=None, pre_tab=None):
     """Returns superstep(state, accum) -> (state, accum); ``accum`` is the
-    (3, H*W) film, ``morton_pix`` the work order's pixel ids (int64)."""
+    (3, H*W) film, ``morton_pix`` the work order's pixel ids (int64; None:
+    raster order), ``pre_tab`` the pre-pass table (None: fresh lanes trace
+    their camera rays in the superstep)."""
     spp = settings.spp
     n_lights = scene.n_lights()
     nl = max(n_lights, 1)
@@ -134,11 +161,23 @@ def make_superstep(scene: ir.Scene, settings: ir.RenderSettings, tracer,
         k = new_k[take]
         pix = s["pix"].clone()
         samp = s["samp"].clone()
-        pix[take] = morton_pix[k // spp]
-        samp[take] = k % spp
+        pix[take] = k // spp if morton_pix is None else morton_pix[k // spp]
+        samp[take] = k % spp + s["samp_off"]
         ro, rd = s["ro"].clone(), s["rd"].clone()
-        ro[take], rd[take], cw, cs = _primary_rays(scene, settings, pix[take],
-                                                   samp[take])
+        if pre_tab is None:
+            ro[take], rd[take], cw, cs = _primary_rays(scene, settings,
+                                                       pix[take], samp[take])
+        else:
+            # the stored camera ray, so that hit and shading see one ray
+            row = pre_tab[k]
+            ro[take], rd[take], cw, cs = (row[:, 5:8], row[:, 8:11],
+                                          row[:, 11], row[:, 12])
+            pre = {}
+            for c, (f, h) in enumerate(_PRE_FIELDS):
+                pre[f] = s[f].clone()
+                pre[f][take] = (row[:, c].long() if h in _PRE_INT
+                                else row[:, c])
+            s = dict(s, **pre)
         if cones:
             cone_w, cone_s = s["cone_w"].clone(), s["cone_s"].clone()
             cone_w[take], cone_s[take] = cw, cs
@@ -170,9 +209,15 @@ def make_superstep(scene: ir.Scene, settings: ir.RenderSettings, tracer,
         n_segments = s["n_segments"] + alive.sum()
 
         # ---- 1. trace pending rays ------------------------------------
-        # idle lanes walk with maxT = -inf: they leave the walk at once
+        # idle lanes walk with maxT = -inf: they leave the walk at once;
+        # with the pre-pass, so do fresh lanes (their hit is in the state)
+        live = alive & ~fresh if pre_tab is not None else alive
         hr = tracer.closest(scene, ro, rd, minT,
-                            torch.where(alive, infT, -INF))
+                            torch.where(live, infT, -INF))
+        if pre_tab is not None:
+            hr = intersect.HitResult(**{
+                h: torch.where(fresh, s[f], getattr(hr, h))
+                for f, h in _PRE_FIELDS})
         hi = intersect.hit_info(scene, ro, rd, hr)
         found = alive & hr.hit
         missed = alive & ~hr.hit
@@ -292,11 +337,61 @@ def make_superstep(scene: ir.Scene, settings: ir.RenderSettings, tracer,
     return superstep
 
 
+def trace_primaries(scene, settings, tracer, morton_pix, total,
+                    sample_offset=0, chunk_B=None):
+    """Trace every camera ray of the frame in (Morton pixel, sample) work
+    order, unsorted (consecutive work ids are one pixel's samples, then
+    Morton-adjacent pixels: coherent already). Returns ``{"pre_tab": T}``,
+    T the (total, 16) float32 table indexed by work id: t, prim type, prim
+    id (ids as exact float32 values, below 2^24), u, v, the ray's origin
+    and direction, its cone width and spread, three zero columns. The
+    rays ride in the table so that the refill hands a lane the very ray
+    its hit was traced with. T is allocated once and each chunk of
+    ``chunk_B`` work ids (default: the frame in chunks of up to 2^20) is
+    written into it."""
+    spp = settings.spp
+    dev = scene.device
+    CB = chunk_B or min(1 << 20, -(-total // 8192) * 8192)
+    tab = torch.zeros((total, 16), dtype=torch.float32, device=dev)
+    for k0 in range(0, total, CB):
+        k = torch.arange(k0, min(k0 + CB, total), device=dev)
+        pix = morton_pix[k // spp]
+        samp = k % spp + sample_offset
+        ro, rd, cw, cs = _primary_rays(scene, settings, pix, samp)
+        n = k.shape[0]
+        hr = tracer.closest(scene, ro, rd,
+                            torch.full((n,), MIN_T, device=dev),
+                            torch.full((n,), INF, device=dev), sort=False)
+        rows = tab[k0:k0 + n]
+        for c, (_, h) in enumerate(_PRE_FIELDS):
+            rows[:, c] = getattr(hr, h)
+        rows[:, 5:8] = ro
+        rows[:, 8:11] = rd
+        rows[:, 11] = cw
+        rows[:, 12] = cs
+    return {"pre_tab": tab}
+
+
+def _want_prepass(scene, tracer, total):
+    """Opt-in: ``VIMG_PREPASS`` set and ``VIMG_NO_PREPASS`` unset, a
+    tracer that takes ``sort=False`` (``presortable``), more than 64 and
+    fewer than 2^24 triangles (ids ride as exact float32 values), at most
+    PREPASS_MAX_TOTAL paths."""
+    if not os.environ.get("VIMG_PREPASS") or \
+            os.environ.get("VIMG_NO_PREPASS"):
+        return False
+    return (getattr(tracer, "presortable", False)
+            and 64 < scene.n_tris() < (1 << 24)
+            and total <= PREPASS_MAX_TOTAL)
+
+
 def render_wavefront(scene: ir.Scene, settings: ir.RenderSettings,
-                     tracer=None, progress=False, return_stats=False):
+                     tracer=None, progress=False, sample_offset=0,
+                     return_stats=False):
     """Full-frame MIS render with the refill wavefront. Returns the linear
     (H, W, 3) image on the scene's device, plus (with ``return_stats``) a
-    dict of supersteps, segments, shadow_rays and seconds."""
+    dict of supersteps, segments, shadow_rays, seconds and prepass_seconds
+    (0.0 without the pre-pass). ``sample_offset`` shifts every sample id."""
     from vimg_tpu_torch.geometry.trace import make_tracer
     tracer = tracer or make_tracer(scene)
     W, H, spp = settings.width, settings.height, settings.spp
@@ -307,12 +402,26 @@ def render_wavefront(scene: ir.Scene, settings: ir.RenderSettings,
     B = min(cap, max(total // 2, 1024))
     # safety valve far above any real superstep count
     max_supersteps = 70 * (total // B + 1) + 8192
+    use_prepass = _want_prepass(scene, tracer, total)
+    # the pre-pass's work order is always Morton
+    use_morton = use_prepass or not os.environ.get("VIMG_NO_MORTON")
 
     t0 = time.time()
-    morton_pix = torch.from_numpy(
+    morton_pix = (torch.from_numpy(
         morton_pixel_order(W, H).astype(np.int64)).to(dev)
-    superstep = make_superstep(scene, settings, tracer, total, morton_pix)
-    state = init_state(B, dev, cones=scene.needs_cones)
+        if use_morton else None)
+    pre_tab = None
+    if use_prepass:
+        cb = int(os.environ.get("VIMG_PREPASS_CHUNK", 0)) or B
+        pre_tab = trace_primaries(scene, settings, tracer, morton_pix, total,
+                                  sample_offset, chunk_B=cb)["pre_tab"]
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    pre_dt = time.time() - t0 if use_prepass else 0.0
+    superstep = make_superstep(scene, settings, tracer, total, morton_pix,
+                               pre_tab)
+    state = init_state(B, dev, cones=scene.needs_cones,
+                       prepass=use_prepass, sample_offset=sample_offset)
     accum = torch.zeros((3, W * H), dtype=torch.float32, device=dev)
     it = 0
     while it < max_supersteps:
@@ -327,10 +436,11 @@ def render_wavefront(scene: ir.Scene, settings: ir.RenderSettings,
     segs, shadow = int(state["n_segments"]), int(state["n_shadow"])
     global LAST_STATS
     LAST_STATS = dict(supersteps=it, segments=segs, shadow_rays=shadow,
-                      seconds=dt)
+                      seconds=dt, prepass_seconds=pre_dt)
     if progress:
         print(f"Render Completed: {it} supersteps, "
               f"{total / max(dt, 1e-9) / 1e6:.2f} Mpaths/s, "
               f"{(segs + shadow) / max(dt, 1e-9) / 1e6:.2f} Mrays/s "
-              f"({segs / 1e6:.1f}M segments + {shadow / 1e6:.1f}M shadow)")
+              f"({segs / 1e6:.1f}M segments + {shadow / 1e6:.1f}M shadow"
+              + (f"; prepass {pre_dt:.2f}s" if use_prepass else "") + ")")
     return (img, dict(LAST_STATS)) if return_stats else img

@@ -28,12 +28,12 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # name -> (argtypes, restype); pointers and the stream are c_void_p
 SIGNATURES = {
-    # csrc/megakernel.cu: 10 tables, 9 ints, blocks, film, counts,
-    # next_group, stream
-    "vimg_mega_render": ([_P] * 10 + [_I] * 10 + [_P] * 4, _I),
-    # mesh mode: 17 tables, 10 ints, blocks, film, counts, next_group,
-    # stream
-    "vimg_mega_render_mesh": ([_P] * 17 + [_I] * 11 + [_P] * 4, _I),
+    # csrc/megakernel.cu: 10 tables, 9 ints, group_begin, group_end,
+    # blocks, film, counts, next_group, stream
+    "vimg_mega_render": ([_P] * 10 + [_I] * 12 + [_P] * 4, _I),
+    # mesh mode: 17 tables, 10 ints, group_begin, group_end, blocks, film,
+    # counts, next_group, stream
+    "vimg_mega_render_mesh": ([_P] * 17 + [_I] * 13 + [_P] * 4, _I),
     # mesh, mis, per_sm, regs, local_bytes (host int*)
     "vimg_mega_occupancy": ([_I] * 2 + [_P] * 3, _I),
     # csrc/cluster_trace.cu: 4 tables, ro, rd, minT, maxT, n_rays,

@@ -155,10 +155,21 @@ class Scene:
     has_aniso: bool = False
     has_spec_trans: bool = False
     has_checker: bool = False
+    # the scene's copies on other devices (parallel.sharding.replicate); a
+    # replaced scene starts empty
+    replicas: dict = dataclasses.field(default_factory=dict, init=False,
+                                       repr=False, compare=False)
 
     @property
     def device(self) -> torch.device:
         return self.verts.device
+
+    def tensors(self):
+        """Every tensor of the scene, the camera's and the env map's
+        levels included."""
+        return ([getattr(self, name) for name, _ in TENSOR_FIELDS]
+                + list(self.env_mips)
+                + [getattr(self.camera, name) for name in CAMERA_FIELDS])
 
     @property
     def needs_uv(self):
