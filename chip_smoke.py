@@ -76,10 +76,15 @@ Phases:
     shadow rays in PacketTracer's own order, variants slist and f2b: the
     cull's meta bit for bit against the plain cull's, zero (t, code)
     mismatches for B5; kernel, plain cull and whole-trace times with CUDA
-    events; the bound of each; B5's warp test steps and lane fill (needed
-    tests / (32 x steps)); closest() and occluded() against B3's on the
-    same rays (prim ids may differ only where t ties exactly: counted and
-    printed);
+    events (X1's six: slist and f2b on each ray kind); X1's registers,
+    shared memory and resident warps per SM; X1's counted launch (its
+    select-form, plain-form, bounds and skipped tests) against the CPU
+    replay cull_schedule.cull_steps, and its skip share; the bound of
+    each (X1's from the slab and bounds tests it runs); B5's warp test
+    steps and lane
+    fill (needed tests / (32 x steps)); closest() and occluded() against
+    B3's on the same rays (prim ids may differ only where t ties exactly:
+    counted and printed);
 13. main path 6: terrain 100k at 512x256 @ 64 spp -> render_frame(...,
     tracer_force="packet") -> finalize -> write_png through X1 and B5 only
     (one cull launch a walk launch, printed), after the same frame at 1
@@ -92,7 +97,11 @@ Phases:
     its probe on phase 6's terrain 100k: 131,072 bounce rays in origin-
     Morton order, five variants at groups 32 (a warp in lockstep) and 1;
     bt and visits bit for bit against the plain walk at the same group;
-    the full walk's bt against B4's closest t on the same rays;
+    the full walk's bt against B4's closest t on the same rays; a counted
+    launch of the full walk at each group, whose warp node and triangle
+    steps must equal the replay of its schedule
+    (probe_walkablate.walk_schedule, bt and visits the plain walk's too),
+    and the leaf round's lane fill (triangle tests / (32 x steps));
 16. kernels P2-P4 (tools/probe_r3b.py microbench_sync, probe_r3c.py
     smem_read_cost, probe_regen.py probe_smem_dynamic_write) through their
     probes at N = 20,000, bit for bit against their plain versions;
@@ -1280,6 +1289,7 @@ def cull_vs_plain(tr, packed):
     import torch
     from vimg_tpu_torch.geometry import cluster_trace as ct
     from vimg_tpu_torch.geometry import packet_trace as pt
+    from vimg_tpu_torch.geometry import cull_schedule as cs
     before = pt.LAUNCHES_CULL
     meta = tr.cull(packed)
     torch.cuda.synchronize()
@@ -1295,13 +1305,30 @@ def cull_vs_plain(tr, packed):
     for _ in range(2):                                      # warm-up
         tr.cull(packed)
     _, ms = event_ms(lambda: tr.cull(packed), TIMED_LAUNCHES)
+    # the counted launch: its meta as the uncounted one's, its counts
+    # (select-form, plain-form, bounds tests, tests skipped) as the CPU
+    # replay's
+    steps = torch.zeros(4, dtype=torch.int64, device=meta.device)
+    args = (*packed, tr.cl_lo, tr.cl_hi, tr.cp, pi)
+    bad += int((pt.cull_meta(*args, tr.entry_scale, steps=steps)
+                != meta).sum())
+    got = dict(zip(cs.KEYS, (int(x) for x in steps.cpu())))
+    want = cs.cull_steps(*(a.cpu() if isinstance(a, torch.Tensor) else a
+                           for a in args))
+    if got != want:
+        fail(f"X1 {tr.variant}: counted {got}, the replay {want}")
     n_rays = packed[0].shape[0]
-    tests = (n_rays // pt.WG) * tr.data.n_clusters * pt.WG
+    # the bound: the slab and bounds tests X1 runs on these rays (a skipped
+    # bucket's tests are work no ray needs), at their operations each
+    live = int((packed[2] <= packed[3]).sum())
+    pairs = live * tr.data.n_clusters
+    skip = got["skipped_tests"] / pairs if pairs else 0.0
     nbytes = meta.numel() * 4 + n_rays * 32 + tr.data.n_clusters * 24
     t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
-    t_ops = 1e3 * tests * ct.BOX_TEST_OPS / FP32_OPS_PER_S
+    t_ops = 1e3 * cs.operations(got) / FP32_OPS_PER_S
     return meta, dict(mismatches=bad, ms=ms, plain_ms=plain_ms,
-                      bound_ms=max(t_bytes, t_ops), slab_tests=tests,
+                      bound_ms=max(t_bytes, t_ops), steps=got, pairs=pairs,
+                      skip_share=skip,
                       bound_by="bytes" if t_bytes >= t_ops else "operations",
                       t_bytes=t_bytes, t_ops=t_ops)
 
@@ -1329,14 +1356,21 @@ def packet_vs_plain(scene, rays):
             _, packed = tr.pack(*r)
             meta, c = cull_vs_plain(tr, packed)
             cull[(variant, kind)] = c
+            st = c["steps"]
             log(f"  X1 {variant:5s} {kind:6s}: meta vs the plain cull's "
                 f"mismatches {c['mismatches']}; kernel {c['ms']:.4f} ms, "
-                f"plain cull {c['plain_ms']:.3f} ms; {c['slab_tests']} slab "
-                f"tests -> bound {c['bound_ms']:.4f} ms ({c['bound_by']}: "
-                f"bytes {c['t_bytes']:.4f} ms, ops {c['t_ops']:.4f} ms)")
+                f"plain cull {c['plain_ms']:.3f} ms; of {c['pairs']} (live "
+                f"ray, cluster) pairs {st['select_tests']} tested in the "
+                f"select form, {st['plain_tests']} in the plain form, "
+                f"{st['skipped_tests']} skipped (skip share "
+                f"{c['skip_share']:.4f}), {st['bound_tests']} bounds tests "
+                f"(counted launch = CPU replay) -> bound {c['bound_ms']:.4f} "
+                f"ms ({c['bound_by']}: bytes {c['t_bytes']:.4f} ms, ops "
+                f"{c['t_ops']:.4f} ms)")
             if c["mismatches"]:
                 fail(f"X1 {variant} {kind}: {c['mismatches']} meta slots "
-                     f"differ from the plain cull's")
+                     f"differ from the plain cull's or the uncounted "
+                     f"launch's")
             args = (tr.tri_t, meta, *packed, *tr.walk_args(any_hit))
             steps = torch.zeros(1, dtype=torch.int64, device=meta.device)
             got = pt.trace_packet(*args, steps=steps)
@@ -1476,10 +1510,31 @@ def packet_phases(scene, rays, b3_img, png_dir, card, dev):
     """Phases 12 and 13; returns B5's and X1's rows of the kernels JSON
     (the slist bounce launch, as the B3/B4 rows; launches over main path
     6)."""
+    from vimg_tpu_torch.geometry import packet_trace as pt
+    from vimg_tpu_torch.runtime import cuda
+    from vimg_tpu_torch.geometry import cluster_trace as ct
+    from vimg_tpu_torch.geometry import cull_schedule as cs
     log(f"[12] X1 (packet cull) and B5 (packet walk) vs their plain "
         f"versions, terrain 100k, phase 6's {N_RAYS} rays per kind, "
         f"PacketTracer's order")
+    occ = {}
+    for f2b, variant in ((False, "slist"), (True, "f2b")):
+        occ[variant] = o = pt.cull_occupancy(f2b)
+        log(f"    X1 {variant}: {o['regs']} registers, {o['local_bytes']} B "
+            f"local memory a thread, {o['smem_bytes']} B shared memory a "
+            f"block, {o['blocks_per_sm']} blocks = {o['warps_per_sm']} "
+            f"resident warps per SM; ptxas: " + " | ".join(cuda.ptxas_lines(
+                cuda.BUILD_INFO["log"],
+                f"packet_cull_kernelILb{int(f2b)}ELb0E")))
+    log(f"    X1's slab test: {cs.SELECT_TEST_OPS} operations in the "
+        f"select form (6 of them min/max), {ct.BOX_TEST_OPS} in the plain "
+        f"form (12 min/max), a bounds test {cs.BOUND_TEST_OPS} (design "
+        f"counts, csrc/packet_cull.cu)")
     res, cull = packet_vs_plain(scene, rays)
+    log("    X1 ms (20 culls between CUDA events): " + "; ".join(
+        f"{variant} " + " / ".join(f"{kind} {cull[(variant, kind)]['ms']:.4f}"
+                                   for kind in rays)
+        for variant in ("slist", "f2b")))
     log(f"[13] main path 6: terrain 100k -> render_frame ({MESH_W}x{MESH_H} "
         f"@ {MESH_SPP} spp, batch {MESH_BATCH}, tracer_force='packet') -> "
         f"finalize -> write_png through X1 and B5")
@@ -1495,7 +1550,15 @@ def packet_phases(scene, rays, b3_img, png_dir, card, dev):
               bound_by=c["bound_by"],
               f2b_ms=cull[("f2b", "bounce")]["ms"],
               camera_ms=cull[("slist", "camera")]["ms"],
-              shadow_ms=cull[("slist", "shadow")]["ms"])
+              shadow_ms=cull[("slist", "shadow")]["ms"],
+              f2b_camera_ms=cull[("f2b", "camera")]["ms"],
+              f2b_shadow_ms=cull[("f2b", "shadow")]["ms"],
+              skip_share={f"{v}_{k}": cull[(v, k)]["skip_share"]
+                          for v in ("slist", "f2b") for k in rays},
+              regs=occ["slist"]["regs"],
+              warps_per_sm=occ["slist"]["warps_per_sm"],
+              f2b_regs=occ["f2b"]["regs"],
+              f2b_warps_per_sm=occ["f2b"]["warps_per_sm"])
     return b5, x1
 
 
@@ -1639,8 +1702,34 @@ def walk_probe_phase(scene):
               + N_RAYS * (32 + 4) + N_RAYS // 32 * 4)
     log(f"    bound of the full walk from B4's plain walk on these rays: "
         f"{st['box_tests']} box + {st['tri_tests']} triangle tests")
-    return probe_row("probe_walkablate", "tools/probe_walkablate.py:204",
-                     res[("full", 32)][2], plain[("full", 32)], ops, nbytes)
+    # the full walk's warp steps: a counted launch against the replay of
+    # its schedule (walk_schedule), and the leaf round's lane fill
+    fill = {}
+    for group in pw.KERNEL_GROUPS:
+        steps = torch.zeros(2, dtype=torch.int64, device=bt.device)
+        kbt, knv = pw.walkablate(*tables, *rays, "full", group, steps=steps)
+        rbt, rnv, c = pw.walk_schedule(*tables, *rays, group)
+        got = [int(x) for x in steps.cpu()]
+        want = [c["node_steps"], c["tri_steps"]]
+        fill[group] = c["tri_tests"] / (32 * max(got[1], 1))
+        old = (f"; the per-lane leaf before: 64 x {c['leaf_visits']} leaf "
+               f"visits = {64 * c['leaf_visits']} warp triangle steps"
+               if group == 32 else "")
+        log(f"    full group {group:2d}: warp (node, triangle) steps kernel "
+            f"{got}, replay {want}; {c['tri_tests']} triangle tests, leaf "
+            f"lane fill {fill[group]:.4f} (replay "
+            f"{c['tri_tests'] / (32 * max(want[1], 1)):.4f}){old}")
+        if (got != want or bits_differ(kbt, rbt) or bits_differ(knv, rnv)
+                or bits_differ(kbt, res[("full", group)][0])):
+            fail(f"P1 full group {group}: counted launch or steps differ "
+                 f"from the replay")
+    row = probe_row("probe_walkablate", "tools/probe_walkablate.py:204",
+                    res[("full", 32)][2], plain[("full", 32)], ops, nbytes,
+                    note=f"leaf lane fill {fill[32]:.4f} (group 1: "
+                    f"{fill[1]:.4f})")
+    row.update(leaf_fill=fill[32], group1_leaf_fill=fill[1],
+               group1_ms=res[("full", 1)][2])
+    return row
 
 
 def scalar_probe_phase(dev):

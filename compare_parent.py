@@ -1,4 +1,4 @@
-"""Time this checkout's kernels B2-B5, X2, the packet cull and P19 and
+"""Time this checkout's kernels B2-B5, X2, the packet cull, P1 and P19 and
 main paths 1-11 and 13 against another checkout of the port, on one GPU,
 in turns.
 
@@ -24,8 +24,13 @@ then:
   them;
 - P19: the TF32 product of probe_r2c on its (256, 256) inputs, three
   readings of probes.common.device_ms (launches queued behind a spin);
+- P1 (the walk-ablation probe, chip_smoke.py's phase 15): every variant
+  at groups 32 and 1 on terrain 100k's 131,072 sorted bounce rays, bt
+  and visits of one launch kept, three readings of device_ms;
 - main path 6: render_frame(..., tracer_force="packet") on terrain 100k
-  at 512x256 @ 64 spp after a 1-spp warm-up frame, timed once;
+  at 512x256 @ 64 spp after a 1-spp warm-up frame, timed once, its X1
+  and B5 launches counted; then once more under
+  torch.use_deterministic_algorithms, its film kept;
 - B4 (skip walk) on terrain 500k's camera, bounce and shadow rays and B3
   (wide walk) on terrain 100k's, made as chip_smoke.py's phase 6 makes
   them, in the tracer's order: one launch kept, two warm-ups, three
@@ -48,14 +53,16 @@ then:
   flagship (1800x800) and terrain 100k (512x256) through render(), timed
   once each after a 1-spp warm-up frame, the films kept.
 
-Then it checks that every meta, B3, B4 (t, slot, u, v) and B5 (t, code)
-is bit-equal across the four runs, that B1's and B2's films and counters
-(main paths 1, 4 and 5 and the 4-spp flagship) are, that the films of
-main paths 7 and 8 are, that each P19 product is held by matmul_held,
-that the wavefront frames (main paths 2, 3 and 6) have equal segment and
-shadow-ray counts and supersteps and agree per pixel (their films are
-not bit-equal even between two runs of one checkout: the film's atomic
-index_add_ adds in no fixed order), prints the table and the card's name
+Then it checks that every meta, B3, B4 (t, slot, u, v), B5 (t, code) and
+P1 (bt, visits) is bit-equal across the four runs, that B1's and B2's
+films and counters (main paths 1, 4 and 5 and the 4-spp flagship) are,
+that the films of main paths 7 and 8 and main path 6's deterministic
+film are and its X1 and B5 launches equal, that each P19 product is held
+by matmul_held, that the wavefront frames (main paths 2, 3 and 6) have
+equal segment and shadow-ray counts and supersteps and agree per pixel
+(their films are not bit-equal even between two runs of one checkout:
+the film's atomic index_add_ adds in no fixed order), prints the table
+and the card's name
 and power limit, and writes the readings as JSON. Exits non-zero on any
 failure.
 
@@ -205,6 +212,25 @@ def front_readings(cs, dev):
     return res, imgs
 
 
+def p1_readings(cs, scene, dev):
+    """P1 on terrain 100k's sorted bounce rays, every variant at groups 32
+    and 1: bt and visits of one launch, three readings of device_ms."""
+    from vimg_tpu_torch.geometry import cluster_trace as ct
+    from vimg_tpu_torch.probes import probe_walkablate as pw
+    from vimg_tpu_torch.probes.common import device_ms
+    data = ct.ClusterData(scene)
+    tables = pw.probe_tables(data, dev)
+    rays = pw.sorted_bounce_rays(scene, data, cs.N_RAYS)
+    res, outs = {}, {}
+    for group in pw.KERNEL_GROUPS:
+        for variant in pw.VARIANTS:
+            fn = lambda: pw.walkablate(*tables, *rays, variant, group)
+            outs[f"{variant}/{group}"] = [x.cpu() for x in fn()]
+            res[f"{variant}/{group}"] = dict(ms=[
+                device_ms(fn, cs.TIMED_LAUNCHES) for _ in range(READINGS)])
+    return res, outs
+
+
 def worker(tree, out):
     import torch
     cs = _smoke(tree)
@@ -253,17 +279,26 @@ def worker(tree, out):
         ms=[common.device_ms(lambda: probe_r2c.matmul(a, b, "default"),
                              cs.TIMED_LAUNCHES) for _ in range(READINGS)],
         held=float(probe_r2c.matmul_held(a, b, prod, "default")))
+    res["p1"], p1_outs = p1_readings(cs, scene, dev)
     st = ir.RenderSettings(cs.MESH_W, cs.MESH_H, spp=cs.MESH_SPP,
                            max_depth=64, integrator="mis", tonemap="agx",
                            batch_size=cs.MESH_BATCH)
     render_frame(scene, ir.RenderSettings(
         cs.MESH_W, cs.MESH_H, spp=1, max_depth=64, integrator="mis",
         tonemap="agx", batch_size=cs.MESH_BATCH), tracer_force="packet")
-    before = pt.LAUNCHES
+    before = (pt.LAUNCHES, pt.LAUNCHES_CULL)
     img, secs = cs.timed(lambda: render_frame(scene, st,
                                               tracer_force="packet"))
-    res["frame"] = dict(s=secs, launches=pt.LAUNCHES - before,
+    res["frame"] = dict(s=secs, launches=pt.LAUNCHES - before[0],
+                        cull_launches=pt.LAUNCHES_CULL - before[1],
                         **_wf_stats(wavefront.LAST_STATS))
+    # once more under deterministic algorithms (the film's index_add_
+    # then sums in a fixed order): its film is held bit for bit
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        img6 = render_frame(scene, st, tracer_force="packet").cpu()
+    finally:
+        torch.use_deterministic_algorithms(False)
     res["walks"], walk_outs = walk_readings(cs, scene, rays, dev)
     res["b2"], b2_outs = b2_readings(cs, dev)
     res["frame2"], img2 = frame_readings(cs, dev, 100_000, "LAUNCHES_WIDE")
@@ -273,7 +308,8 @@ def worker(tree, out):
     res["frame9"], img9 = envtex_readings(cs, dev)
     if hasattr(cs, "train_run"):
         res["main10"] = train_readings(cs, dev)
-    torch.save({"b5": outs, "meta": metas, "img": img.cpu(),
+    torch.save({"b5": outs, "meta": metas, "p1": p1_outs, "img": img.cpu(),
+                "img6_det": img6,
                 "walks": walk_outs, "b2": b2_outs, "img2": img2,
                 "img3": img3, "img9": img9, "main1": main1, **imgs78,
                 "x2": x2_outs, **front_imgs}, out + ".pt")
@@ -497,6 +533,11 @@ def main():
             n = int((got != ref["meta"][key]).sum())
             if n:
                 bad.append(f"meta {key} run {res['name']}: {n} slots differ")
+        for key, got in res["data"]["p1"].items():
+            n = sum(int((a.view(torch.int32) != b.view(torch.int32)).sum())
+                    for a, b in zip(got, ref["p1"][key]))
+            if n:
+                bad.append(f"P1 {key} run {res['name']}: {n} values differ")
         for key, got in res["data"]["walks"].items():
             n = sum(int((a.view(torch.int32) != b.view(torch.int32)).sum())
                     for a, b in zip(got, ref["walks"][key]))
@@ -524,6 +565,14 @@ def main():
             if got != want:
                 bad.append(f"{name} run {res['name']}: segments, shadow "
                            f"rays, supersteps {got} != {want}")
+        if not torch.equal(res["data"]["img6_det"].view(torch.int32),
+                           ref["img6_det"].view(torch.int32)):
+            bad.append(f"main path 6 run {res['name']}: another "
+                       f"deterministic film")
+        for k in ("launches", "cull_launches"):
+            if res["frame"][k] != runs[1]["frame"][k]:
+                bad.append(f"main path 6 run {res['name']}: {k} "
+                           f"{res['frame'][k]} != {runs[1]['frame'][k]}")
         m1, w1 = res["data"]["main1"], ref["main1"]
         if not torch.equal(m1["img"].view(torch.int32),
                            w1["img"].view(torch.int32)):
@@ -551,12 +600,19 @@ def main():
               f"{span('other', lambda r: r['b5'][key]['ms'])}"
               f"  this {span('this', lambda r: r['b5'][key]['ms'])}"
               f"  warp test steps (this) {steps}")
+    print(f"P1 ms (device time, 20 launches queued behind a spin, "
+          f"{READINGS} readings a run):")
+    for key in runs[0]["p1"]:
+        print(f"  {key:13s} other "
+              f"{span('other', lambda r: r['p1'][key]['ms'])}  this "
+              f"{span('this', lambda r: r['p1'][key]['ms'])}")
     print(f"P19 TF32 ms (device time): other "
           f"{span('other', lambda r: r['p19']['ms'])}  this "
           f"{span('this', lambda r: r['p19']['ms'])}")
     print(f"main path 6 frame s (render loop s), in run order: " + ", ".join(
         f"{r['name']} {r['frame']['s']:.3f} ({r['frame']['loop_s']:.3f})"
-        for r in runs))
+        for r in runs) + f"; launches X1 {runs[1]['frame']['cull_launches']}"
+          f", B5 {runs[1]['frame']['launches']} (equal in every run)")
     print(f"B3 (terrain 100k) and B4 (terrain 500k) ms (20 launches between "
           f"CUDA events, {READINGS} readings a run):")
     for key in runs[0]["walks"]:
@@ -609,7 +665,7 @@ def main():
                 failures=bad), f, indent=1)
     if bad:
         sys.exit("FAIL: " + "; ".join(bad))
-    print("all meta, B3, B4, B5 and X2 outputs, B1 and B2 films and "
+    print("all meta, B3, B4, B5, X2 and P1 outputs, B1 and B2 films and "
           "counters (main paths 1, 4, 5), the films of main paths 7 and 8, "
           "the heatmap and the deterministic films of main paths 11 and 13 "
           "(-b 1) bit-equal across the runs, P19 held, the wavefront "

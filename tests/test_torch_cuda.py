@@ -338,14 +338,22 @@ def test_wide_kernel_refuses_misaligned_tables(cuda):
 
 def _cull_edge_rays(C, device, seed=0):
     """tests/test_torch_packet.py's cull edge case (three workgroups, one
-    looking away; idle lanes; zero direction components) with two more:
-    a denormal direction component (1 / d = inf) on every 13th ray and
-    origins on a box's face (so (lo - o) * inf is NaN)."""
+    looking away; idle lanes; zero direction components) with more: a
+    denormal direction component (1 / d = +-inf) on every 13th ray, -0
+    components, origins on a box's planes (so (lo - o) * inf is NaN), NaN
+    and inf origins, a NaN minT and a second minT on every 17th ray (X1's
+    buckets with more than one minT); with 5 clusters or more, boxes with
+    lo == hi (flat and a point), an empty cluster's (+inf, -inf) and one
+    with a NaN corner (tests/test_torch_cull_octant.py's edge case)."""
     r = np.random.default_rng(seed)
     ctr, half = r.random((C, 3)), 0.02 + 0.1 * r.random((C, 3))
-    if C == 1:
-        ctr, half = np.full((1, 3), 0.5), np.full((1, 3), 0.45)
+    ctr[0], half[0] = 0.5, 0.45
     lo, hi = (ctr - half).astype(np.float32), (ctr + half).astype(np.float32)
+    if C >= 5:
+        lo[1, 1] = hi[1, 1]
+        lo[2] = hi[2]
+        lo[3], hi[3] = np.inf, -np.inf
+        lo[4, 2] = np.nan
     n = 3 * 128
     ro = r.random((n, 3)).astype(np.float32)
     ro[:, 1] += 1.5
@@ -355,30 +363,42 @@ def _cull_edge_rays(C, device, seed=0):
     rd[::5, 0] = 0.0
     rd[::11, 2] = 0.0
     rd = (rd / np.linalg.norm(rd, axis=1, keepdims=True)).astype(np.float32)
+    rd[1::10, 0] = -0.0
     rd[3::13, 0] = 1e-40
+    rd[4::13, 2] = -1e-40
     ro[3::26, 0] = lo[0, 0]
+    ro[5::10, 0] = hi[0, 0]
+    ro[6::17, 2] = lo[min(1, C - 1), 2]
+    ro[7::31, 1] = np.nan
+    ro[8::37, 0] = np.inf
+    ro[9::41, 2] = -np.inf
+    mn = np.full(n, 1e-4, np.float32)
+    mn[10::43] = np.nan
+    mn[2::17] = 0.05              # buckets with more than one minT
     mx = np.full(n, np.inf, np.float32)
     mx[::3] = 2.0
     mx[::7] = -np.inf
     pi = np.stack([r.permutation(C) for _ in range(8)])
     t = lambda x: torch.as_tensor(x, device=device)
-    return ((t(ro), t(rd), t(np.full(n, 1e-4, np.float32)), t(mx)), t(lo),
-            t(hi), t(pi))
+    return (t(ro), t(rd), t(mn), t(mx)), t(lo), t(hi), t(pi)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("variant", ["slist", "f2b"])
 def test_cull_kernel_bit_equal_to_plain(cuda, variant):
     """X1 (packet_cull.cu, through cull_meta and PacketTracer.cull) against
-    the plain cull _cull_meta, meta bit for bit: on a 20k terrain's random
-    and camera rays, and on edge cases with 1, 127, 128 and 129 clusters
-    (every slot of the meta is the kernel's: it is allocated empty)."""
+    the plain cull _cull_meta, meta bit for bit: on a 20k terrain's random,
+    camera, bounce and shadow rays, and on edge cases with 1, 5, 127, 128,
+    129 and 300 clusters (every slot of the meta is the kernel's: it is
+    allocated empty). With 5 clusters or more one box is an empty
+    cluster's, which the plain form meets from every ray with minT <=
+    maxT: the workgroup looking away then has that one candidate."""
     from vimg_tpu_torch.geometry import packet_trace as pt
     scene = terrain_scene(20_000, 128, 64, device=cuda)
     tr = pt.PacketTracer(scene, variant=variant)
     f2b = variant == "f2b"
     kinds = _ray_kinds(scene, ct.ClusterTracer(scene, walk="wide"), cuda)
-    for rays in (_terrain_rays(cuda), kinds["camera"], kinds["bounce"]):
+    for rays in (_terrain_rays(cuda), *kinds.values()):
         _, packed = tr.pack(*rays)
         before = pt.LAUNCHES_CULL
         got = tr.cull(packed)
@@ -388,13 +408,51 @@ def test_cull_kernel_bit_equal_to_plain(cuda, variant):
         assert pt.LAUNCHES_CULL == before + 1
         assert torch.equal(got, ref)
         assert int(got.view(-1, 8, tr.cp)[:, 2, 0].sum()) > 0
-    for C in (1, 127, 128, 129):
+    for C in (1, 5, 127, 128, 129, 300):
         rays, lo, hi, pi = _cull_edge_rays(C, cuda, seed=C)
         cp = -(-(C + 1) // 128) * 128
         args = (*rays, lo, hi, cp, pi if f2b else None, 3.0e5)
         got, ref = pt.cull_meta(*args), pt._cull_meta(*args)
         assert torch.equal(got, ref), C
-        assert int(got.view(-1, 8, cp)[1, 2, 0]) == 0
+        assert int(got.view(-1, 8, cp)[1, 2, 0]) == (C >= 5), C
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["slist", "f2b"])
+def test_cull_kernel_steps_equal_replay(cuda, variant):
+    """X1's counted launch: the meta of the uncounted launch, and its
+    select-form, plain-form, bounds and skipped test counts those of
+    cull_schedule.cull_steps on the CPU, on a 20k terrain's camera, bounce
+    and shadow rays and on the edge cases with 5 and 300 clusters (both
+    forms, unsafe buckets)."""
+    from vimg_tpu_torch.geometry import cull_schedule as cs
+    from vimg_tpu_torch.geometry import packet_trace as pt
+    scene = terrain_scene(20_000, 128, 64, device=cuda)
+    tr = pt.PacketTracer(scene, variant=variant)
+    f2b = variant == "f2b"
+    cases = []
+    for rays in _ray_kinds(scene, ct.ClusterTracer(scene, walk="wide"),
+                           cuda).values():
+        _, packed = tr.pack(*rays)
+        cases.append((*packed, tr.cl_lo, tr.cl_hi, tr.cp,
+                      tr.pi if f2b else None, tr.entry_scale))
+    for C in (5, 300):
+        rays, lo, hi, pi = _cull_edge_rays(C, cuda, seed=C)
+        cases.append((*rays, lo, hi, -(-(C + 1) // 128) * 128,
+                      pi if f2b else None, 3.0e5))
+    for args in cases:
+        steps = torch.zeros(4, dtype=torch.int64, device=cuda)
+        got = pt.cull_meta(*args, steps=steps)
+        assert torch.equal(got, pt.cull_meta(*args))
+        cpu = [a.cpu() if isinstance(a, torch.Tensor) else a
+               for a in args[:8]]
+        want = cs.cull_steps(*cpu)
+        assert dict(zip(cs.KEYS, (int(x) for x in steps.cpu()))) == want
+        live = int((args[2] <= args[3]).sum())
+        assert (want["select_tests"] + want["plain_tests"]
+                + want["skipped_tests"]) == live * args[4].shape[0]
+    with pytest.raises(ValueError, match="steps"):
+        pt.cull_meta(*cpu, steps=torch.zeros(4, dtype=torch.int64))
 
 
 @pytest.mark.cuda
@@ -605,6 +663,38 @@ def test_probe_walk_kernel_matches_plain(cuda, group):
         assert nv.shape == (8192 // group,)
         if variant == "full":
             assert bool(torch.isfinite(bt).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", [32, 1])
+def test_probe_walk_kernel_steps_equal_replay(cuda, group):
+    """P1's full walk counted: bt and visits the plain walk's and its warp
+    node and triangle steps the replay's (walk_schedule), also on a ragged
+    ray count at group 1 (lanes past the rays take part in the leaf
+    rounds without a ray) and with ties (two copies of every triangle)."""
+    from vimg_tpu_torch.probes import probe_walkablate as pw
+    scene = terrain_scene(20_000, 64, 32, device=cuda)
+    data = ct.ClusterData(scene)
+    tables = pw.probe_tables(data, cuda)
+    tied = tables[:3] + (_tied(tables[3]),) + tables[4:]
+    rays = pw.sorted_bounce_rays(scene, data, 8192)
+    cases = [(tables, rays), (tied, rays)]
+    if group == 1:
+        cases.append((tables, tuple(x[:8192 - 75] for x in rays)))
+    for tabs, r in cases:
+        steps = torch.zeros(2, dtype=torch.int64, device=cuda)
+        bt, nv = _probe_launches("probe_walkablate", lambda: pw.walkablate(
+            *tabs, *r, "full", group, steps=steps))
+        rbt, rnv = pw.walkablate_plain(*tabs, *r, "full", group)
+        sbt, snv, c = pw.walk_schedule(*tabs, *r, group)
+        assert torch.equal(_bits(bt), _bits(rbt))
+        assert torch.equal(nv, rnv)
+        assert torch.equal(_bits(sbt), _bits(rbt)) and torch.equal(snv, rnv)
+        assert [int(x) for x in steps.cpu()] == [c["node_steps"],
+                                                 c["tri_steps"]]
+        assert c["tri_tests"] == 32 * c["tri_steps"] > 0
+    with pytest.raises(ValueError, match="full walk"):
+        pw.walkablate(*tables, *rays, "no_tri", group, steps=steps)
 
 
 @pytest.mark.cuda

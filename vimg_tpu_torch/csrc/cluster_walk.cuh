@@ -180,8 +180,10 @@ __device__ __forceinline__ WarpScratch& warp_scratch() {
 // the hitting lane computed. That is the sequential scan's answer: strict
 // < keeps the least t below the entry t and the first k of equal t; a NaN
 // t never hits. An any-hit owner gets t = -inf and stop = true (its walk
-// must end, but it still joins the warp's later rounds).
-template <bool kCount, bool kSteps>
+// must end, but it still joins the warp's later rounds). kGate = false
+// (the walk-ablation probe P1, whose leaves test all 64 triangles) skips
+// the gates: every sub-box of a posted leaf becomes a unit.
+template <bool kCount, bool kSteps, bool kGate = true>
 __device__ __forceinline__ bool leaf_round(const float* __restrict__ tri,
                                            int c, const Ray& r, Hit& h,
                                            bool any_hit, Tests& n,
@@ -199,9 +201,9 @@ __device__ __forceinline__ bool leaf_round(const float* __restrict__ tri,
   }
   __syncwarp();
   // ---- gates: lanes 4q..4q+3 test sub-boxes 0..3 of the q-th leaf ----
-  unsigned gate = 0u;
+  unsigned gate = kGate || c < 0 ? 0u : (1u << N_SUB) - 1u;
   const int q = lane >> 2, s = lane & 3;
-  for (unsigned rem = posted; rem != 0u;) {
+  for (unsigned rem = kGate ? posted : 0u; rem != 0u;) {
     unsigned m = rem;
     for (int j = 0; j < q && m != 0u; ++j) m &= m - 1u;
     bool g = false;

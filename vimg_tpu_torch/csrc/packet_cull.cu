@@ -16,33 +16,65 @@
 //   where there is no candidate; row 4 pi[oct_w][j]
 //   every other slot 0 (no zero-fill pass is needed).
 //
-// Design: one block a workgroup, a thread a cluster (128 columns a chunk,
-// the chunks from the last to the first). The workgroup's rays (o, minT)
-// and (1/d, maxT) sit in shared memory as two float4 each, so a thread
-// slab-tests all 128 rays from broadcast reads against its cluster box in
-// registers and forms the 16 bits and the entry itself: no cross-thread
-// reduction, and each row is written as 128 coalesced ints a chunk. Rows
-// 0 and 3 are suffix minima over j: a warp shuffle scan, the warps' minima
-// in shared memory (double-buffered by chunk, so one barrier a chunk) and
-// the carry of the chunks already done. The count comes from the same
-// barrier (__syncthreads_count).
-//
-// Float arithmetic is the plain version's operation for operation, in its
-// order: inv = 1 / (d == 0 ? 1e-30 : d); per axis x, y, z t0 = (lo - o) *
-// inv, t1 = (hi - o) * inv, tin = max(tin, min(t0, t1)) from minT, tout =
-// min(tout, max(t0, t1)) from maxT; hit = tin <= tout. The file is built
-// with -fmad=false and no fast math; jmin/jmax propagate NaN as
-// torch.minimum / torch.maximum. The f2b octant (a float32 sum over the
-// workgroup's directions, whose sign depends on the order of the sum)
-// stays a PyTorch expression shared with the plain version; the kernel
-// takes its (W,) result.
-//
 // What bounds it on this card: the float32 operations of the W x C x 128
-// slab tests (about 25 each), far above the bytes (the meta written once,
-// the rays read once).
+// slab tests, far above the bytes (the meta written once, the rays read
+// once). Each is an instruction of its own (no fused form is exact), so
+// the rate of one warp instruction a clock per SM partition is the
+// ceiling; the plain form's test took 12 min/max of its 28 or so.
+//
+// Design: one block a workgroup, a thread a cluster (128 columns a chunk,
+// the chunks from the last to the first).
+//  - Octant buckets: at block start the workgroup's rays go into shared
+//    memory bucketed by the sign bits of their inverse direction (1/d, so
+//    d = +-0, taken as 1e-30, counts as positive), each entry (o, minT),
+//    (1/d, maxT) and its packet's bit. A ray with !(minT <= maxT) (an idle
+//    lane, maxT = -inf) meets no box and is left out: tin >= minT > maxT
+//    >= tout, or a NaN.
+//  - Near and far planes once a bucket: for a box with lo <= hi and a ray
+//    with 1/d >= 0, rounding is monotone, so fl(lo - o) * inv <=
+//    fl(hi - o) * inv: min(t0, t1) is the lo plane's t and max(t0, t1) the
+//    hi plane's, unless one is NaN (then the plain form makes tin and tout
+//    NaN, this form one of them: no hit either way). A thread picks its
+//    box's near and far corners once a bucket and tests the bucket's rays
+//    with tin = max(tin, (near - o) * inv), tout = min(tout, (far - o) *
+//    inv): 6 min/max a test instead of 12, about 23 instructions instead
+//    of 28. A hit's tin is the same number (a zero's sign aside, which the
+//    quantisation's clamp and int32 drop). A box that is not lo <= hi on
+//    every axis (an empty cluster's +inf / -inf, a NaN) breaks the
+//    argument: a warp with such a box tests its 32 boxes in the plain
+//    min/max form instead.
+//  - Bucket bounds: the bucket's extent (the least and most o, 1/d, minT
+//    and maxT of its rays) bounds every ray's t at a plane: with a = p - o
+//    in [fl_rd(p - o_max), fl_ru(p - o_min)] and 1/d of one sign, a * inv
+//    is monotone in each factor, so a corner product rounded down (up) is
+//    below (above) every ray's fl(fl(p - o) * inv). If the least tin so
+//    bounded exceeds the most tout, no ray of the bucket meets the box;
+//    a warp skips the bucket when that holds for all its 32 boxes. A
+//    bucket with a non-finite o or 1/d is never skipped, and a NaN bound
+//    skips nothing. On terrain rays this leaves out half the tests or
+//    more: neighbouring clusters are neighbouring boxes.
+//  - Counted build (steps not null): each warp adds, over the columns
+//    below C, its slab tests in the select form, in the plain form, its
+//    bounds tests and the slab tests its skipped buckets left out
+//    (steps[0..3]); geometry/cull_schedule.py replays them.
+// Rows 0 and 3 are suffix minima over j: a warp shuffle scan, the warps'
+// minima in shared memory (double-buffered by chunk, so one barrier a
+// chunk) and the carry of the chunks already done. The count comes from
+// the same barrier (__syncthreads_count). Each row is written as 128
+// coalesced ints a chunk.
+//
+// Float arithmetic is the plain version's: inv = 1 / (d == 0 ? 1e-30 :
+// d); per axis x, y, z the t of a plane (p - o) * inv; tin from minT,
+// tout from maxT; hit = tin <= tout. The file is built with -fmad=false
+// and no fast math; nmin/nmax propagate NaN as torch.minimum /
+// torch.maximum. The f2b octant comes from a float32 sum over the
+// workgroup's directions, whose sign depends on the order of the sum: that
+// sum stays a PyTorch expression shared with the plain version
+// (_direction_sums), and the kernel takes its (W, 3) result.
 //
 // Launch contract: vimg_packet_cull() launches on the given stream, does
 // not synchronise and allocates nothing; it returns cudaGetLastError().
+// steps: null, or device uint64[4] that gets the counts above added.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -51,26 +83,127 @@
 namespace {
 
 constexpr int WG = 128;         // rays per workgroup = threads per block
-constexpr int N_PACKETS = WG / 8;
 constexpr int META_ROWS = 8;
 constexpr int WARPS = WG / 32;
+constexpr int N_OCT = 8;
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int NO_ENTRY = 1 << 30;
+// a bucket's bounds: least / most o (3 each), 1/d (3 each), minT, maxT
+constexpr int N_BOUND = 14;
 
 // min / max that return NaN when either input is NaN, as torch.minimum /
-// torch.maximum do: one FMNMX.NAN instruction (PTX max.NaN, sm_80+) where
-// a compare-and-select form takes three. A NaN's bits and the sign of a
-// zero result may differ from PyTorch's, but they reach neither the hit
-// test (tin <= tout) nor the quantised entry (clamped at 0).
-__device__ __forceinline__ float jmax(float a, float b) {
+// torch.maximum do: one FMNMX.NAN instruction (PTX min.NaN / max.NaN,
+// sm_80+). A zero's sign may differ from PyTorch's; it reaches neither the
+// hit test nor the quantised entry.
+__device__ __forceinline__ float nmax(float a, float b) {
   float r;
   asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
   return r;
 }
-__device__ __forceinline__ float jmin(float a, float b) {
+__device__ __forceinline__ float nmin(float a, float b) {
   float r;
   asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
   return r;
+}
+
+// An order-preserving unsigned image of a float (-0 below +0), and back
+__device__ __forceinline__ unsigned okey(float f) {
+  const unsigned b = __float_as_uint(f);
+  return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+}
+__device__ __forceinline__ float ofloat(unsigned k) {
+  return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
+}
+
+// The workgroup's live rays in bucket order: (o, minT), (1/d, maxT), the
+// packet's bit; bucket o spans [beg[o], beg[o + 1]). bound[o]: the
+// bucket's extent (okey images while it is reduced, then floats: o min
+// xyz, o max xyz, 1/d min xyz, 1/d max xyz, minT min, maxT max); unsafe:
+// a ray of the bucket has a non-finite o or 1/d
+struct Rays {
+  float4 om[WG];
+  float4 ix[WG];
+  unsigned pbit[WG];
+  int beg[N_OCT + 1];
+  unsigned bound[N_OCT][N_BOUND];
+  unsigned unsafe[N_OCT];
+};
+
+// Whether no ray of bucket o (its bounds b) meets the box whose planes
+// for the bucket's signs are near / far: the least tin the bounds allow
+// exceeds the most tout. Products are rounded down for tin and up for
+// tout; along an axis where 1/d >= 0, a * inv grows with a (so tin's
+// bound takes the least a, tout's the most), where 1/d <= 0 it shrinks.
+__device__ __forceinline__ bool misses(const float* b, int o,
+                                       const float (&nr)[3],
+                                       const float (&fr)[3]) {
+  float lo = b[12], hi = b[13];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const float omin = b[a], omax = b[3 + a];
+    const float imin = b[6 + a], imax = b[9 + a];
+    float an, af;
+    if ((o >> a) & 1) {        // 1/d <= 0
+      an = __fsub_ru(nr[a], omin);
+      af = __fsub_rd(fr[a], omax);
+    } else {                   // 1/d >= 0
+      an = __fsub_rd(nr[a], omax);
+      af = __fsub_ru(fr[a], omin);
+    }
+    lo = nmax(lo, __fmul_rd(an, an >= 0.0f ? imin : imax));
+    hi = nmin(hi, __fmul_ru(af, af >= 0.0f ? imax : imin));
+  }
+  return lo > hi;
+}
+
+// The select form over the bucket [b0, b1): near / far are the box's
+// planes for the bucket's signs
+template <bool kF2b>
+__device__ __forceinline__ void test_bucket(const Rays& s, int b0, int b1,
+                                            const float (&nr)[3],
+                                            const float (&fr)[3],
+                                            unsigned& bits, float& entry) {
+#pragma unroll 4
+  for (int e = b0; e < b1; ++e) {
+    const float4 om = s.om[e], ix = s.ix[e];
+    float tin = nmax(om.w, (nr[0] - om.x) * ix.x);
+    float tout = nmin(ix.w, (fr[0] - om.x) * ix.x);
+    tin = nmax(tin, (nr[1] - om.y) * ix.y);
+    tout = nmin(tout, (fr[1] - om.y) * ix.y);
+    tin = nmax(tin, (nr[2] - om.z) * ix.z);
+    tout = nmin(tout, (fr[2] - om.z) * ix.z);
+    if (tin <= tout) {
+      bits |= s.pbit[e];
+      // a hit's tin is not NaN; the least of them, whatever the order
+      if (kF2b) entry = fminf(entry, tin);
+    }
+  }
+}
+
+// The plain min/max form over every live ray, for a warp with a box not
+// ordered on some axis
+template <bool kF2b>
+__device__ __forceinline__ void test_plain(const Rays& s,
+                                           const float (&lo)[3],
+                                           const float (&hi)[3],
+                                           unsigned& bits, float& entry) {
+  const int n = s.beg[N_OCT];
+  for (int e = 0; e < n; ++e) {
+    const float4 om = s.om[e], ix = s.ix[e];
+    const float o[3] = {om.x, om.y, om.z}, iv[3] = {ix.x, ix.y, ix.z};
+    float tin = om.w, tout = ix.w;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const float t0 = (lo[a] - o[a]) * iv[a];
+      const float t1 = (hi[a] - o[a]) * iv[a];
+      tin = nmax(tin, nmin(t0, t1));
+      tout = nmin(tout, nmax(t0, t1));
+    }
+    if (tin <= tout) {
+      bits |= s.pbit[e];
+      if (kF2b) entry = fminf(entry, tin);
+    }
+  }
 }
 
 // Suffix minima of v0 and v3 over the block's 128 threads in thread
@@ -103,8 +236,93 @@ __device__ __forceinline__ void suffix_min2(int& v0, int& v3, int* wmin0,
   }
 }
 
-// kF2b: pi (the per-octant orderings) and octs are given; rows 3 and 4
-template <bool kF2b>
+// The workgroup's live rays into their octant buckets, and each bucket's
+// bounds (three barriers)
+__device__ __forceinline__ void bucket_rays(Rays& s, const float* ro,
+                                            const float* rd, const float* mn,
+                                            const float* mx) {
+  __shared__ int s_cnt[WARPS][N_OCT];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int i = blockIdx.x * WG + tid;
+  const float ox = ro[3 * i + 0], oy = ro[3 * i + 1], oz = ro[3 * i + 2];
+  const float dx = rd[3 * i + 0], dy = rd[3 * i + 1], dz = rd[3 * i + 2];
+  const float ix = 1.0f / (dx == 0.0f ? 1e-30f : dx);
+  const float iy = 1.0f / (dy == 0.0f ? 1e-30f : dy);
+  const float iz = 1.0f / (dz == 0.0f ? 1e-30f : dz);
+  const float mnT = mn[i], mxT = mx[i];
+  const int key = !(mnT <= mxT)
+                      ? N_OCT
+                      : (int)((__float_as_uint(ix) >> 31) |
+                              ((__float_as_uint(iy) >> 31) << 1) |
+                              ((__float_as_uint(iz) >> 31) << 2));
+  if (tid < N_OCT * N_BOUND) {
+    // neutral values: the minima's slots at the top of the order
+    const int k = tid % N_BOUND;
+    const bool is_min = k < 3 || (k >= 6 && k < 9) || k == 12;
+    s.bound[tid / N_BOUND][k] = is_min ? 0xffffffffu : 0u;
+  }
+  if (tid < N_OCT) s.unsafe[tid] = 0u;
+  int rank = 0;
+#pragma unroll
+  for (int o = 0; o < N_OCT; ++o) {
+    const unsigned b = __ballot_sync(FULL, key == o);
+    if (key == o) rank = __popc(b & ((1u << lane) - 1u));
+    if (lane == 0) s_cnt[warp][o] = __popc(b);
+  }
+  __syncthreads();
+  if (tid <= N_OCT) {
+    int n = 0;
+    for (int o = 0; o < tid; ++o)
+      for (int k = 0; k < WARPS; ++k) n += s_cnt[k][o];
+    s.beg[tid] = n;
+  }
+  // each warp's extent of each bucket, then the block's by shared atomics
+  const float v[7] = {ox, oy, oz, ix, iy, iz, mnT};
+  const bool bad = !(isfinite(ox) && isfinite(oy) && isfinite(oz) &&
+                     isfinite(ix) && isfinite(iy) && isfinite(iz));
+#pragma unroll 1
+  for (int o = 0; o < N_OCT; ++o) {
+    const bool in = key == o;
+    if (__ballot_sync(FULL, in) == 0u) continue;
+    unsigned lo[7], hi[7];
+#pragma unroll
+    for (int k = 0; k < 7; ++k) {
+      lo[k] = __reduce_min_sync(FULL, in ? okey(v[k]) : 0xffffffffu);
+      hi[k] = __reduce_max_sync(FULL, in ? okey(k == 6 ? mxT : v[k]) : 0u);
+    }
+    const unsigned u = __reduce_or_sync(FULL, in && bad ? 1u : 0u);
+    if (lane == 0) {
+      unsigned* b = s.bound[o];
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        atomicMin(b + a, lo[a]);
+        atomicMax(b + 3 + a, hi[a]);
+        atomicMin(b + 6 + a, lo[3 + a]);
+        atomicMax(b + 9 + a, hi[3 + a]);
+      }
+      atomicMin(b + 12, lo[6]);
+      atomicMax(b + 13, hi[6]);
+      atomicOr(s.unsafe + o, u);
+    }
+  }
+  __syncthreads();
+  if (key < N_OCT) {
+    int pos = s.beg[key] + rank;
+    for (int k = 0; k < warp; ++k) pos += s_cnt[k][key];
+    s.om[pos] = make_float4(ox, oy, oz, mnT);
+    s.ix[pos] = make_float4(ix, iy, iz, mxT);
+    s.pbit[pos] = 1u << (tid >> 3);
+  }
+  if (tid < N_OCT * N_BOUND) {
+    unsigned& b = s.bound[tid / N_BOUND][tid % N_BOUND];
+    b = __float_as_uint(ofloat(b));
+  }
+  __syncthreads();
+}
+
+// kF2b: pi (the per-octant orderings) and the workgroups' direction sums
+// (dsum, (W, 3)) are given; rows 3 and 4. kCount: steps is given
+template <bool kF2b, bool kCount>
 __global__ void __launch_bounds__(WG)
     packet_cull_kernel(const float* __restrict__ ro,
                        const float* __restrict__ rd,
@@ -113,67 +331,81 @@ __global__ void __launch_bounds__(WG)
                        const float* __restrict__ cl_lo,
                        const float* __restrict__ cl_hi,
                        const long long* __restrict__ pi,
-                       const int* __restrict__ octs, int C, int cp,
-                       float entry_scale, int* __restrict__ meta) {
-  __shared__ float4 s_om[WG];   // o, minT
-  __shared__ float4 s_ix[WG];   // 1/d, maxT
+                       const float* __restrict__ dsum, int C, int cp,
+                       float entry_scale, int* __restrict__ meta,
+                       unsigned long long* __restrict__ steps) {
+  __shared__ Rays s;
   __shared__ int s_wmin0[2][WARPS], s_wmin3[2][WARPS];
   const int w = blockIdx.x, tid = threadIdx.x;
-  {
-    const int i = w * WG + tid;
-    const float dx = rd[3 * i + 0], dy = rd[3 * i + 1], dz = rd[3 * i + 2];
-    s_om[tid] = make_float4(ro[3 * i + 0], ro[3 * i + 1], ro[3 * i + 2],
-                            mn[i]);
-    s_ix[tid] = make_float4(1.0f / (dx == 0.0f ? 1e-30f : dx),
-                            1.0f / (dy == 0.0f ? 1e-30f : dy),
-                            1.0f / (dz == 0.0f ? 1e-30f : dz), mx[i]);
-  }
+  bucket_rays(s, ro, rd, mn, mx);
+  // f2b: the workgroup's octant, the signs of its direction sums
   const long long* __restrict__ order =
-      kF2b ? pi + (size_t)octs[w] * C : nullptr;
+      kF2b ? pi + (size_t)((dsum[3 * w] < 0.0f) |
+                           ((dsum[3 * w + 1] < 0.0f) << 1) |
+                           ((dsum[3 * w + 2] < 0.0f) << 2)) * C
+           : nullptr;
   int* __restrict__ m = meta + (size_t)w * META_ROWS * cp;
-  __syncthreads();
   int carry0 = cp - 1, carry3 = NO_ENTRY, count = 0;
+  // kCount: select-form, plain-form, bounds tests, tests skipped
+  unsigned long long n_sel = 0, n_plain = 0, n_bound = 0, n_skip = 0;
   for (int base = cp - WG, chunk = 0; base >= 0; base -= WG, ++chunk) {
     const int j = base + tid;
+    const bool valid = j < C;
+    const int id = valid ? (kF2b ? (int)order[j] : j) : 0;
+    // a column past the clusters tests a point box and asks for no
+    // bucket; its bits are dropped below
+    float lo[3], hi[3];
+    bool ordered = true;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      lo[a] = valid ? cl_lo[3 * id + a] : 0.0f;
+      hi[a] = valid ? cl_hi[3 * id + a] : 0.0f;
+      ordered &= lo[a] <= hi[a];
+    }
     unsigned bits = 0u;
     float entry = INFINITY;
-    int id = 0;
-    if (j < C) {
-      id = kF2b ? (int)order[j] : j;
-      const float lox = cl_lo[3 * id + 0], loy = cl_lo[3 * id + 1],
-                  loz = cl_lo[3 * id + 2];
-      const float hix = cl_hi[3 * id + 0], hiy = cl_hi[3 * id + 1],
-                  hiz = cl_hi[3 * id + 2];
+    // kCount: the warp's columns below C
+    const int n_valid = kCount ? __popc(__ballot_sync(FULL, valid)) : 0;
+    if (__all_sync(FULL, ordered)) {
 #pragma unroll 1
-      for (int p = 0; p < N_PACKETS; ++p) {
-        bool any = false;
+      for (int o = 0; o < N_OCT; ++o) {
+        const int b0 = s.beg[o], b1 = s.beg[o + 1];
+        if (b0 == b1) continue;
+        float nr[3], fr[3];
 #pragma unroll
-        for (int q = 0; q < 8; ++q) {
-          const float4 om = s_om[8 * p + q], ix = s_ix[8 * p + q];
-          const float t0x = (lox - om.x) * ix.x, t1x = (hix - om.x) * ix.x;
-          const float t0y = (loy - om.y) * ix.y, t1y = (hiy - om.y) * ix.y;
-          const float t0z = (loz - om.z) * ix.z, t1z = (hiz - om.z) * ix.z;
-          float tin = jmax(om.w, jmin(t0x, t1x));
-          float tout = jmin(ix.w, jmax(t0x, t1x));
-          tin = jmax(tin, jmin(t0y, t1y));
-          tout = jmin(tout, jmax(t0y, t1y));
-          tin = jmax(tin, jmin(t0z, t1z));
-          tout = jmin(tout, jmax(t0z, t1z));
-          const bool hit = tin <= tout;
-          any |= hit;
-          // a hit's tin is not NaN; the least of them, whatever the order
-          if (kF2b && hit && tin < entry) entry = tin;
+        for (int a = 0; a < 3; ++a) {
+          const bool neg = (o >> a) & 1;
+          nr[a] = neg ? hi[a] : lo[a];
+          fr[a] = neg ? lo[a] : hi[a];
         }
-        bits |= (unsigned)any << p;
+#ifdef X1_NO_BOUNDS
+        const bool need = valid;   // x1_study.py's build: no bounds test
+#else
+        const bool need =
+            valid && (s.unsafe[o] != 0u ||
+                      !misses(reinterpret_cast<const float*>(s.bound[o]), o,
+                              nr, fr));
+#endif
+        const bool run = __any_sync(FULL, need);
+        if (kCount) {
+          const unsigned long long n = n_valid * (unsigned long long)(b1 - b0);
+          n_bound += s.unsafe[o] == 0u ? n_valid : 0;
+          (run ? n_sel : n_skip) += n;
+        }
+        if (run) test_bucket<kF2b>(s, b0, b1, nr, fr, bits, entry);
       }
+    } else {
+      if (kCount) n_plain += (unsigned long long)n_valid * s.beg[N_OCT];
+      test_plain<kF2b>(s, lo, hi, bits, entry);
     }
+    if (!valid) bits = 0u;
     // row 0: j where a candidate, else the sentinel; row 3: its quantised
     // entry (clamp, then truncation, as .to(torch.int32))
     int v0 = bits ? j : cp - 1;
     int v3 = NO_ENTRY;
     if (kF2b && bits) {
       float qe = entry * entry_scale;
-      qe = jmin(jmax(qe, 0.0f), 1073741824.0f);
+      qe = nmin(nmax(qe, 0.0f), 1073741824.0f);
       v3 = (int)qe;
     }
     int n;
@@ -195,11 +427,32 @@ __global__ void __launch_bounds__(WG)
     m[1 * cp + j] = (int)bits;
     m[2 * cp + j] = j == 0 ? count : 0;   // chunk 0 is the last one
     m[3 * cp + j] = kF2b ? v3 : 0;
-    m[4 * cp + j] = kF2b && j < C ? id : 0;
+    m[4 * cp + j] = kF2b && valid ? id : 0;
     m[5 * cp + j] = 0;
     m[6 * cp + j] = 0;
     m[7 * cp + j] = 0;
   }
+  if (kCount && (tid & 31) == 0) {
+    atomicAdd(steps + 0, n_sel);
+    atomicAdd(steps + 1, n_plain);
+    atomicAdd(steps + 2, n_bound);
+    atomicAdd(steps + 3, n_skip);
+  }
+}
+
+template <bool kF2b>
+void launch(int n_work, cudaStream_t s, const float* ro, const float* rd,
+            const float* mn, const float* mx, const float* cl_lo,
+            const float* cl_hi, const long long* pi, const float* dsum, int C,
+            int cp, float entry_scale, int* meta, unsigned long long* steps) {
+  if (steps != nullptr)
+    packet_cull_kernel<kF2b, true><<<n_work, WG, 0, s>>>(
+        ro, rd, mn, mx, cl_lo, cl_hi, pi, dsum, C, cp, entry_scale, meta,
+        steps);
+  else
+    packet_cull_kernel<kF2b, false><<<n_work, WG, 0, s>>>(
+        ro, rd, mn, mx, cl_lo, cl_hi, pi, dsum, C, cp, entry_scale, meta,
+        steps);
 }
 
 }  // namespace
@@ -207,14 +460,32 @@ __global__ void __launch_bounds__(WG)
 extern "C" int vimg_packet_cull(const float* ro, const float* rd,
                                 const float* mn, const float* mx,
                                 const float* cl_lo, const float* cl_hi,
-                                const long long* pi, const int* octs,
+                                const long long* pi, const float* dsum,
                                 int n_work, int C, int cp, float entry_scale,
-                                int* meta, void* stream) {
+                                int* meta, unsigned long long* steps,
+                                void* stream) {
+  if (cp % WG != 0 || cp <= C) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
   if (n_work > 0 && pi != nullptr)
-    packet_cull_kernel<true><<<n_work, WG, 0, (cudaStream_t)stream>>>(
-        ro, rd, mn, mx, cl_lo, cl_hi, pi, octs, C, cp, entry_scale, meta);
+    launch<true>(n_work, s, ro, rd, mn, mx, cl_lo, cl_hi, pi, dsum, C, cp,
+                 entry_scale, meta, steps);
   else if (n_work > 0)
-    packet_cull_kernel<false><<<n_work, WG, 0, (cudaStream_t)stream>>>(
-        ro, rd, mn, mx, cl_lo, cl_hi, pi, octs, C, cp, entry_scale, meta);
+    launch<false>(n_work, s, ro, rd, mn, mx, cl_lo, cl_hi, pi, dsum, C, cp,
+                  entry_scale, meta, steps);
+  return (int)cudaGetLastError();
+}
+
+// X1's registers and local bytes a thread, static shared bytes a block
+// and resident blocks per SM (slist: f2b = 0; f2b: 1)
+extern "C" int vimg_packet_cull_occupancy(int f2b, int* per_sm, int* regs,
+                                          int* local_bytes, int* smem_bytes) {
+  const void* fn = f2b ? (const void*)packet_cull_kernel<true, false>
+                       : (const void*)packet_cull_kernel<false, false>;
+  cudaFuncAttributes attr;
+  cudaFuncGetAttributes(&attr, fn);
+  *regs = attr.numRegs;
+  *local_bytes = (int)attr.localSizeBytes;
+  *smem_bytes = (int)attr.sharedSizeBytes;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, fn, WG, 0);
   return (int)cudaGetLastError();
 }

@@ -20,12 +20,28 @@
 // depend on the group (a ray that is not live is masked out of the tests);
 // the visit count does.
 //
+// The full walk's leaves run on the warp's leaf round of B4 and B2
+// (cluster_walk.cuh, leaf_round, without its sub-box gates: the probe
+// tests all 64 triangles of a leaf): the lanes that reach a live leaf post
+// it, and the warp tests the posted (lane, leaf) pairs together, 32
+// triangles a step, hits merged by least (t, k). Only live lanes' tests
+// run; before, every lane of a warp ran the 64 tests of any leaf that some
+// lane reached, one triangle at a time. At group 1 a round is B4's: each
+// lane walks its own nodes until it posts a live leaf or ends; at group 32
+// the warp's node is one, and a live leaf is a round of its live lanes.
+// A lane with a posted leaf waits for the round before its next node, so
+// every node sees the bt the plain walk gives it: bt and the visits are
+// the plain walk's. The node boxes are two 16-byte loads, min and max one
+// instruction each (cwalk::nmin / nmax, PTX min.NaN / max.NaN).
+//
 // The arithmetic is the probe's, operation for operation: the slab as
 // b * inv - o * inv, t0/t1 min/max in the probe's nesting, ((ox*nx + oy*ny)
 // + oz*nz), u and v as ((... - c1) + t * (...)), IEEE division for t,
-// strict t < bt; the file is built with -fmad=false and without fast math.
-// jmin/jmax propagate NaN like jnp.minimum / jnp.maximum. The plain version
-// is probes/probe_walkablate.py::walkablate_plain.
+// strict t < bt (cwalk::tri_test is the same expression); the file is
+// built with -fmad=false and without fast math. nmin/nmax propagate NaN
+// like jnp.minimum / jnp.maximum. The plain version is
+// probes/probe_walkablate.py::walkablate_plain; the full walk's warp
+// schedule is replayed by walk_schedule there.
 //
 // On the card the compiler drops an empty branch and every loop-carried
 // value that reaches no output, so no_tri, no_cond and lean_carry compile
@@ -36,157 +52,203 @@
 // bytes or flops.
 //
 // Launch contract: vimg_probe_walk() launches on the given stream, does not
-// synchronise and allocates nothing; it returns cudaGetLastError().
+// synchronise and allocates nothing; it returns cudaGetLastError(). With
+// steps (device uint64[2], the full walk only) not null it adds the full
+// walk's warp node and triangle steps to steps[0] and steps[1].
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "cluster_walk.cuh"
+
 namespace {
 
-constexpr int BLOCK = 128;
-constexpr int K = 64;        // triangles per cluster (ClusterData max_k)
-constexpr int ROW = 16;      // floats per triangle row
-constexpr int SUB = 16;      // triangles per gated sub-loop
-enum Variant { FULL, NO_TRI, NO_COND, LEAN_CARRY, NO_SLAB };
+constexpr int BLOCK = 32 * cwalk::WALK_WARPS;
+constexpr unsigned FULL = 0xffffffffu;
+enum Variant { FULL_WALK, NO_TRI, NO_COND, LEAN_CARRY, NO_SLAB };
 
-__device__ __forceinline__ float qnan() { return __int_as_float(0x7fffffff); }
-__device__ __forceinline__ bool isnan_(float a) { return a != a; }
-__device__ __forceinline__ float jmax(float a, float b) {
-  return (isnan_(a) || isnan_(b)) ? qnan() : (a > b ? a : b);
-}
-__device__ __forceinline__ float jmin(float a, float b) {
-  return (isnan_(a) || isnan_(b)) ? qnan() : (a < b ? a : b);
-}
-
-// the probe's test16 sub-loops over the 64 slots of a live leaf: each
-// gated again by the group's any_live, a hit also needs the ray's own live
-__device__ __forceinline__ void leaf(const float* __restrict__ rows, float ox,
-                                     float oy, float oz, float dx, float dy,
-                                     float dz, float minT, bool live,
-                                     bool any_live, float& bt) {
-  for (int s = 0; s < K / SUB; s++) {
-    if (!any_live) continue;
-#pragma unroll 4
-    for (int k = s * SUB; k < (s + 1) * SUB; k++) {
-      const float* q = rows + k * ROW;
-      const float nx = q[0], ny = q[1], nz = q[2], d0 = q[3];
-      const float m1x = q[4], m1y = q[5], m1z = q[6], c1 = q[7];
-      const float m2x = q[8], m2y = q[9], m2z = q[10], c2 = q[11];
-      const float ro_n = ox * nx + oy * ny + oz * nz;
-      const float rd_n = dx * nx + dy * ny + dz * nz;
-      const bool par = fabsf(rd_n) < 1e-22f;
-      const float t = (d0 - ro_n) / (par ? 1.0f : rd_n);
-      const float u = ox * m1x + oy * m1y + oz * m1z - c1
-                      + t * (dx * m1x + dy * m1y + dz * m1z);
-      const float v = ox * m2x + oy * m2y + oz * m2z - c2
-                      + t * (dx * m2x + dy * m2y + dz * m2z);
-      if (!par && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t >= minT &&
-          t < bt && live)
-        bt = t;
-    }
-  }
+// The probe's slab test of node n: b * inv - o * inv per plane (oi = o *
+// inv), tin / tout in its nesting
+__device__ __forceinline__ bool live_at(const float* __restrict__ aabb,
+                                        int n, const cwalk::Ray& r,
+                                        float oix, float oiy, float oiz,
+                                        float bt) {
+  using cwalk::nmax;
+  using cwalk::nmin;
+  const float4 a = cwalk::ldg4(aabb + (size_t)n * 8);
+  const float4 b = cwalk::ldg4(aabb + (size_t)n * 8 + 4);
+  const float t0x = a.x * r.ix - oix, t1x = a.w * r.ix - oix;
+  const float t0y = a.y * r.iy - oiy, t1y = b.x * r.iy - oiy;
+  const float t0z = a.z * r.iz - oiz, t1z = b.y * r.iz - oiz;
+  const float tin = nmax(nmax(nmin(t0x, t1x), nmin(t0y, t1y)),
+                         nmax(nmin(t0z, t1z), r.minT));
+  const float tout = nmin(nmin(nmax(t0x, t1x), nmax(t0y, t1y)),
+                          nmin(nmax(t0z, t1z), bt));
+  return tin <= tout;
 }
 
-template <int V, bool kWarp>
+template <int V, bool kWarp, bool kSteps>
 __global__ void __launch_bounds__(BLOCK)
     walk_kernel(const float* __restrict__ aabb, const int* __restrict__ cid_t,
                 const int* __restrict__ skip_t, const float* __restrict__ tri,
                 int n_nodes, const float* __restrict__ ro,
                 const float* __restrict__ rd, const float* __restrict__ tmin,
                 const float* __restrict__ tmax, int n_rays,
-                float* __restrict__ bt_out, int* __restrict__ nv_out) {
+                float* __restrict__ bt_out, int* __restrict__ nv_out,
+                unsigned long long* __restrict__ steps_out) {
   const int i = blockIdx.x * BLOCK + threadIdx.x;
-  // with kWarp, n_rays is a multiple of 32: a warp leaves whole
-  if (i >= n_rays) return;
-  const float ox = ro[3 * i + 0], oy = ro[3 * i + 1], oz = ro[3 * i + 2];
-  const float dx = rd[3 * i + 0], dy = rd[3 * i + 1], dz = rd[3 * i + 2];
-  const float minT = tmin[i];
-  const float idx = 1.0f / (dx == 0.0f ? 1e-30f : dx);
-  const float idy = 1.0f / (dy == 0.0f ? 1e-30f : dy);
-  const float idz = 1.0f / (dz == 0.0f ? 1e-30f : dz);
-  const float oix = ox * idx, oiy = oy * idy, oiz = oz * idz;
-  float bt = tmax[i];
+  // the full walk's leaf rounds at group 1 need every lane of the warp: a
+  // lane past the rays takes part without one (with kWarp, n_rays is a
+  // multiple of 32, so a warp is past the rays as a whole)
+  const bool go = i < n_rays;
+  if (!go && (V != FULL_WALK || kWarp)) return;
+  cwalk::Ray r = cwalk::make_ray(
+      go ? ro[3 * i + 0] : 0.0f, go ? ro[3 * i + 1] : 0.0f,
+      go ? ro[3 * i + 2] : 0.0f, go ? rd[3 * i + 0] : 1.0f,
+      go ? rd[3 * i + 1] : 1.0f, go ? rd[3 * i + 2] : 1.0f,
+      go ? tmin[i] : 0.0f);
+  const float oix = r.ox * r.ix, oiy = r.oy * r.iy, oiz = r.oz * r.iz;
+  cwalk::Hit h = {go ? tmax[i] : 0.0f, 0.0f, 0.0f, -1};
+  cwalk::Tests none = {0u, 0u};
+  cwalk::Steps steps = {0u, 0u};
   int nv = 0;
-  int n = 0;
-  while (n < n_nodes) {
-    const int cid = cid_t[n];
-    const int c = max(cid, 0);
-    const float* b = aabb + (size_t)n * 8;
-    bool live;
-    if (V == NO_SLAB) {
-      live = (bt + b[0]) > 0.0f;
-    } else {
-      const float t0x = b[0] * idx - oix, t1x = b[3] * idx - oix;
-      const float t0y = b[1] * idy - oiy, t1y = b[4] * idy - oiy;
-      const float t0z = b[2] * idz - oiz, t1z = b[5] * idz - oiz;
-      const float tin = jmax(jmax(jmin(t0x, t1x), jmin(t0y, t1y)),
-                             jmax(jmin(t0z, t1z), minT));
-      const float tout = jmin(jmin(jmax(t0x, t1x), jmax(t0y, t1y)),
-                              jmin(jmax(t0z, t1z), bt));
-      live = tin <= tout;
+  if constexpr (V == FULL_WALK && !kWarp) {
+    // rounds: each lane walks until it posts a live leaf or ends, then the
+    // warp runs the posted leaves
+    int node = go ? 0 : n_nodes;
+    for (;;) {
+      int c = -1;
+      unsigned it = 0;
+      while (node < n_nodes) {
+        const bool live = live_at(aabb, node, r, oix, oiy, oiz, h.t);
+        const int cc = __ldg(cid_t + node);
+        ++it;
+        if (live && cc >= 0) {
+          c = cc;
+          ++node;
+          break;
+        }
+        node = live ? node + 1 : __ldg(skip_t + node);
+      }
+      nv += (int)it;
+      cwalk::count_node_steps<kSteps>(it, steps);
+      bool stop = false;
+      if (!cwalk::leaf_round<false, kSteps, false>(tri, c, r, h, false, none,
+                                                   steps, stop))
+        break;
     }
-    const bool any_live = kWarp ? __any_sync(0xffffffffu, live) : live;
-    nv += 1;
+  } else if constexpr (V == FULL_WALK) {
+    // the warp in lockstep: a live leaf is a round of its live lanes
+    int n = 0;
+    while (n < n_nodes) {
+      const bool live = live_at(aabb, n, r, oix, oiy, oiz, h.t);
+      const bool any_live = __any_sync(FULL, live);
+      const int cc = __ldg(cid_t + n);
+      nv += 1;
+      if (kSteps && (threadIdx.x & 31) == 0) steps.node += 1u;
+      if (any_live && cc >= 0) {
+        bool stop = false;
+        cwalk::leaf_round<false, kSteps, false>(tri, live ? cc : -1, r, h,
+                                                false, none, steps, stop);
+      }
+      n = any_live ? n + 1 : __ldg(skip_t + n);
+    }
+  } else {
     // no_tri's leaf branch, its test bodies emptied, compiles to nothing
-    if constexpr (V == FULL) {
-      if (any_live && cid >= 0) leaf(tri + (size_t)c * (K * ROW), ox, oy, oz,
-                                     dx, dy, dz, minT, live, any_live, bt);
+    int n = 0;
+    while (n < n_nodes) {
+      bool live;
+      if (V == NO_SLAB)
+        live = (h.t + __ldg(aabb + (size_t)n * 8)) > 0.0f;
+      else
+        live = live_at(aabb, n, r, oix, oiy, oiz, h.t);
+      const bool any_live = kWarp ? __any_sync(FULL, live) : live;
+      nv += 1;
+      n = any_live ? n + 1 : __ldg(skip_t + n);
     }
-    n = any_live ? n + 1 : skip_t[n];
   }
-  bt_out[i] = bt;
-  if (!kWarp)
-    nv_out[i] = nv;
-  else if ((threadIdx.x & 31) == 0)
+  if (go) bt_out[i] = h.t;
+  if (!kWarp) {
+    if (go) nv_out[i] = nv;
+  } else if ((threadIdx.x & 31) == 0) {
     nv_out[i >> 5] = nv;
+  }
+  if (kSteps && (threadIdx.x & 31) == 0) {
+    atomicAdd(steps_out, (unsigned long long)steps.node);
+    atomicAdd(steps_out + 1, (unsigned long long)steps.tri);
+  }
 }
 
-template <int V>
-int launch(bool warp, int blocks, cudaStream_t s, const float* aabb,
-           const int* cid, const int* skip, const float* tri, int n_nodes,
-           const float* ro, const float* rd, const float* tmin,
-           const float* tmax, int n_rays, float* bt, int* nv) {
+template <int V, bool kSteps>
+void launch(bool warp, int blocks, cudaStream_t s, const float* aabb,
+            const int* cid, const int* skip, const float* tri, int n_nodes,
+            const float* ro, const float* rd, const float* tmin,
+            const float* tmax, int n_rays, float* bt, int* nv,
+            unsigned long long* steps) {
   if (warp)
-    walk_kernel<V, true><<<blocks, BLOCK, 0, s>>>(
-        aabb, cid, skip, tri, n_nodes, ro, rd, tmin, tmax, n_rays, bt, nv);
+    walk_kernel<V, true, kSteps><<<blocks, BLOCK, 0, s>>>(
+        aabb, cid, skip, tri, n_nodes, ro, rd, tmin, tmax, n_rays, bt, nv,
+        steps);
   else
-    walk_kernel<V, false><<<blocks, BLOCK, 0, s>>>(
-        aabb, cid, skip, tri, n_nodes, ro, rd, tmin, tmax, n_rays, bt, nv);
+    walk_kernel<V, false, kSteps><<<blocks, BLOCK, 0, s>>>(
+        aabb, cid, skip, tri, n_nodes, ro, rd, tmin, tmax, n_rays, bt, nv,
+        steps);
+}
+
+int run(const float* aabb, const int* cid, const int* skip, const float* tri,
+        int n_nodes, const float* ro, const float* rd, const float* tmin,
+        const float* tmax, int n_rays, int variant, int group, float* bt,
+        int* nv, unsigned long long* steps, void* stream) {
+  if ((group != 1 && group != 32) || (group == 32 && n_rays % 32) ||
+      variant < 0 || variant > 4 ||
+      (steps != nullptr && variant != FULL_WALK))
+    return (int)cudaErrorInvalidValue;
+  const int blocks = (n_rays + BLOCK - 1) / BLOCK;
+  const bool w = group == 32;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (variant) {
+    case FULL_WALK:
+      if (steps != nullptr)
+        launch<FULL_WALK, true>(w, blocks, s, aabb, cid, skip, tri, n_nodes,
+                                ro, rd, tmin, tmax, n_rays, bt, nv, steps);
+      else
+        launch<FULL_WALK, false>(w, blocks, s, aabb, cid, skip, tri, n_nodes,
+                                 ro, rd, tmin, tmax, n_rays, bt, nv, steps);
+      break;
+    case NO_TRI:
+      launch<NO_TRI, false>(w, blocks, s, aabb, cid, skip, tri, n_nodes, ro,
+                            rd, tmin, tmax, n_rays, bt, nv, steps);
+      break;
+    case NO_COND:
+      launch<NO_COND, false>(w, blocks, s, aabb, cid, skip, tri, n_nodes, ro,
+                             rd, tmin, tmax, n_rays, bt, nv, steps);
+      break;
+    case LEAN_CARRY:
+      launch<LEAN_CARRY, false>(w, blocks, s, aabb, cid, skip, tri, n_nodes,
+                                ro, rd, tmin, tmax, n_rays, bt, nv, steps);
+      break;
+    default:
+      launch<NO_SLAB, false>(w, blocks, s, aabb, cid, skip, tri, n_nodes, ro,
+                             rd, tmin, tmax, n_rays, bt, nv, steps);
+  }
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // variant: 0 full, 1 no_tri, 2 no_cond, 3 lean_carry, 4 no_slab; group: 1
-// or 32 (n_rays a multiple of 32). nv holds n_rays / group counts.
+// or 32 (n_rays a multiple of 32). nv holds n_rays / group counts. The
+// node boxes and triangle rows are read 16 bytes at a time (aabb and tri
+// 16-byte aligned). steps: null, or (the full walk) device uint64[2]
+// that gets the warp node and triangle steps added.
 extern "C" int vimg_probe_walk(const float* aabb, const int* cid,
                                const int* skip, const float* tri,
                                int n_nodes, const float* ro, const float* rd,
                                const float* tmin, const float* tmax,
                                int n_rays, int variant, int group, float* bt,
-                               int* nv, void* stream) {
-  if ((group != 1 && group != 32) || (group == 32 && n_rays % 32) ||
-      variant < 0 || variant > 4)
-    return (int)cudaErrorInvalidValue;
-  const int blocks = (n_rays + BLOCK - 1) / BLOCK;
-  const bool w = group == 32;
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (variant) {
-    case FULL:
-      return launch<FULL>(w, blocks, s, aabb, cid, skip, tri, n_nodes, ro, rd,
-                          tmin, tmax, n_rays, bt, nv);
-    case NO_TRI:
-      return launch<NO_TRI>(w, blocks, s, aabb, cid, skip, tri, n_nodes, ro,
-                            rd, tmin, tmax, n_rays, bt, nv);
-    case NO_COND:
-      return launch<NO_COND>(w, blocks, s, aabb, cid, skip, tri, n_nodes, ro,
-                             rd, tmin, tmax, n_rays, bt, nv);
-    case LEAN_CARRY:
-      return launch<LEAN_CARRY>(w, blocks, s, aabb, cid, skip, tri, n_nodes,
-                                ro, rd, tmin, tmax, n_rays, bt, nv);
-    default:
-      return launch<NO_SLAB>(w, blocks, s, aabb, cid, skip, tri, n_nodes, ro,
-                             rd, tmin, tmax, n_rays, bt, nv);
-  }
+                               int* nv, unsigned long long* steps,
+                               void* stream) {
+  return run(aabb, cid, skip, tri, n_nodes, ro, rd, tmin, tmax, n_rays,
+             variant, group, bt, nv, steps, stream);
 }

@@ -126,12 +126,18 @@ class PacketData:
 # the cull: per-packet liveness bits + per-workgroup candidate chains
 # ---------------------------------------------------------------------------
 
+def _direction_sums(rd):
+    """(W, 3) float32 sums of each workgroup's 128 directions (f2b). The
+    order of the sum decides a sign near zero, so kernel and plain cull
+    share this one expression."""
+    return rd.reshape(-1, WG, 3).sum(dim=1)
+
+
 def _octants(rd):
-    """(W,) majority direction octant of each workgroup (f2b): the sign of
-    the float32 sum of its 128 directions per axis. The order of that sum
-    decides a sign near zero, so kernel and plain cull share this one
-    expression."""
-    sgn = rd.reshape(-1, WG, 3).sum(dim=1) < 0.0
+    """(W,) majority direction octant of each workgroup (f2b): bit a set
+    where the axis-a direction sum is negative (kernel X1 takes the sums
+    and forms the same bits)."""
+    sgn = _direction_sums(rd) < 0.0
     return (sgn[:, 0].long() + 2 * sgn[:, 1].long()
             + 4 * sgn[:, 2].long())
 
@@ -217,23 +223,33 @@ def _reverse_cummin(x):
     return torch.cummin(x.flip(1), dim=1).values.flip(1)
 
 
-def cull_meta(ro, rd, mn, mx, cl_lo, cl_hi, cp, pi=None, entry_scale=None):
+def cull_meta(ro, rd, mn, mx, cl_lo, cl_hi, cp, pi=None, entry_scale=None,
+              steps=None):
     """Kernel X1 (CUDA tensors) or _cull_meta (CPU tensors), the same meta
-    bit for bit.
+    bit for bit. ``steps``, a (4,) int64 CUDA tensor, gets X1's counts
+    added to it: its slab tests in the select form and in the plain form,
+    its bucket-bounds tests and the slab tests its skipped buckets left
+    out (geometry/cull_schedule.py's ``cull_steps`` replays them).
 
     Replaces vimg_tpu/geometry/packet_trace.py::_cull_meta, an XLA
     function (no Pallas kernel; its plain PyTorch version ran 20 eager ops
     a 128-cluster chunk over (W, 16, 8, 128) temporaries). One block a
-    workgroup, a thread a cluster: the workgroup's rays in shared memory,
-    the 128 slab tests of a cluster and its 16 packet bits in one thread,
-    rows 0 and 3 by a block suffix-minimum scan, every slot of the meta
-    written by the kernel. What bounds it on this card: the float32
-    operations of the W x C x 128 slab tests. The f2b octants stay the
-    PyTorch expression ``_octants`` that the plain version uses. See
-    csrc/packet_cull.cu."""
+    workgroup, a thread a cluster: the workgroup's live rays (minT <=
+    maxT) in shared memory, bucketed by the signs of their inverse
+    direction, so that a thread picks its box's near and far planes once
+    a bucket and a slab test takes 6 min/max instead of 12 (the plain
+    min/max form for a warp with a box not ordered on some axis); a warp
+    skips a bucket whose bounds (its rays' extent, rounded outward) rule
+    out all its 32 boxes; rows 0 and 3 by a block suffix-minimum scan,
+    every slot of the meta written by the kernel. What bounds it on this
+    card: the float32 operations of the W x C x 128 slab tests. The f2b
+    octants come from the PyTorch expression ``_direction_sums`` that the
+    plain version uses. See csrc/packet_cull.cu."""
     global LAUNCHES_CULL
     dev = _device_of(ro)
     if dev.type == "cpu":
+        if steps is not None:
+            raise ValueError("steps are counted by kernel X1 on the card")
         return _cull_meta(ro, rd, mn, mx, cl_lo, cl_hi, cp, pi, entry_scale)
     from vimg_tpu_torch.runtime.cuda import check, load_library
     B, C = ro.shape[0], cl_lo.shape[0]
@@ -248,23 +264,41 @@ def cull_meta(ro, rd, mn, mx, cl_lo, cl_hi, cp, pi=None, entry_scale=None):
     _check(mx, "maxT", torch.float32, (B,), dev)
     _check(cl_lo, "cl_lo", torch.float32, (C, 3), dev)
     _check(cl_hi, "cl_hi", torch.float32, (C, 3), dev)
-    pi_ptr = oct_ptr = None
+    if steps is not None:
+        _check(steps, "steps", torch.int64, (4,), dev)
+    pi_ptr = sum_ptr = None
     if pi is not None:
         _check(pi, "pi", torch.int64, (8, C), dev)
-        octs = _octants(rd).to(torch.int32)
-        pi_ptr, oct_ptr = pi.data_ptr(), octs.data_ptr()
+        sums = _direction_sums(rd)
+        pi_ptr, sum_ptr = pi.data_ptr(), sums.data_ptr()
     meta = torch.empty((W * META_ROWS, cp), dtype=torch.int32, device=dev)
     lib = load_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.vimg_packet_cull(
             ro.data_ptr(), rd.data_ptr(), mn.data_ptr(), mx.data_ptr(),
-            cl_lo.data_ptr(), cl_hi.data_ptr(), pi_ptr, oct_ptr, W, C, cp,
+            cl_lo.data_ptr(), cl_hi.data_ptr(), pi_ptr, sum_ptr, W, C, cp,
             1.0 if entry_scale is None else entry_scale, meta.data_ptr(),
-            stream)
+            None if steps is None else steps.data_ptr(), stream)
     check(rc, "vimg_packet_cull")
     LAUNCHES_CULL += W > 0
     return meta
+
+
+def cull_occupancy(f2b):
+    """X1's registers and local bytes a thread, static shared bytes a block
+    and resident blocks and warps per SM (slist, or f2b), from
+    cudaFuncGetAttributes and the occupancy API."""
+    import ctypes
+    from vimg_tpu_torch.runtime.cuda import check, load_library
+    per_sm, regs, local, smem = (ctypes.c_int() for _ in range(4))
+    check(load_library().vimg_packet_cull_occupancy(
+        int(f2b), ctypes.byref(per_sm), ctypes.byref(regs),
+        ctypes.byref(local), ctypes.byref(smem)),
+        "vimg_packet_cull_occupancy")
+    return dict(regs=regs.value, local_bytes=local.value,
+                smem_bytes=smem.value, blocks_per_sm=per_sm.value,
+                warps_per_sm=per_sm.value * WG // 32)
 
 
 # ---------------------------------------------------------------------------

@@ -38,6 +38,10 @@ never hits. The replays compute the leaf each in its own way (a
 running-minimum replay of the scan, a key merge) so that the tests hold
 each against the plain walk's own formulation.
 
+``unit_steps`` and ``merge_hits`` (the leaf round's triangle steps and
+its least (t, k) merge) also serve the replay of kernel P1's full walk,
+``probes/probe_walkablate.py::walk_schedule``.
+
 Each returns ((t, slot, u, v), counts): ``node_steps`` and ``tri_steps``
 summed over warps, and the plain walk's ``box_tests`` and ``tri_tests``
 (16 per gated sub-box). The lane fill is tri_tests / (32 x tri_steps).
@@ -273,6 +277,24 @@ def _ordered(t):
     return torch.where(b >= 0x80000000, b ^ 0xFFFFFFFF, b | 0x80000000)
 
 
+def unit_steps(lanes, units, n_warps):
+    """Triangle steps of a leaf round: the posted ``lanes``' ``units`` (16
+    triangles each) run two a step, a half-warp each, warp by warp."""
+    per = torch.zeros(n_warps, dtype=torch.int64, device=lanes.device)
+    per.index_add_(0, lanes // WARP, units)
+    return int(((per + 1) // 2).sum())
+
+
+def merge_hits(cand, tt):
+    """The least (t, k) of each owner's candidates, t's bits made
+    order-preserving with -0 as +0 (the leaf round's key): (whether the
+    owner has a candidate, k as an (R, 1) index)."""
+    pos = torch.arange(cand.shape[1], device=cand.device)
+    key = torch.where(cand, _ordered(tt) * CLUSTER_K + pos,
+                      torch.iinfo(torch.int64).max)
+    return cand.any(1), key.argmin(1, keepdim=True) % CLUSTER_K
+
+
 def _warp_run(walk, tri, ro, rd, minT, maxT, any_hit, mask):
     """The warp-cooperative walk: rounds of per-lane node phases and the
     warp's leaf round; ``walk`` makes the walk state from the lanes that
@@ -287,7 +309,6 @@ def _warp_run(walk, tri, ro, rd, minT, maxT, any_hit, mask):
     counts = dict(node_steps=0, tri_steps=0, box_tests=0, tri_tests=0)
     w = walk(go)
     every = torch.arange(M, device=dev)
-    pos = torch.arange(CLUSTER_K, device=dev)
     while True:
         # node phase: each lane walks until it posts a live leaf or ends
         post = torch.full((M,), -1, dtype=torch.int64, device=dev)
@@ -308,17 +329,12 @@ def _warp_run(walk, tri, ro, rd, minT, maxT, any_hit, mask):
                                        mn_[i], t[i])
         _add(counts, "box_tests", gate.numel())
         _add(counts, "tri_tests", SUB * gate.sum())
-        units = torch.zeros(W, dtype=torch.int64, device=dev)
-        units.index_add_(0, i // WARP, gate.sum(1))
-        _add(counts, "tri_steps", ((units + 1) // 2).sum())
-        found = cand.any(1)
+        _add(counts, "tri_steps", unit_steps(i, gate.sum(1), W))
+        found, k = merge_hits(cand, tt)
         if any_hit:
             t[i[found]] = -float("inf")
             w.stop(i[found])
             continue
-        key = torch.where(cand, _ordered(tt) * CLUSTER_K + pos,
-                          torch.iinfo(torch.int64).max)
-        k = key.argmin(1, keepdim=True) % CLUSTER_K
         j, kf = i[found], k[found]
         t[j] = tt[found].gather(1, kf)[:, 0]
         u[j] = uu[found].gather(1, kf)[:, 0]

@@ -17,7 +17,10 @@ tile (tile_rows x 128 rays). ``walkablate`` is kernel P1
 (``csrc/probe_walk.cu``) for CUDA tensors, at group 32 (a warp in
 lockstep) or 1 (each ray's own walk, kernel B4's schedule);
 ``walkablate_plain`` is its plain version, for any group. bt does not
-depend on the group; the visit counts do.
+depend on the group; the visit counts do. ``walk_schedule`` replays the
+full walk as the card runs it (B4's warp leaf round, ungated) and counts
+its warp steps, which a counted launch (``walkablate(..., steps=)``)
+must reproduce.
 
 The walk reads the binary tables ``ClusterData.node_aabbs / node_cid /
 node_skip`` and ``tri_rows``, which is what the TPU kernel was written for
@@ -33,7 +36,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from vimg_tpu_torch.geometry.cluster_trace import (CLUSTER_K, ROW16,
+from vimg_tpu_torch.geometry import skip_schedule as ss
+from vimg_tpu_torch.geometry.cluster_trace import (CLUSTER_K, N_SUB, ROW16,
                                                    ClusterData,
                                                    ray_sort_key)
 from vimg_tpu_torch.probes import common
@@ -127,16 +131,128 @@ def walkablate_plain(aabbs, cid, skip, tri, n_nodes, ro, rd, minT, maxT,
     return bt, nv
 
 
+def walk_schedule(aabbs, cid, skip, tri, n_nodes, ro, rd, minT, maxT,
+                  group):
+    """Kernel P1's full walk as the card runs it, replayed in plain PyTorch
+    on the warp leaf round of ``geometry/skip_schedule.py`` without its
+    sub-box gates: the rays 32 to a warp in order (lanes past a ragged
+    last warp walk nothing). At group 1 a round is B4's: each lane walks
+    its own nodes with the probe's slab until it reaches a live leaf (it
+    posts the leaf and waits) or ends; at group 32 the warp visits one node
+    at a time (any lane live) and a live leaf posts its live lanes. Then
+    the posted (lane, leaf) pairs run as 4 units of 16 triangles each, two
+    units a warp step, hits merged by least (t, k).
+
+    Returns (bt, visits, counts) with bt and visits as walkablate_plain's
+    and counts: ``node_steps`` (a round's node phase costs the most any
+    lane took; at group 32 one a visit), ``tri_steps`` (the kernel's warp
+    triangle steps), ``tri_tests`` (64 a posted pair) and ``leaf_visits``
+    (group 32: the warps' visits of a live leaf, each 64 triangle steps in
+    the per-lane design before). Lane fill = tri_tests / (32 x
+    tri_steps)."""
+    N = ro.shape[0]
+    if group not in KERNEL_GROUPS or N % group:
+        raise ValueError(f"kernel P1 runs groups of {KERNEL_GROUPS} rays "
+                         f"that divide the ray count, not {group} of {N}")
+    dev = ro.device
+    W = -(-N // ss.WARP)
+    M = W * ss.WARP
+    ro, rd = ss._pad(ro, M, 0.0), ss._pad(rd, M, 1.0)
+    minT, bt = ss._pad(minT, M, 0.0), ss._pad(maxT.clone(), M, 0.0)
+    inv = 1.0 / torch.where(rd == 0.0, 1e-30, rd)
+    oi = ro * inv
+    box = aabbs.view(-1, 8)
+    rows = tri.view(-1, CLUSTER_K, ROW16)
+    counts = dict(node_steps=0, tri_steps=0, tri_tests=0, leaf_visits=0)
+
+    def live_at(lanes, n):
+        b = box[n]
+        iv, o = inv[lanes], oi[lanes]
+        t0 = b[:, 0:3] * iv - o
+        t1 = b[:, 3:6] * iv - o
+        lo, hi = torch.minimum(t0, t1), torch.maximum(t0, t1)
+        tin = torch.maximum(torch.maximum(lo[:, 0], lo[:, 1]),
+                            torch.maximum(lo[:, 2], minT[lanes]))
+        tout = torch.minimum(torch.minimum(hi[:, 0], hi[:, 1]),
+                             torch.minimum(hi[:, 2], bt[lanes]))
+        return tin <= tout
+
+    lane = torch.arange(ss.WARP, device=dev)
+    if group == 1:
+        node = torch.where(torch.arange(M, device=dev) < N, 0, n_nodes)
+        nv = torch.zeros(M, dtype=torch.int32, device=dev)
+    else:
+        node = torch.zeros(W, dtype=torch.int64, device=dev)
+        nv = torch.zeros(W, dtype=torch.int32, device=dev)
+    while True:
+        # node phase: each lane (group 1) or warp (group 32) walks until it
+        # posts a live leaf or ends
+        post = torch.full((M,), -1, dtype=torch.int64, device=dev)
+        if group == 1:
+            steps = torch.zeros(M, dtype=torch.int64, device=dev)
+            act = torch.nonzero(node < n_nodes)[:, 0]
+            while act.numel():
+                n = node[act]
+                live = live_at(act, n)
+                c = cid[n].to(torch.int64)
+                nv[act] += 1
+                steps[act] += 1
+                leaf = live & (c >= 0)
+                post[act[leaf]] = c[leaf]
+                node[act] = torch.where(live, n + 1,
+                                        skip[n].to(torch.int64))
+                act = act[~leaf & (node[act] < n_nodes)]
+            counts["node_steps"] += int(steps.view(W, ss.WARP).amax(1).sum())
+        else:
+            act = torch.nonzero(node < n_nodes)[:, 0]
+            while act.numel():
+                n = node[act]
+                lanes = act[:, None] * ss.WARP + lane
+                live = live_at(lanes.reshape(-1),
+                               n.repeat_interleave(ss.WARP)).view(-1, ss.WARP)
+                any_live = live.any(1)
+                c = cid[n].to(torch.int64)
+                nv[act] += 1
+                counts["node_steps"] += act.numel()
+                leaf = any_live & (c >= 0)
+                counts["leaf_visits"] += int(leaf.sum())
+                held = leaf[:, None] & live
+                post[lanes[held]] = c[:, None].expand_as(lanes)[held]
+                node[act] = torch.where(any_live, n + 1,
+                                        skip[n].to(torch.int64))
+                act = act[~leaf & (node[act] < n_nodes)]
+        i = torch.nonzero(post >= 0)[:, 0]
+        if not i.numel():
+            break
+        # leaf round: every sub-box a unit, two units a step
+        tt, _, _, geo = ss._tests(rows[post[i]], ro[i], rd[i])
+        cand = geo & (tt >= minT[i][:, None]) & (tt < bt[i][:, None])
+        counts["tri_tests"] += CLUSTER_K * i.numel()
+        counts["tri_steps"] += ss.unit_steps(
+            i, torch.full_like(i, N_SUB), W)
+        found, k = ss.merge_hits(cand, tt)
+        bt[i[found]] = tt[found].gather(1, k[found])[:, 0]
+    return bt[:N], nv[:N] if group == 1 else nv, counts
+
+
 def walkablate(aabbs, cid, skip, tri, n_nodes, ro, rd, minT, maxT, variant,
-               group):
+               group, steps=None):
     """Kernel P1 on CUDA tensors (group 32 or 1), walkablate_plain on CPU
-    tensors. Same arguments and returns as walkablate_plain.
+    tensors. Same arguments and returns as walkablate_plain. ``steps``, a
+    (2,) int64 tensor on the card (the full variant only), collects the
+    full walk's warp node and triangle steps (walk_schedule's counts).
 
     Replaces tools/probe_walkablate.py::make_kernel (pallas_call :204). One
     thread per ray; group 32 is a warp that advances on __any_sync(live).
-    What bounds it on this card: the latency of dependent node loads and
-    the group's lockstep or divergence, not bytes or flops."""
+    The full walk's leaves run on B4's warp leaf round, ungated (see
+    csrc/probe_walk.cu). The node boxes and triangle rows are read 16 bytes
+    at a time, so aabbs and tri must start 16-byte aligned (a misaligned
+    view raises). What bounds it on this card: the latency of dependent
+    node loads and the group's lockstep or divergence, not bytes or
+    flops."""
     if not common.on_card(ro):
+        if steps is not None:
+            raise ValueError("steps are counted by kernel P1 on the card")
         return walkablate_plain(aabbs, cid, skip, tri, n_nodes, ro, rd, minT,
                                 maxT, variant, group)
     if variant not in VARIANTS:
@@ -153,6 +269,14 @@ def walkablate(aabbs, cid, skip, tri, n_nodes, ro, rd, minT, maxT, variant,
             or skip.numel() < n_nodes or tri.numel() % (CLUSTER_K * ROW16)):
         raise ValueError(f"node tables smaller than {n_nodes} nodes or a "
                          f"triangle table not of whole clusters")
+    for x, name in ((aabbs, "aabbs"), (tri, "tri")):
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name}: kernel P1 reads 16 bytes at a time; "
+                             f"the tensor must start 16-byte aligned")
+    if steps is not None:
+        if variant != "full":
+            raise ValueError("kernel P1 counts the steps of the full walk")
+        common.check_tensor(steps, "steps", torch.int64, (2,), dev)
     common.check_tensor(ro, "ro", torch.float32, (N, 3), dev)
     common.check_tensor(rd, "rd", torch.float32, (N, 3), dev)
     common.check_tensor(minT, "minT", torch.float32, (N,), dev)
@@ -162,7 +286,7 @@ def walkablate(aabbs, cid, skip, tri, n_nodes, ro, rd, minT, maxT, variant,
     if N:
         common.launch("probe_walkablate", "vimg_probe_walk", dev, aabbs, cid,
                       skip, tri, n_nodes, ro, rd, minT, maxT, N,
-                      VARIANTS.index(variant), group, bt, nv)
+                      VARIANTS.index(variant), group, bt, nv, steps)
     return bt, nv
 
 

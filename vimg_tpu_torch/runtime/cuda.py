@@ -46,9 +46,12 @@ SIGNATURES = {
     # t, code, steps (device uint64 or null), stream
     "vimg_packet_trace": ([_P] * 6 + [_I] * 6 + [_F] * 7 + [_P] * 4, _I),
     # csrc/packet_cull.cu: ro, rd, minT, maxT, cl_lo, cl_hi, pi (device
-    # int64 or null), octants (device int32 or null), n_work, n_clusters,
-    # cp, entry_scale, meta, stream
-    "vimg_packet_cull": ([_P] * 8 + [_I] * 3 + [_F] + [_P] * 2, _I),
+    # int64 or null), direction sums (device float32 (W, 3) or null),
+    # n_work, n_clusters, cp, entry_scale, meta, steps (device uint64[4] or
+    # null), stream
+    "vimg_packet_cull": ([_P] * 8 + [_I] * 3 + [_F] + [_P] * 3, _I),
+    # f2b, per_sm, regs, local_bytes, smem_bytes (host int*)
+    "vimg_packet_cull_occupancy": ([_I] + [_P] * 4, _I),
     # csrc/bvh_walk.cu (X2): nodes, rows, ro, rd, minT, maxT, n_rays,
     # n_nodes, n_prims, mode, t, prim_type, prim_id, u, v, occluded, cost,
     # steps (device uint64[2] or null), stream
@@ -58,8 +61,9 @@ SIGNATURES = {
     # csrc/gather_row.cu: hi, mid, lo, ids, p, n_rows, n_ids, out, stream
     "vimg_gather_rows": ([_P] * 4 + [_I] * 3 + [_P] * 2, _I),
     # csrc/probe_walk.cu (P1): aabb, cid, skip, tri, n_nodes, ro, rd, tmin,
-    # tmax, n_rays, variant, group, bt, nv, stream
-    "vimg_probe_walk": ([_P] * 4 + [_I] + [_P] * 4 + [_I] * 3 + [_P] * 3, _I),
+    # tmax, n_rays, variant, group, bt, nv, steps (device uint64[2] or
+    # null), stream
+    "vimg_probe_walk": ([_P] * 4 + [_I] + [_P] * 4 + [_I] * 3 + [_P] * 4, _I),
     # csrc/probe_scalar.cu: P2 x, mode, n_iter, out, stream; P3 x, tab,
     # n_reads, packed, n_iter, out, stream; P4 x, out, stream
     "vimg_probe_sync": ([_P] + [_I] * 2 + [_P] * 2, _I),
