@@ -192,6 +192,30 @@ Phases:
     engages, equal supersteps, segments within 0.1%, the film within
     tests/test_cluster_trace.py's pre-pass bounds; both frame times and
     peak memories.
+34. main paths 21 and 22: the device BVH build (geometry/device_build.py,
+    kernel X3 for the per-axis SAH sweep) of terrain 100k and 500k through
+    BVHTracer(builder="device"): P, levels, nodes, the level loop's and
+    the host assembly's seconds, X3's launches (3 x levels); the tree bit
+    for bit the plain build of the same inputs on the CPU; the native
+    sweep (mode 1) timed beside it and, where its tree differs, both SAH
+    costs; X3 bit for bit its plain version on every level's inputs of the
+    100k build, timed on a middle level's and level 0's inputs of each
+    terrain (on the device's clock, paced by the host, and each of its
+    four kernels by torch.profiler) beside the plain version and its
+    bound; one X2 walk over the 100k device tree (phase 6's bounce rays)
+    and ClusterTracer(builder="device") through B3 (camera, bounce,
+    shadow), each bit for bit its plain walk, X3 launched 3 x levels;
+35. main path 23: make_tracer(force="mxu") (tensor code: no kernel may
+    launch) on 2,000 random triangles and 128 spheres, 131,072 rays,
+    against the SoA tracer on the card at tests/test_fast_tracers.py's
+    tolerances, both timed;
+36. main path 24: probes/ablate_superstep.py on terrain 100k (131,072
+    lanes, 20 supersteps, all twelve variants through B3): ms a
+    superstep by the host's clock, Mseg/s, the CUDA-event span and the
+    device-busy ms (torch.profiler's kernel times) a superstep; main path
+    25: the probe leftovers at their tools' sizes (cluster_bounce with
+    trace_stats, sort_tax, wavefront_e2e, xla_gather, hit_info_cost,
+    depth_decomposition over B2).
 The probe kernels lie on no render path: their rows report 0 launches,
 and each probe phase prints the launches its entry points made. Every
 probe record carries the card's name and power limit. Each kernel is
@@ -439,6 +463,7 @@ def event_ms(fn, reps):
 def zero_counts():
     from vimg_tpu_torch.geometry import bvh
     from vimg_tpu_torch.geometry import cluster_trace as ct
+    from vimg_tpu_torch.geometry import device_build as db
     from vimg_tpu_torch.geometry import packet_trace as pt
     from vimg_tpu_torch.ops import mxu_gather
     from vimg_tpu_torch.probes import common
@@ -451,6 +476,7 @@ def zero_counts():
     pt.LAUNCHES_CULL = 0
     mxu_gather.LAUNCHES = 0
     bvh.LAUNCHES = 0
+    db.LAUNCHES = 0
     for k in common.LAUNCHES:
         common.LAUNCHES[k] = 0
 
@@ -458,6 +484,7 @@ def zero_counts():
 def read_counts():
     from vimg_tpu_torch.geometry import bvh
     from vimg_tpu_torch.geometry import cluster_trace as ct
+    from vimg_tpu_torch.geometry import device_build as db
     from vimg_tpu_torch.geometry import packet_trace as pt
     from vimg_tpu_torch.ops import mxu_gather
     from vimg_tpu_torch.probes import common
@@ -467,7 +494,7 @@ def read_counts():
                 megakernel_mesh=kernel.LAUNCHES_MESH,
                 packet_trace=pt.LAUNCHES, packet_cull=pt.LAUNCHES_CULL,
                 gather_row=mxu_gather.LAUNCHES, bvh_walk=bvh.LAUNCHES,
-                **common.LAUNCHES)
+                sah_sweep=db.LAUNCHES, **common.LAUNCHES)
 
 
 def save_png(img, tonemap, name, png_dir):
@@ -3481,7 +3508,389 @@ def prepass_phase(terrain, card):
     return cb.get("cluster_wide", 0)
 
 
+# ---------------------------------------------------------------------------
+# phases 34-36: the device BVH build (X3), the mxu tracer, the diagnosis
+# hooks (main paths 21-25)
+# ---------------------------------------------------------------------------
+
+X3_TERRAINS = (100_000, 500_000)
+MXU_TRIS, MXU_SPHERES = 2_000, 128
+ABLATE_LANES, ABLATE_STEPS, ABLATE_REPEATS = 1 << 17, 20, 3
+# X3's bytes a position: seg_s and the six box floats read, seg_cost and
+# seg_j written (each once)
+X3_BYTES_PER_POS = 4 + 24 + 8
+
+
+def sweep_differ(got, ref):
+    """Slots where two (seg_cost, seg_j) of X3 differ: seg_cost's bits
+    (any NaN as NaN) or seg_j."""
+    import torch
+    a, b = got[0], ref[0]
+    nan = torch.isnan(a) & torch.isnan(b)
+    bad = (torch.where(nan, 0.0, a).view(torch.int32)
+           != torch.where(nan, 0.0, b).view(torch.int32)) | (got[1] != ref[1])
+    return int(bad.sum())
+
+
+X3_KERNELS = ("sweep_chunks", "sweep_carries", "sweep_cost", "sweep_argmin")
+
+
+def profiled_us(fn, reps, names):
+    """Each named kernel's device microseconds a call of ``fn``, mean over
+    ``reps`` calls, from torch.profiler's CUDA activity (the kernels' own
+    durations, whatever the host's pace); None for a kernel the profiler
+    did not see."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = dict.fromkeys(names, 0.0)
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total",
+                    getattr(e, "self_cuda_time_total", 0.0))
+        for name in names:
+            if name in e.key:
+                us[name] += t
+    return {k: (v / reps if v > 0 else None) for k, v in us.items()}
+
+
+def x3_timing(label, inputs):
+    """X3 on one level's inputs: ms a call on the device's clock
+    (probes.common.device_ms: TIMED_LAUNCHES calls queued behind a spinning
+    kernel), ms a call paced by the host (CUDA events around calls queued
+    one after another), each of its four kernels' own device us
+    (torch.profiler), and its plain version (one call, events), with the
+    bound (bytes). Returns (device ms, plain ms, bound ms, host-paced ms,
+    {kernel: us})."""
+    from vimg_tpu_torch.geometry import device_build as db
+    from vimg_tpu_torch.probes import common
+    P = inputs[0].shape[0]
+    got, host_ms = event_ms(lambda: db.sah_sweep(*inputs), TIMED_LAUNCHES)
+    ms = common.device_ms(lambda: db.sah_sweep(*inputs), TIMED_LAUNCHES)
+    kus = profiled_us(lambda: db.sah_sweep(*inputs), TIMED_LAUNCHES,
+                      X3_KERNELS)
+    ref, plain_ms = event_ms(lambda: db.sah_sweep_plain(*inputs), 1)
+    bad = sweep_differ(got, ref)
+    if bad:
+        fail(f"X3 {label}: {bad} slots differ from the plain version")
+    bound = 1e3 * X3_BYTES_PER_POS * P / HBM_BYTES_PER_S
+    segs = int((inputs[0][1:] != inputs[0][:-1]).sum()) + 1
+    known = [v for v in kus.values() if v is not None]
+    log(f"    X3 {label} (P = {P}, {segs} segments): {ms:.4f} ms a call on "
+        f"the device's clock, {host_ms:.4f} ms paced by the host; kernels "
+        + ", ".join(f"{k} " + ("not seen" if v is None else f"{v:.2f} us")
+                    for k, v in kus.items())
+        + (f" (sum {sum(known):.2f} us, profiler)" if known else "")
+        + f"; plain {plain_ms:.3f} ms, bound {bound:.5f} ms (bytes: "
+        f"{X3_BYTES_PER_POS} B a position at 3.35 TB/s)")
+    return ms, plain_ms, bound, host_ms, kus
+
+
+def device_build_phase(phase6, card):
+    """Phase 34, main paths 21 and 22: BVHTracer(builder="device") on
+    terrain 100k and 500k (X3 and tensor code on the card) with its level
+    loop and host assembly timed apart, the tree against the plain build of
+    the same inputs on the CPU (bit for bit) and against the native sweep
+    (a finding: SAH costs when they differ), X3 against its plain version
+    on every level's inputs of the 100k build and timed; then one X2 walk
+    over the 100k device tree and ClusterTracer(builder="device") through
+    B3, each against its plain walk. Returns X3's kernels-JSON row and the
+    X2 and B3 launches of the two main paths."""
+    import numpy as np
+    import torch
+    from vimg_tpu_torch.geometry import bvh
+    from vimg_tpu_torch.geometry import cluster_trace as ct
+    from vimg_tpu_torch.geometry import device_build as db
+    from vimg_tpu_torch.runtime.native import build_bvh_native
+    log("[34] main paths 21, 22: BVHTracer(builder='device') on terrain "
+        f"{' and '.join(str(n) for n in X3_TERRAINS)} (X3), X2 and B3 over "
+        "the device trees")
+    row, x3_21, x3_22 = {}, 0, 0
+    for n in X3_TERRAINS:
+        scene = phase6[n][0]
+        bmin, bmax, cen, _, _ = bvh.scene_prim_bounds(scene)
+        zero_counts()
+        (tr, build_s) = timed(lambda: bvh.BVHTracer(scene, builder="device"))
+        st = dict(db.LAST_STATS)
+        counts = read_counts()
+        x3_21 += counts["sah_sweep"]
+        if counts["sah_sweep"] != 3 * st["levels"] or any(
+                v for k, v in counts.items() if k != "sah_sweep"):
+            fail(f"main path 21 (terrain {n}) launches {nonzero(counts)}, "
+                 f"{st['levels']} levels")
+        log(f"    terrain {n}: P = {st['P']}, {st['levels']} levels of "
+            f"{st['max_levels']}, {st['nodes']} nodes; BVHTracer "
+            f"{build_s:.3f} s (level loop on the card "
+            f"{st['level_seconds']:.3f} s, host assembly "
+            f"{st['assembly_seconds']:.3f} s); X3 launches "
+            f"{counts['sah_sweep']} (3 x levels)")
+        # the level loop again, keeping each sweep's inputs; the same loop
+        # on the CPU (plain): the tree is assembled from (order, levels),
+        # so equal tables mean equal trees
+        mid = []
+
+        def capture(seg, lo, hi):
+            mid.append((seg, lo, hi))
+            return db.sah_sweep(seg, lo, hi)
+        t = [torch.as_tensor(x, device=scene.device)
+             for x in (bmin, bmax, cen)]
+        max_levels = db.max_levels_for(st["P"])
+        (order, hist, _), loop_s = timed(
+            lambda: db.build_levels(*t, max_levels, sweep=capture))
+        (p_order, p_hist, _), cpu_s = timed(lambda: db.build_levels(
+            *(x.cpu() for x in t), max_levels, sweep=db.sah_sweep_plain))
+        if not (torch.equal(order.cpu(), p_order)
+                and torch.equal(hist.cpu(), p_hist)
+                and torch.equal(tr.bvh.prim_idx.long(), order)):
+            fail(f"terrain {n}: the card's device build differs from the "
+                 f"CPU's plain build or from BVHTracer's tree")
+        got = {k: getattr(tr.bvh, k).cpu().numpy() for k in (
+            "node_min", "node_max", "node_start", "node_count", "node_skip")}
+        nat, nat_s = timed(lambda: build_bvh_native(bmin, bmax, cen, mode=1))
+        same = (np.array_equal(order.cpu().numpy(), nat["order"]) and all(
+            np.array_equal(got[k], nat[k]) for k in
+            ("node_count", "node_start", "node_skip")))
+        log(f"    terrain {n}: the level loop alone {loop_s:.3f} s on the "
+            f"card, bit for bit the plain loop on the CPU ({cpu_s:.3f} s) "
+            f"and BVHTracer's order; native sweep (mode 1) {nat_s:.3f} s, "
+            + ("the same tree" if same else
+               f"another tree: SAH cost device {db.sah_cost(got):.6f}, "
+               f"native {db.sah_cost(nat):.6f} ({nat['node_count'].shape[0]}"
+               f" nodes)"))
+        if hist.shape[0] != st["levels"]:
+            fail("the level loop ran another number of levels")
+        inputs = mid[3 * (len(mid) // 6)]       # the middle level, axis 0
+        ms, plain_ms, bound, host_ms, kus = x3_timing(
+            f"terrain {n} level {len(mid) // 6}", inputs)
+        x3_timing(f"terrain {n} level 0", mid[0])
+        if n == X3_TERRAINS[0]:
+            checked = []
+
+            def both(seg, lo, hi):
+                out = db.sah_sweep(seg, lo, hi)
+                checked.append(sweep_differ(out,
+                                            db.sah_sweep_plain(seg, lo, hi)))
+                return out
+            db.build_levels(*t, db.max_levels_for(st["P"]), sweep=both)
+            if any(checked) or len(checked) != 3 * st["levels"]:
+                fail(f"X3 differs from its plain version on "
+                     f"{sum(1 for c in checked if c)} of {len(checked)} "
+                     f"level inputs")
+            log(f"    X3 bit for bit its plain version on all "
+                f"{len(checked)} level inputs (3 axes x {st['levels']} "
+                f"levels) of the 100k build")
+            row = {"name": "sah_sweep", "route": "cuda",
+                   "source": "vimg_tpu_torch/csrc/sah_sweep.cu",
+                   # X3 replaces XLA scans of vimg_tpu, not a Pallas kernel
+                   "replaces": "vimg_tpu/geometry/device_build.py:92",
+                   "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": bound, "bound_by": "bytes",
+                   "library_ms": None, "clock": "device",
+                   "host_paced_ms": host_ms, "kernel_us": kus,
+                   "launches_per_build": {}, "build_s": {}}
+            walk_tr, rays = tr, phase6[n][1]
+        else:
+            row.update(ms_500k=ms, plain_ms_500k=plain_ms,
+                       bound_ms_500k=bound, host_paced_ms_500k=host_ms,
+                       kernel_us_500k=kus)
+        row["launches_per_build"][str(n)] = 3 * st["levels"]
+        row["build_s"][str(n)] = dict(
+            level_loop=st["level_seconds"], assembly=st["assembly_seconds"],
+            native=nat_s, cpu_plain_loop=cpu_s, levels=st["levels"],
+            nodes=st["nodes"])
+    # main path 21's walk: X2 over the 100k device tree
+    scene = phase6[X3_TERRAINS[0]][0]
+    zero_counts()
+    got = walk_tr.closest(scene, *rays["bounce"])
+    x2_21 = read_counts()["bvh_walk"]
+    bad, _ = x2_differ(got, bvh.bvh_traverse(scene, walk_tr.bvh,
+                                             *rays["bounce"]), "closest")
+    if bad or x2_21 != 1:
+        fail(f"X2 over the device tree: {bad} values differ from the plain "
+             f"walk, {x2_21} launches")
+    log(f"    main path 21: X2 over the 100k device tree, {N_RAYS} bounce "
+        f"rays, bit for bit its plain walk (hits "
+        f"{float(got.hit.float().mean()):.4f})")
+    # main path 22: ClusterTracer(builder="device") through B3
+    zero_counts()
+    ctr = ct.ClusterTracer(scene, builder="device")
+    levels_22 = db.LAST_STATS["levels"]
+    for kind in ("camera", "bounce", "shadow"):
+        r = sorted_rays(ctr, rays[kind])
+        got = ctr.trace(*r, kind == "shadow", sort=False)
+        counts = read_counts()
+        ref = ct.ClusterTracer(scene, plain=True, data=ctr.data).trace(
+            *r, kind == "shadow", sort=False)
+        bad, _ = mismatches(got, ref)
+        if bad:
+            fail(f"B3 over the device tree, {kind}: {bad} rays differ")
+    x3_22 = counts["sah_sweep"]
+    b3_22 = counts["cluster_wide"]
+    if x3_22 != 3 * levels_22 or b3_22 != 3 or ctr.walk != "wide" or any(
+            v for k, v in counts.items()
+            if k not in ("sah_sweep", "cluster_wide")):
+        fail(f"main path 22 launches {nonzero(counts)} (walk {ctr.walk}, "
+             f"{levels_22} levels)")
+    log(f"    main path 22: ClusterTracer(builder='device') on terrain 100k "
+        f"({ctr.data.n_clusters} clusters, {ctr.walk} walk): B3 bit for bit"
+        f" its plain walk on camera, bounce and shadow rays; launches "
+        f"{nonzero(counts)} (X3: 3 x {levels_22} levels)")
+    row.update(launches=x3_21 + x3_22,
+               launches_by_main_path={"21": x3_21, "22": x3_22})
+    return row, x2_21, b3_22
+
+
+def mxu_scene(dev):
+    """A soup of MXU_TRIS random triangles and MXU_SPHERES spheres."""
+    import numpy as np
+    from vimg_tpu_torch.scene import ir
+    from vimg_tpu_torch.scene.json_loader import SceneBuilder
+    b = SceneBuilder()
+    m = b.add_material(ir.MAT_LAMBERTIAN, base=(0.5, 0.5, 0.5))
+    r = np.random.default_rng(0)
+    c = r.uniform(-10, 10, (MXU_TRIS, 3)).astype(np.float32)
+    v = (c[:, None] + r.uniform(-0.8, 0.8, (MXU_TRIS, 3, 3))).astype(
+        np.float32)
+    b.add_mesh(v.reshape(-1, 3), np.arange(3 * MXU_TRIS).reshape(-1, 3), m)
+    for _ in range(MXU_SPHERES):
+        b.add_sphere(r.uniform(-10, 10, 3), r.uniform(0.2, 1.5), m)
+    return b.build(camera=dict(cam2world=np.eye(4, dtype=np.float32),
+                               width=8, height=8, vfov_deg=45.0), device=dev)
+
+
+def mxu_phase(dev):
+    """Phase 35, main path 23: make_tracer(force="mxu") (tensor code, no
+    kernel) on MXU_TRIS triangles and MXU_SPHERES spheres, N_RAYS rays,
+    against the SoA tracer on the card at tests/test_fast_tracers.py's
+    tolerances; both timed."""
+    import warnings
+    import numpy as np
+    import torch
+    from vimg_tpu_torch.geometry.soa_intersect import SoATracer
+    from vimg_tpu_torch.geometry.trace import make_tracer
+    log(f"[35] main path 23: make_tracer(force='mxu') on {MXU_TRIS} "
+        f"triangles and {MXU_SPHERES} spheres, {N_RAYS} rays, against the "
+        "SoA tracer")
+    scene = mxu_scene(dev)
+    r = np.random.default_rng(1)
+    tgt = np.concatenate([scene.verts.cpu().numpy()[
+        scene.tri_vidx.cpu().numpy()].mean(1),
+        scene.sph_center.cpu().numpy()])
+    ro = r.uniform(-15, 15, (N_RAYS, 3)).astype(np.float32)
+    rd = tgt[r.integers(0, tgt.shape[0], N_RAYS)] + r.normal(
+        0, 0.5, (N_RAYS, 3)) - ro
+    rd[::4] = r.normal(size=(N_RAYS // 4, 3))        # a quarter at random
+    rd = (rd / np.linalg.norm(rd, axis=1, keepdims=True)).astype(np.float32)
+    ro, rd = (torch.as_tensor(x, device=dev) for x in (ro, rd))
+    mn = torch.full((N_RAYS,), 1e-4, device=dev)
+    mx = torch.full((N_RAYS,), float("inf"), device=dev)
+    ten = torch.full((N_RAYS,), 10.0, device=dev)
+    zero_counts()
+    with warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        tr = make_tracer(scene, force="mxu")
+    got, mxu_s = timed(lambda: tr.closest(scene, ro, rd, mn, mx))
+    occ = tr.occluded(scene, ro, rd, mn, ten)
+    counts = read_counts()
+    if any(counts.values()):
+        fail(f"main path 23 launched {nonzero(counts)}")
+    soa = SoATracer(scene)
+    ref, soa_s = timed(lambda: soa.closest(scene, ro, rd, mn, mx))
+    t1, t2 = ref.t.cpu().numpy(), got.t.cpu().numpy()
+    both = np.isfinite(t1) & np.isfinite(t2)
+    tri = both & (ref.prim_type.cpu().numpy() == 0)
+    hit_agree = float((np.isfinite(t1) == np.isfinite(t2)).mean())
+    id_agree = float((ref.prim_id.cpu().numpy()[both]
+                      == got.prim_id.cpu().numpy()[both]).mean())
+    occ_agree = float((soa.occluded(scene, ro, rd, mn, ten).cpu().numpy()
+                       == occ.cpu().numpy()).mean())
+    t_err = float(np.abs(t1[both] - t2[both]).max())
+    u_err = float(np.abs(ref.u.cpu().numpy()[tri]
+                         - got.u.cpu().numpy()[tri]).max())
+    log(f"    warning: {[str(x.message) for x in w]}")
+    log(f"    hits {both.mean():.4f}, hit agreement {hit_agree:.6f}, prim id "
+        f"{id_agree:.6f}, occlusion {occ_agree:.6f}, max|dt| {t_err:.3e}, "
+        f"max|du| {u_err:.3e}; mxu {mxu_s * 1e3:.1f} ms, SoA "
+        f"{soa_s * 1e3:.1f} ms (host clock, one call each); launches 0")
+    if not (len(w) == 1 and hit_agree > 0.999 and id_agree > 0.999
+            and occ_agree > 0.999 and both.mean() > 0.2
+            and np.allclose(t1[both], t2[both], rtol=1e-3, atol=1e-3)
+            and u_err <= 2e-3):
+        fail("the mxu tracer is outside tests/test_fast_tracers.py's "
+             "tolerances of the SoA tracer")
+
+
+def ablate_phase(t100, card):
+    """Phase 36, main paths 24 and 25: probes/ablate_superstep.py on
+    terrain 100k (ABLATE_LANES lanes, ABLATE_STEPS supersteps, all twelve
+    variants, B3), then the probe leftovers at their tools' sizes. Returns
+    the B3, B4 and B2 launches of each."""
+    import torch
+    from vimg_tpu_torch.geometry.cluster_trace import ClusterTracer
+    from vimg_tpu_torch.probes import ablate_superstep as ab
+    from vimg_tpu_torch.probes import common, probe_r3b, probe_r3c, \
+        probe_regen
+    from vimg_tpu_torch.scene import ir
+    dev = t100.device
+    log(f"[36] main path 24: ablate_superstep on terrain 100k, "
+        f"{ABLATE_LANES} lanes, {ABLATE_STEPS} supersteps, "
+        f"{len(ab.VARIANTS)} variants")
+    st = ir.RenderSettings(MESH_W, MESH_H, spp=MESH_SPP, max_depth=64,
+                           integrator="mis")
+    tr = ClusterTracer(t100)
+    plog = common.Log(dev)
+    zero_counts()
+    res = ab.ablate(t100, st, tr, ABLATE_LANES, ABLATE_STEPS,
+                    ABLATE_REPEATS, log=plog)
+    c24 = read_counts()
+    if len(res) != len(ab.VARIANTS) or c24["cluster_wide"] < 1 or any(
+            v for k, v in c24.items() if k != "cluster_wide") or not all(
+            r["film_finite"] for r in res.values()):
+        fail(f"main path 24: {len(res)} variants, launches {nonzero(c24)}")
+    log("    variant        ms/step  Mseg/s  event ms  busy ms  delta ms "
+        f"(on {card})")
+    for name, r in res.items():
+        log(f"    {name:13s} {r['ms']:8.3f} {r['mseg_s']:7.2f} "
+            f"{r['event_ms']:9.3f} "
+            + (f"{r['busy_ms']:8.3f}" if r["busy_ms"] is not None
+               else "     n/a")
+            + ("" if r["delta_ms"] is None else f" {r['delta_ms']:+9.3f}"))
+    log("[36] main path 25: the probe leftovers (probe_r3b cluster_bounce, "
+        "sort_tax, wavefront_e2e; probe_r3c xla_gather, hit_info_cost; "
+        "probe_regen depth_decomposition) at the tools' sizes")
+    zero_counts()
+    t0 = time.time()
+    probe_r3b.cluster_bounce(dev, log=plog)
+    probe_r3b.sort_tax(dev, log=plog)
+    probe_r3b.wavefront_e2e(dev, log=plog)
+    probe_r3c.xla_gather(dev, log=plog)
+    probe_r3c.hit_info_cost(dev, log=plog)
+    probe_regen.depth_decomposition(dev, log=plog)
+    torch.cuda.synchronize()
+    c25 = read_counts()
+    log(f"    leftovers in {time.time() - t0:.1f} s; launches {nonzero(c25)}")
+    kinds = {r["probe"] for r in plog.records}
+    if kinds != {"ablate_superstep", "bounce_trace", "sort_tax",
+                 "wavefront_e2e", "xla_gather", "hit_info", "depth"} or \
+            c25["megakernel_mesh"] != 10 or c25["cluster_wide"] < 1:
+        fail(f"main path 25: records {sorted(kinds)}, launches "
+             f"{nonzero(c25)}")
+    return c24["cluster_wide"], c25
+
+
+def phase_seconds(label, since):
+    """Log the seconds since ``since`` under ``label``; returns now."""
+    now = time.time()
+    log(f"    ({label}: {now - since:.1f} s)")
+    return now
+
+
 def main():
+    t_start = t_phase = time.time()
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a GPU")
@@ -3520,6 +3929,7 @@ def main():
         if "registers" in line or "spill" in line or "entry function" in line:
             log(f"    ptxas: {line.strip()}")
 
+    t_phase = phase_seconds("phases 1-2", t_phase)
     # ---- 3. kernel B1 vs plain version ---------------------------------
     log("[3] B1 vs its plain PyTorch version (both on the card)")
     unit_err = 0.0
@@ -3566,6 +3976,7 @@ def main():
     log(f"    bound at 4 spp: {mega_bound:.2f} ms (operations: "
         f"{mega_ops:.4g} ops at 67 TFLOP/s)")
 
+    t_phase = phase_seconds("phase 3", t_phase)
     # ---- 4. main path 1: flagship through B1 ----------------------------
     log("[4] main path 1: load_json_scene -> render_frame -> finalize -> "
         "write_png")
@@ -3602,6 +4013,7 @@ def main():
         f"{fill(dict(segments=segs, warp_steps=steps)):.4f}; "
         f"{b1_report(scene, st)}")
 
+    t_phase = phase_seconds("phase 4", t_phase)
     # ---- 5. the cluster kernels -----------------------------------------
     log("[5] B3 (cluster_wide_kernel) and B4 (cluster_skip_kernel), both on "
         "the warp's leaf round, are in the library built in [2]")
@@ -3611,6 +4023,7 @@ def main():
         if "cluster" in line:
             log(f"    {line.strip()}")
 
+    t_phase = phase_seconds("phase 5", t_phase)
     # ---- 6. B3 / B4 vs their plain walks --------------------------------
     log(f"[6] B3 and B4 vs their plain walks, {N_RAYS} rays per kind")
     cmp, phase6 = {}, {}
@@ -3621,6 +4034,7 @@ def main():
             cmp[(n_tris,) + key] = v
         phase6[n_tris] = (scene, rays)
 
+    t_phase = phase_seconds("phase 6", t_phase)
     # ---- 7/8. main paths 2 and 3: the mesh wavefront ---------------------
     launches, wf_err, wf_img, wf_stats = {}, {}, {}, {}
     for phase, (n_tris, walk, name) in zip((7, 8), TERRAINS):
@@ -3631,6 +4045,7 @@ def main():
          wf_stats[name]) = mesh_main_path(n_tris, walk, name, png_dir, card,
                                           dev)
 
+    t_phase = phase_seconds("phases 7-8", t_phase)
     # ---- 8b. main path 9: the env-lit textured terrain through B3 -------
     log(f"[8b] main path 9: textured_terrain_scene({ENVTEX_TRIS}) -> "
         f"render_frame ({MESH_W}x{MESH_H} @ {MESH_SPP} spp, batch "
@@ -3638,6 +4053,7 @@ def main():
         f"through cluster_wide")
     envtex_launches = envtex_main_path(png_dir, card, dev)
 
+    t_phase = phase_seconds("phase 8b", t_phase)
     # ---- 8c. main path 10: the train step through B3 -------------------
     log(f"[8c] main path 10: textured_terrain_scene({ENVTEX_TRIS}) -> "
         f"make_tracer(differentiable=True) -> make_train_step -> "
@@ -3645,34 +4061,41 @@ def main():
         f"cluster_wide at zero tangent; then the flagship")
     train_launches = train_main_path(card, dev)
 
+    t_phase = phase_seconds("phase 8c", t_phase)
     # ---- 9-11. kernel B2 and main paths 4, 5 --------------------------
     b2 = b2_phases(dev, png_dir, card)
 
+    t_phase = phase_seconds("phases 9-11", t_phase)
     # ---- 12-14. kernels B5, B6 and main path 6 -------------------------
     b5, x1 = packet_phases(*phase6[TERRAINS[0][0]], wf_img["cluster_wide"],
                        png_dir, card, dev)
     b6 = gather_phase(dev, card)
 
+    t_phase = phase_seconds("phases 12-14", t_phase)
     # ---- 15-18. the probe kernels P1-P11 -------------------------------
     probes = [walk_probe_phase(phase6[TERRAINS[0][0]][0])]
     probes += scalar_probe_phase(dev)
     probes += packet_probe_phase(dev)
     probes.append(stage_probe_phase(dev))
 
+    t_phase = phase_seconds("phases 15-18", t_phase)
     # ---- 19. main paths 7 and 8: s_normal frames through render() -------
     normal_phase(dev, card, png_dir)
     other_frames_phase(dev)
     envtex_small_phase(dev)
 
+    t_phase = phase_seconds("phase 19", t_phase)
     # ---- 20-22. the probe kernels P12-P31 -------------------------------
     probes += vpu_probe_phase(dev)
     probes += gather_probe_phase(dev)
     probes += lowering_probe_phase(dev)
 
+    t_phase = phase_seconds("phases 20-22", t_phase)
     # ---- 23-26. X2 and the scene-file front door (main paths 11-13) ----
     x2, b3_12, b3_13 = front_door_phases(*phase6[TERRAINS[0][0]], png_dir,
                                          dev)
 
+    t_phase = phase_seconds("phases 23-26", t_phase)
     # ---- 27-33. sample slabs and scale-out (main paths 14-20) ----------
     t100 = phase6[TERRAINS[0][0]][0]
     b1_14, b3_15 = checkpoint_phases(img, t100, wf_stats["cluster_wide"],
@@ -3681,6 +4104,15 @@ def main():
     b3_17, b3_18 = scale_out_phases(t100, card)
     b3_19 = trace_phase(b2["main5_stats"], card, dev)
     b3_20 = prepass_phase(t100, card)
+
+    t_phase = phase_seconds("phases 27-33", t_phase)
+    # ---- 34-36. device build (X3), mxu tracer, ablate (main paths 21-25)
+    x3, x2_21, b3_22 = device_build_phase(phase6, card)
+    t_phase = phase_seconds("phase 34", t_phase)
+    mxu_phase(dev)
+    t_phase = phase_seconds("phase 35", t_phase)
+    b3_24, c25 = ablate_phase(t100, card)
+    t_phase = phase_seconds("phase 36", t_phase)
 
     rows = [{
         "name": "megakernel_analytic",
@@ -3705,8 +4137,10 @@ def main():
         by_path = ({"2": launches[name], "9": envtex_launches,
                     "10": train_launches, "12": b3_12, "13": b3_13,
                     "15": b3_15, "17": b3_17, "18": b3_18, "19": b3_19,
-                    "20": b3_20}
-                   if walk == "wide" else {"3": launches[name]})
+                    "20": b3_20, "22": b3_22, "24": b3_24,
+                    "25": c25["cluster_wide"]}
+                   if walk == "wide" else {"3": launches[name],
+                                           "25": c25["cluster_skip"]})
         rows.append({
             "name": name,
             "route": "cuda",
@@ -3731,9 +4165,11 @@ def main():
         # the walk it runs is in vimg_tpu_torch/csrc/cluster_walk.cuh
         "source": "vimg_tpu_torch/csrc/megakernel.cu",
         "replaces": "vimg_tpu/render/mega/kernel.py:404 (mesh mode)",
-        "launches": b2["launches_4"] + b2["launches_5"] + b2_16,
+        "launches": (b2["launches_4"] + b2["launches_5"] + b2_16
+                     + c25["megakernel_mesh"]),
         "launches_by_main_path": {"4": b2["launches_4"],
-                                  "5": b2["launches_5"], "16": b2_16},
+                                  "5": b2["launches_5"], "16": b2_16,
+                                  "25": c25["megakernel_mesh"]},
         "max_abs_err": b2["max_abs_err"],
         "ms": b2["ms"],
         "plain_ms": b2["plain_ms"],
@@ -3757,8 +4193,12 @@ def main():
                      source="vimg_tpu_torch/csrc/gather_row.cu",
                      replaces="vimg_tpu/ops/mxu_gather.py:57",
                      clock="events"))
+    x2["launches"] += x2_21
+    x2["launches_by_main_path"]["21"] = x2_21
     rows.append(x2)
+    rows.append(x3)
     rows += probes
+    log(f"[end] all phases in {time.time() - t_start:.1f} s")
     log(json.dumps({"kernels": rows}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -235,8 +235,10 @@ def test_tracer_facade_on_cpu(scenes):
     ro = rays[0].clone().requires_grad_(True)
     out = tr.closest(ts, ro, *rays[1:])
     assert not out.t.requires_grad
-    with pytest.raises(NotImplementedError, match="A4b"):
-        tb.build_scene_bvh(ts, "device")
+    # builder="device" (the sweep SAH level by level; on the CPU its plain
+    # version): another tree, the same closest t
+    dv = tb.build_scene_bvh(ts, "device")
+    assert torch.equal(tb.bvh_traverse(ts, dv, *rays).t, ref.t)
 
 
 def _spheres(scene, n):

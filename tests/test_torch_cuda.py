@@ -1,8 +1,10 @@
 """The CUDA kernels against their plain PyTorch versions, on the card:
 the megakernel (B1 analytic mode, B2 mesh mode), the cluster walks (B3
-wide, B4 skip), the packet cull (X1) and walk (B5), the table-row gather
-(B6) and the probe kernels P1-P31 (vimg_tpu_torch/probes); and an
-s_normal frame on the card.
+wide, B4 skip; their per-warp counted launch), the packet cull (X1) and
+walk (B5), the table-row gather (B6), the SAH sweep (X3) and the device
+BVH build over it, and the probe kernels P1-P31 (vimg_tpu_torch/probes);
+an s_normal frame and the product-formulation (``mxu``) tracer on the
+card.
 
 This file imports no JAX, so it also runs on the GPU machine, which has
 none: ``python3 -m pytest --noconftest tests/test_torch_cuda.py -q`` from
@@ -1221,3 +1223,169 @@ def test_bvh_kernel_follows_scene(cuda):
     assert not torch.equal(second.t, third.t)
     tr.refit(moved)
     held(moved)
+
+
+def _sweep_inputs(device, P, seed, seg_len):
+    """One axis of one level as the device build hands it to X3: segment
+    starts (runs of random lengths up to ``seg_len``) and boxes with some
+    exact duplicates and zero-size ones."""
+    r = np.random.default_rng(seed)
+    starts, s = [], 0
+    while s < P:
+        n = int(min(r.integers(1, seg_len + 1), P - s))
+        starts += [s] * n
+        s += n
+    c = r.random((P, 3)).astype(np.float32)
+    h = (0.03 * r.random((P, 3))).astype(np.float32)
+    h[::7] = 0.0
+    c[1::5] = c[0]
+    return (torch.as_tensor(np.asarray(starts, np.int32), device=device),
+            torch.as_tensor(c - h, device=device),
+            torch.as_tensor(c + h, device=device))
+
+
+def _same_sweep(got, ref):
+    """seg_cost's bits (any NaN as NaN) and seg_j equal."""
+    a, b = got[0], ref[0]
+    both = torch.isnan(a) & torch.isnan(b)
+    assert torch.equal(torch.isnan(a), torch.isnan(b))
+    assert torch.equal(_bits(torch.where(both, 0.0, a)),
+                       _bits(torch.where(both, 0.0, b)))
+    assert torch.equal(got[1], ref[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,seg_len", [(1, 1), (2, 2), (1000, 1000),
+                                       (1025, 1025), (5000, 40), (70000, 1),
+                                       (70000, 3000), (300000, 300000)])
+def test_sah_sweep_kernel_bit_equal_to_plain(cuda, P, seg_len):
+    """X3 (csrc/sah_sweep.cu) bit for bit against sah_sweep_plain, both on
+    the card, on segments from single positions to one segment spanning
+    hundreds of 1,024-position chunks, with duplicate and zero-size boxes;
+    and with a NaN box (its segment's least cost NaN in both)."""
+    from vimg_tpu_torch.geometry import device_build as db
+    seg, lo, hi = _sweep_inputs(cuda, P, P + seg_len, seg_len)
+    before = db.LAUNCHES
+    got = db.sah_sweep(seg, lo, hi)
+    assert db.LAUNCHES == before + 1
+    _same_sweep(got, db.sah_sweep_plain(seg, lo, hi))
+    if P > 2:
+        lo[P // 2, 1] = float("nan")
+        _same_sweep(db.sah_sweep(seg, lo, hi), db.sah_sweep_plain(seg, lo,
+                                                                  hi))
+
+
+@pytest.mark.cuda
+def test_device_build_card_equals_cpu(cuda):
+    """The device build on the card (X3 and tensor code) equals the plain
+    build on the CPU in every key, on terrain 20k's primitive boxes; X3
+    launches 3 x the levels run, and equals its plain version on every
+    level's inputs."""
+    from vimg_tpu_torch.geometry import bvh as tb
+    from vimg_tpu_torch.geometry import device_build as db
+    scene = terrain_scene(20_000, 16, 8, device="cpu")
+    bmin, bmax, cen, _, _ = tb.scene_prim_bounds(scene)
+    before = db.LAUNCHES
+    got = db.build_sweep_sah_device(bmin, bmax, cen, device=cuda)
+    levels = db.LAST_STATS["levels"]
+    assert db.LAUNCHES == before + 3 * levels
+    ref = db.build_sweep_sah_device(bmin, bmax, cen, device="cpu")
+    assert got.keys() == ref.keys()
+    for k in ref:
+        assert got[k].dtype == ref[k].dtype and np.array_equal(got[k],
+                                                               ref[k]), k
+    checked = []
+
+    def both(seg, lo, hi):
+        out = db.sah_sweep(seg, lo, hi)
+        _same_sweep(out, db.sah_sweep_plain(seg, lo, hi))
+        checked.append(seg.shape[0])
+        return out
+    t = [torch.as_tensor(x, device=cuda) for x in (bmin, bmax, cen)]
+    db.build_levels(*t, db.max_levels_for(bmin.shape[0]), sweep=both)
+    assert len(checked) == 3 * levels
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("walk", ["wide", "skip"])
+def test_cluster_per_warp_steps(cuda, walk):
+    """The per-warp counted launch of B3 / B4 (trace_stats' source): its
+    rows equal the warp replay's, sum to the launch's total steps, and its
+    hits equal the uncounted launch's."""
+    from vimg_tpu_torch.geometry import skip_schedule as ss
+    scene = terrain_scene(20_000, 16, 8, device=cuda)
+    tr = ct.ClusterTracer(scene, walk=walk)
+    rays = tuple(x[:16384 - 11].contiguous() for x in _terrain_rays(cuda))
+    per = tr.trace_stats(*rays)
+    walk_rays, _ = tr._walk_rays(*rays, None)
+    if walk == "wide":
+        tabs = (*tr.node_tables, tr.tri_rows)
+        steps = torch.zeros(2, dtype=torch.int64, device=cuda)
+        got = ct.trace_wide(*tabs, tr.n_wide, tr.max_stack, *walk_rays,
+                            False, steps=steps)
+        plain = ct.trace_wide(*tabs, tr.n_wide, tr.max_stack, *walk_rays,
+                              False)
+        _, counts = ss.wide_warp_schedule(*tabs, tr.max_stack, *walk_rays,
+                                          False)
+    else:
+        tabs = (*tr.node_tables, tr.tri_rows, tr.data.n_nodes)
+        steps = torch.zeros(2, dtype=torch.int64, device=cuda)
+        got = ct.trace_skip(*tabs, *walk_rays, False, steps=steps)
+        plain = ct.trace_skip(*tabs, *walk_rays, False)
+        _, counts = ss.warp_schedule(*tabs, *walk_rays, False)
+    assert per.shape == (-(-walk_rays[0].shape[0] // 32), 2)
+    assert np.array_equal(per, counts["warp_steps"].cpu().numpy())
+    assert per.sum(0).tolist() == [float(x) for x in steps.cpu()]
+    for a, b in zip(got, plain):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_mxu_tracer_against_soa_on_card(cuda):
+    """make_tracer(force="mxu") on the card against the SoA tracer at
+    tests/test_fast_tracers.py's tolerances; chunked equals unchunked."""
+    import warnings
+    from vimg_tpu_torch.geometry.soa_intersect import SoATracer
+    from vimg_tpu_torch.geometry.trace import make_tracer
+    b = SceneBuilder()
+    m = b.add_material(ir.MAT_LAMBERTIAN, base=(0.5, 0.5, 0.5))
+    r = np.random.default_rng(0)
+    c = r.uniform(-10, 10, (300, 3)).astype(np.float32)
+    v = (c[:, None] + r.uniform(-0.8, 0.8, (300, 3, 3))).astype(np.float32)
+    b.add_mesh(v.reshape(-1, 3), np.arange(900).reshape(300, 3), m)
+    for _ in range(20):
+        b.add_sphere(r.uniform(-10, 10, 3), r.uniform(0.2, 1.5), m)
+    scene = b.build(camera=dict(cam2world=np.eye(4, dtype=np.float32),
+                                width=8, height=8, vfov_deg=45.0),
+                    device=cuda)
+    n = 8192
+    ro = torch.as_tensor(r.uniform(-15, 15, (n, 3)), dtype=torch.float32,
+                         device=cuda)
+    rd = torch.as_tensor(r.normal(size=(n, 3)), dtype=torch.float32,
+                         device=cuda)
+    rd = rd / rd.norm(dim=1, keepdim=True)
+    mn = torch.full((n,), 1e-4, device=cuda)
+    mx = torch.full((n,), float("inf"), device=cuda)
+    with warnings.catch_warnings(record=True):
+        tr = make_tracer(scene, force="mxu")
+    got = tr.closest(scene, ro, rd, mn, mx)
+    ref = SoATracer(scene).closest(scene, ro, rd, mn, mx)
+    t1, t2 = ref.t.cpu().numpy(), got.t.cpu().numpy()
+    assert (np.isfinite(t1) == np.isfinite(t2)).mean() > 0.999
+    both = np.isfinite(t1) & np.isfinite(t2)
+    assert both.mean() > 0.05
+    assert np.allclose(t1[both], t2[both], rtol=1e-3, atol=1e-3)
+    assert (ref.prim_id.cpu().numpy()[both]
+            == got.prim_id.cpu().numpy()[both]).mean() > 0.999
+    tri = both & (ref.prim_type.cpu().numpy() == 0)
+    assert np.allclose(ref.u.cpu().numpy()[tri], got.u.cpu().numpy()[tri],
+                       atol=2e-3)
+    ten = torch.full((n,), 10.0, device=cuda)
+    occ = (SoATracer(scene).occluded(scene, ro, rd, mn, ten).cpu().numpy()
+           == tr.occluded(scene, ro, rd, mn, ten).cpu().numpy())
+    assert occ.mean() > 0.999
+    from vimg_tpu_torch.geometry.mxu_intersect import mxu_intersect
+    small = mxu_intersect(tr.W, tr.aux, ro, rd, mn, mx, tr.nt, tr.ns,
+                          max_bytes=1 << 16)
+    for k in ("t", "prim_type", "prim_id", "u", "v"):
+        assert torch.equal(getattr(small, k), getattr(got, k)), k

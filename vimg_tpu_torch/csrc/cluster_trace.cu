@@ -52,7 +52,15 @@
 // Launch contract: vimg_cluster_wide() / vimg_cluster_skip() launch on the
 // given stream, do not synchronise and allocate nothing; they return
 // cudaGetLastError(). Each adds its warp node and triangle steps to
-// steps[0] and steps[1] when steps is not null.
+// steps[0] and steps[1] when steps is not null, and writes warp w's to
+// warp_steps[2w] and warp_steps[2w + 1] (w < ceil(n_rays / 32)) when
+// warp_steps is not null (ClusterTracer.trace_stats); the launch without
+// either counter is the uncounted kernel. The totals are the column sums of
+// the per-warp rows; the (2,) counter stays because it is the interface
+// that earlier checkouts of the port share (compare_parent.py reads the
+// steps of this and an earlier checkout through the same call, and the card
+// tests and chip_smoke.py's phase 6 use it), and because it accumulates
+// across launches in a counter of fixed size.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -110,10 +118,18 @@ __device__ __forceinline__ bool lane_ray(int i, int n_rays,
 }
 
 __device__ __forceinline__ void add_steps(const cwalk::Steps& steps,
-                                          unsigned long long* steps_out) {
+                                          unsigned long long* steps_out,
+                                          unsigned long long* warp_out) {
   if ((threadIdx.x & 31) == 0) {
-    atomicAdd(steps_out, (unsigned long long)steps.node);
-    atomicAdd(steps_out + 1, (unsigned long long)steps.tri);
+    if (steps_out != nullptr) {
+      atomicAdd(steps_out, (unsigned long long)steps.node);
+      atomicAdd(steps_out + 1, (unsigned long long)steps.tri);
+    }
+    if (warp_out != nullptr) {
+      const size_t w = ((size_t)blockIdx.x * BLOCK + threadIdx.x) >> 5;
+      warp_out[2 * w] = steps.node;
+      warp_out[2 * w + 1] = steps.tri;
+    }
   }
 }
 
@@ -149,7 +165,7 @@ __device__ __forceinline__ bool wide_slab(const float* __restrict__ b,
 // (cwalk::leaf_round); an any-hit owner empties its stack. Every lane of a
 // warp with a ray takes part; lanes past n_rays and rays that do not walk
 // take part without a ray. kSteps: count the warp steps into
-// steps_out[0..1] (node steps: pops).
+// steps_out[0..1] and / or warp_out (node steps: pops).
 template <bool kSteps>
 __global__ void __launch_bounds__(BLOCK)
     cluster_wide_kernel(const float* __restrict__ wbox,
@@ -163,7 +179,8 @@ __global__ void __launch_bounds__(BLOCK)
                         int any_hit, float* __restrict__ t_out,
                         int* __restrict__ slot_out, float* __restrict__ u_out,
                         float* __restrict__ v_out,
-                        unsigned long long* __restrict__ steps_out) {
+                        unsigned long long* __restrict__ steps_out,
+                        unsigned long long* __restrict__ warp_out) {
   const int i = blockIdx.x * BLOCK + threadIdx.x;
   if (i - (int)(threadIdx.x & 31) >= n_rays) return;  // the whole warp
   Ray r;
@@ -207,13 +224,14 @@ __global__ void __launch_bounds__(BLOCK)
     if (stop) sp = 0;
   }
   if (i < n_rays) store(i, h, t_out, slot_out, u_out, v_out);
-  if (kSteps) add_steps(steps, steps_out);
+  if (kSteps) add_steps(steps, steps_out, warp_out);
 }
 
 // B4: stackless skip-link walk, n = live ? n + 1 : skip[n], its leaves run
 // by the warp (cwalk::warp_skip_walk). Every lane of a warp with a ray
 // takes part; lanes past n_rays and rays that do not walk take part
-// without a ray. kSteps: count the warp steps into steps_out[0..1].
+// without a ray. kSteps: count the warp steps into steps_out[0..1] and / or
+// warp_out.
 template <bool kSteps>
 __global__ void __launch_bounds__(BLOCK)
     cluster_skip_kernel(const float* __restrict__ aabb,
@@ -227,7 +245,8 @@ __global__ void __launch_bounds__(BLOCK)
                         int n_nodes, int any_hit, float* __restrict__ t_out,
                         int* __restrict__ slot_out, float* __restrict__ u_out,
                         float* __restrict__ v_out,
-                        unsigned long long* __restrict__ steps_out) {
+                        unsigned long long* __restrict__ steps_out,
+                        unsigned long long* __restrict__ warp_out) {
   const int i = blockIdx.x * BLOCK + threadIdx.x;
   if (i - (int)(threadIdx.x & 31) >= n_rays) return;  // the whole warp
   Ray r;
@@ -238,7 +257,7 @@ __global__ void __launch_bounds__(BLOCK)
   cwalk::warp_skip_walk<false, kSteps>(aabb, cid, skip, tri, n_nodes, r, h,
                                        any_hit, go, none, steps);
   if (i < n_rays) store(i, h, t_out, slot_out, u_out, v_out);
-  if (kSteps) add_steps(steps, steps_out);
+  if (kSteps) add_steps(steps, steps_out, warp_out);
 }
 
 }  // namespace
@@ -250,17 +269,18 @@ extern "C" int vimg_cluster_wide(const float* wbox, const int* wref,
                                  int n_rays, int n_wide, int any_hit,
                                  float* t_out, int* slot_out, float* u_out,
                                  float* v_out, unsigned long long* steps,
+                                 unsigned long long* warp_steps,
                                  void* stream) {
   (void)n_wide;  // the refs bound the walk; checked by the wrapper
   int blocks = (n_rays + BLOCK - 1) / BLOCK;
-  if (steps != nullptr)
+  if (steps != nullptr || warp_steps != nullptr)
     cluster_wide_kernel<true><<<blocks, BLOCK, 0, (cudaStream_t)stream>>>(
         wbox, wref, clbox, tri, ro, rd, minT, maxT, n_rays, any_hit, t_out,
-        slot_out, u_out, v_out, steps);
+        slot_out, u_out, v_out, steps, warp_steps);
   else
     cluster_wide_kernel<false><<<blocks, BLOCK, 0, (cudaStream_t)stream>>>(
         wbox, wref, clbox, tri, ro, rd, minT, maxT, n_rays, any_hit, t_out,
-        slot_out, u_out, v_out, steps);
+        slot_out, u_out, v_out, steps, warp_steps);
   return (int)cudaGetLastError();
 }
 
@@ -271,15 +291,16 @@ extern "C" int vimg_cluster_skip(const float* aabb, const int* cid,
                                  int n_rays, int n_nodes, int any_hit,
                                  float* t_out, int* slot_out, float* u_out,
                                  float* v_out, unsigned long long* steps,
+                                 unsigned long long* warp_steps,
                                  void* stream) {
   int blocks = (n_rays + BLOCK - 1) / BLOCK;
-  if (steps != nullptr)
+  if (steps != nullptr || warp_steps != nullptr)
     cluster_skip_kernel<true><<<blocks, BLOCK, 0, (cudaStream_t)stream>>>(
         aabb, cid, skip, tri, ro, rd, minT, maxT, n_rays, n_nodes, any_hit,
-        t_out, slot_out, u_out, v_out, steps);
+        t_out, slot_out, u_out, v_out, steps, warp_steps);
   else
     cluster_skip_kernel<false><<<blocks, BLOCK, 0, (cudaStream_t)stream>>>(
         aabb, cid, skip, tri, ro, rd, minT, maxT, n_rays, n_nodes, any_hit,
-        t_out, slot_out, u_out, v_out, steps);
+        t_out, slot_out, u_out, v_out, steps, warp_steps);
   return (int)cudaGetLastError();
 }

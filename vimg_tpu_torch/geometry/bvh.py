@@ -271,18 +271,21 @@ def _bvh_levels(node_count, node_right):
 
 def build_scene_bvh(scene: ir.Scene, builder="auto") -> BVHArrays:
     """The scene's BVH on its device. ``builder``: auto | native | sweep
-    | numpy. "sweep" is the reference's ``-b 1`` exact sweep SAH
-    (native); "auto" and "native" the binned SAH in C++, "auto" falling
-    back to numpy where the C++ builder cannot be built, as vimg_tpu's.
-    "device" (vimg_tpu's sweep SAH on the accelerator) is ROADMAP item
-    A4b."""
-    if builder == "device":
-        raise NotImplementedError("builder='device' (the sweep-SAH build on "
-                                  "the accelerator) is ROADMAP item A4b")
-    if builder not in ("auto", "native", "sweep", "numpy"):
+    | device | numpy. "sweep" is the reference's ``-b 1`` exact sweep SAH
+    (native); "device" the same sweep SAH level by level on the scene's
+    device (geometry/device_build.py: kernel X3 on the card, its plain
+    version on the CPU); "auto" and "native" the binned SAH in C++, "auto"
+    falling back to numpy where the C++ builder cannot be built, as
+    vimg_tpu's."""
+    if builder not in ("auto", "native", "sweep", "device", "numpy"):
         raise ValueError(f"unknown BVH builder {builder!r}")
     bmin, bmax, centers, ptype, pidx = scene_prim_bounds(scene)
     built = None
+    if builder == "device":
+        from vimg_tpu_torch.geometry.device_build import \
+            build_sweep_sah_device
+        built = build_sweep_sah_device(bmin, bmax, centers,
+                                       device=scene.device)
     if builder in ("auto", "native", "sweep"):
         try:
             from vimg_tpu_torch.runtime.native import build_bvh_native

@@ -233,10 +233,13 @@ class ClusterData:
     """Packed cluster tables (host numpy).
 
     ``builder``: "auto" = the native C++ binned-SAH builder (no fallback:
-    it raises if it cannot be built), "numpy" = the oracle builder. The
-    tables are byte-identical to vimg_tpu's ClusterData for the same
-    builder. vimg_tpu's ``with_attrs`` table (vertex normals for the mesh
-    megakernel) comes with kernel B2."""
+    it raises if it cannot be built), "device" = the sweep SAH level by
+    level on the scene's device (geometry/device_build.py: kernel X3 on
+    the card), "numpy" = the oracle builder. The tables are
+    byte-identical to vimg_tpu's ClusterData for the same builder (for
+    "device", vimg_tpu's build computed as written, without fused
+    multiply-adds). vimg_tpu's ``with_attrs`` table (vertex normals for
+    the mesh megakernel) comes with kernel B2."""
 
     def __init__(self, scene: ir.Scene, max_k=CLUSTER_K, builder="auto"):
         verts = scene.verts.cpu().numpy()
@@ -251,8 +254,14 @@ class ClusterData:
         elif builder == "auto":
             from vimg_tpu_torch.runtime.native import build_bvh_native
             built = build_bvh_native(bmin, bmax, centers, mode=0)
+        elif builder == "device":
+            from vimg_tpu_torch.geometry.device_build import \
+                build_sweep_sah_device
+            built = build_sweep_sah_device(bmin, bmax, centers,
+                                           device=scene.device)
         else:
-            raise ValueError(f"unknown builder {builder!r} (auto | numpy)")
+            raise ValueError(f"unknown builder {builder!r} "
+                             f"(auto | device | numpy)")
         if "node_right" not in built:
             # preorder invariant: left child = i+1, skip(left) = right
             count = built["node_count"]
@@ -608,7 +617,7 @@ def _device_of(ro):
 
 
 def trace_wide(boxes, refs, cl_boxes, tri, n_wide, max_stack, ro, rd, minT,
-               maxT, any_hit, steps=None):
+               maxT, any_hit, steps=None, warp_steps=None):
     """Kernel B3 (CUDA tensors) or wide_walk_plain (CPU tensors).
 
     Replaces vimg_tpu/geometry/cluster_trace.py::_make_wide_kernel, the
@@ -623,8 +632,12 @@ def trace_wide(boxes, refs, cl_boxes, tri, n_wide, max_stack, ro, rd, minT,
     different nodes), not bytes or flops; the Morton ray sort in
     ClusterTracer keeps warps coherent. ``steps``, a (2,) int64 CUDA
     tensor, gets the warp node steps (pops) and warp triangle steps added
-    to it (``skip_schedule.wide_warp_schedule`` replays the same counts).
-    See csrc/cluster_trace.cu."""
+    to it (``skip_schedule.wide_warp_schedule`` replays the same counts);
+    ``warp_steps``, an (n_warps, 2) int64 CUDA tensor (n_warps =
+    ceil(N / 32)), gets each warp's two counts written into its row.
+    Either counter selects the counted kernel; without both the uncounted
+    one runs. The totals are the rows' column sums; both are kept as
+    csrc/cluster_trace.cu's launch contract says."""
     global LAUNCHES_WIDE
     if _device_of(ro).type == "cpu":
         return wide_walk_plain(boxes, refs, cl_boxes, tri, max_stack, ro, rd,
@@ -643,7 +656,7 @@ def trace_wide(boxes, refs, cl_boxes, tri, n_wide, max_stack, ro, rd, minT,
         _check_aligned(x, name, "B3")
     out, launched = _launch("vimg_cluster_wide", (boxes, refs, cl_boxes, tri),
                             specs, n_wide, ro, rd, minT, maxT, any_hit,
-                            _steps_arg(steps, ro))
+                            _steps_arg(steps, warp_steps, ro))
     LAUNCHES_WIDE += launched
     return out
 
@@ -654,16 +667,20 @@ def _check_aligned(x, name, kernel):
                          f"tensor must start 16-byte aligned")
 
 
-def _steps_arg(steps, ro):
-    """The launcher's steps pointer: a checked (2,) int64 tensor or null."""
-    if steps is None:
-        return (None,)
-    _check(steps, "steps", torch.int64, (2,), ro.device)
-    return (steps.data_ptr(),)
+def _steps_arg(steps, warp_steps, ro):
+    """The launcher's two counter pointers: a checked (2,) int64 tensor or
+    null, and a checked (ceil(N / 32), 2) int64 tensor or null."""
+    if steps is not None:
+        _check(steps, "steps", torch.int64, (2,), ro.device)
+    if warp_steps is not None:
+        _check(warp_steps, "warp_steps", torch.int64,
+               (-(-ro.shape[0] // 32), 2), ro.device)
+    return tuple(None if x is None else x.data_ptr()
+                 for x in (steps, warp_steps))
 
 
 def trace_skip(aabbs, cid, skip, tri, n_nodes, ro, rd, minT, maxT, any_hit,
-               steps=None):
+               steps=None, warp_steps=None):
     """Kernel B4 (CUDA tensors) or skip_walk_plain (CPU tensors).
 
     Replaces vimg_tpu/geometry/cluster_trace.py::_make_trace_kernel, the
@@ -677,7 +694,8 @@ def trace_skip(aabbs, cid, skip, tri, n_nodes, ro, rd, minT, maxT, any_hit,
     16-byte aligned (a misaligned view raises). ``steps``, a (2,) int64
     CUDA tensor, gets the warp node steps and warp triangle steps added to
     it (the lane fill is the plain walk's tri_tests / (32 x triangle
-    steps); ``skip_schedule.warp_schedule`` replays the same counts)."""
+    steps); ``skip_schedule.warp_schedule`` replays the same counts);
+    ``warp_steps`` as trace_wide's."""
     global LAUNCHES_SKIP
     if _device_of(ro).type == "cpu":
         return skip_walk_plain(aabbs, cid, skip, tri, n_nodes, ro, rd, minT,
@@ -692,7 +710,7 @@ def trace_skip(aabbs, cid, skip, tri, n_nodes, ro, rd, minT, maxT, any_hit,
         _check_aligned(x, name, "B4")
     out, launched = _launch("vimg_cluster_skip", (aabbs, cid, skip, tri),
                             specs, n_nodes, ro, rd, minT, maxT, any_hit,
-                            _steps_arg(steps, ro))
+                            _steps_arg(steps, warp_steps, ro))
     LAUNCHES_SKIP += launched
     return out
 
@@ -745,10 +763,12 @@ class ClusterTracer:
 
     ``walk``: "wide" (B3), "skip" (B4) or "auto" = wide up to
     WIDE_MAX_CLUSTERS clusters. ``sort_rays=False`` skips the Morton sort
-    (hits do not depend on it). ``plain=True`` runs the plain walks on any
-    device (the kernels' reference on the card). ``data`` reuses the
-    ClusterData of another tracer of the same scene (or one built with the
-    numpy builder). vimg_tpu's TPU scheduling options
+    (hits do not depend on it); ``sort_mode`` is its key's (``ray_sort_key``:
+    "origin" or "dir"). ``plain=True`` runs the plain walks on any
+    device (the kernels' reference on the card). ``builder`` picks
+    ClusterData's tree builder (auto | device | numpy, vimg_tpu's
+    keyword); ``data`` reuses the ClusterData of another tracer of the
+    same scene instead. vimg_tpu's TPU scheduling options
     (tile_rows, mode, group_gate, walks, wide_batch, probe_leaf,
     sub_width) are not ported: its tests show they do not change hits.
     """
@@ -761,11 +781,12 @@ class ClusterTracer:
     presortable = True
 
     def __init__(self, scene: ir.Scene, walk="auto", sort_rays=True,
-                 plain=False, data=None):
+                 plain=False, data=None, builder="auto",
+                 sort_mode="origin"):
         dev = scene.device
         if dev.type not in ("cpu", "cuda"):
             raise NotImplementedError(f"no cluster walk for device {dev}")
-        self.data = data or ClusterData(scene, CLUSTER_K)
+        self.data = data or ClusterData(scene, CLUSTER_K, builder=builder)
         if walk == "auto":
             walk = ("wide" if self.data.n_clusters <= WIDE_MAX_CLUSTERS
                     else "skip")
@@ -774,6 +795,7 @@ class ClusterTracer:
         self.walk = walk
         self.plain = plain
         self.sort_rays = sort_rays
+        self.sort_mode = sort_mode
 
         def flat(a):
             return torch.from_numpy(np.ascontiguousarray(a).reshape(-1)).to(dev)
@@ -797,23 +819,32 @@ class ClusterTracer:
     def sort_order(self, ro, rd, maxT):
         """The Morton permutation of the rays; idle lanes (maxT = -inf)
         go to the tail."""
-        key = ray_sort_key(ro, rd, *self.bounds)
+        key = ray_sort_key(ro, rd, *self.bounds, mode=self.sort_mode)
         key = torch.where(maxT == -float("inf"), 2 ** 31 - 1, key)
         return torch.argsort(key, stable=True)
 
-    def trace(self, ro, rd, minT, maxT, any_hit, sort=None):
-        """(t, slot, u, v) of the configured walk on the given rays, in
-        their order (the Morton sort above SORT_MIN_RAYS, on unless
-        ``sort`` or else ``sort_rays`` is false, is undone)."""
+    def _walk_rays(self, ro, rd, minT, maxT, sort):
+        """The rays as the walk takes them: contiguous, minT and maxT one
+        a ray, in Morton order above SORT_MIN_RAYS unless ``sort`` or else
+        ``sort_rays`` is false. Returns (rays, order or None)."""
         B = ro.shape[0]
         ro, rd = ro.contiguous(), rd.contiguous()
         minT = minT.expand(B).contiguous()
         maxT = maxT.expand(B).contiguous()
         do_sort = (self.sort_rays if sort is None else sort) \
             and B > SORT_MIN_RAYS
-        if do_sort:
-            order = self.sort_order(ro, rd, maxT)
-            ro, rd, minT, maxT = ro[order], rd[order], minT[order], maxT[order]
+        if not do_sort:
+            return (ro, rd, minT, maxT), None
+        order = self.sort_order(ro, rd, maxT)
+        return (ro[order], rd[order], minT[order], maxT[order]), order
+
+    def trace(self, ro, rd, minT, maxT, any_hit, sort=None):
+        """(t, slot, u, v) of the configured walk on the given rays, in
+        their order (the Morton sort above SORT_MIN_RAYS, on unless
+        ``sort`` or else ``sort_rays`` is false, is undone)."""
+        (ro, rd, minT, maxT), order = self._walk_rays(ro, rd, minT, maxT,
+                                                      sort)
+        do_sort = order is not None
         rays = (ro, rd, minT, maxT, any_hit)
         if self.walk == "wide" and self.plain:
             out = wide_walk_plain(*self.node_tables, self.tri_rows,
@@ -834,6 +865,48 @@ class ClusterTracer:
                 return y
             out = tuple(unsort(x) for x in out)
         return out
+
+    def trace_stats(self, ro, rd, minT, maxT, any_hit=False):
+        """Per-warp work of the walk on a ray batch: a numpy (n_warps, 2)
+        float32 array, row w = (node steps, triangle steps) of warp w, the
+        32 rays w*32 .. w*32 + 31 in the tracer's ray order (Morton-sorted
+        as ``trace`` sorts them; a ragged last warp has fewer rays).
+
+        vimg_tpu's ``trace_stats`` returns (node visits, live leaf visits)
+        per ray tile of tile_rows x 128 rays, counts that depend on its TPU
+        tiling. Here a group is a warp, the unit that walks together on
+        the card, and its counts are the warp steps that kernels B3 and B4
+        count: a node step is the most nodes any lane tested in a round's
+        node phase (summed over rounds), a triangle step runs two gated
+        16-triangle units of the warp's live leaves (ROADMAP C27). On the
+        card they come from a counted launch of the walk (its
+        ``warp_steps`` counter); on the CPU, or with ``plain=True``, from
+        the replay of the warp's schedule (skip_schedule.warp_schedule /
+        wide_warp_schedule), which equals it."""
+        from vimg_tpu_torch.geometry import skip_schedule as ss
+        ro, rd, minT, maxT = detached_rays(ro, rd, minT, maxT)
+        rays, _ = self._walk_rays(ro, rd, minT, maxT, None)
+        ro = rays[0]
+        if ro.device.type == "cpu" or self.plain:
+            if self.walk == "wide":
+                _, c = ss.wide_warp_schedule(*self.node_tables,
+                                             self.tri_rows, self.max_stack,
+                                             *rays, any_hit)
+            else:
+                _, c = ss.warp_schedule(*self.node_tables, self.tri_rows,
+                                        self.data.n_nodes, *rays, any_hit)
+            per = c["warp_steps"]
+        else:
+            per = torch.zeros((-(-ro.shape[0] // 32), 2), dtype=torch.int64,
+                              device=ro.device)
+            if self.walk == "wide":
+                trace_wide(*self.node_tables, self.tri_rows, self.n_wide,
+                           self.max_stack, *rays, any_hit, warp_steps=per)
+            else:
+                trace_skip(*self.node_tables, self.tri_rows,
+                           self.data.n_nodes, *rays, any_hit,
+                           warp_steps=per)
+        return per.cpu().numpy().astype(np.float32)
 
     # Gradients: the rays reach the walk detached (vimg_tpu's zero-tangent
     # traversal, the detached-sampling estimator's treatment of discrete

@@ -47,7 +47,11 @@ summed over warps, and the plain walk's ``box_tests`` and ``tri_tests``
 (16 per gated sub-box). The lane fill is tri_tests / (32 x tri_steps).
 Kernels B4 and B3 count the same two warp steps on the card
 (``trace_skip``'s and ``trace_wide``'s ``steps``), so the warp
-schedules' counts are the kernels' exactly.
+schedules' counts are the kernels' exactly. The warp schedules also
+return ``warp_steps``, an (n_warps, 2) int64 tensor of each warp's node
+and triangle steps (their column sums are ``node_steps`` and
+``tri_steps``): the rows of ``ClusterTracer.trace_stats`` on the CPU, and
+what the kernels' per-warp counter (``warp_steps``) writes on the card.
 """
 from __future__ import annotations
 
@@ -277,12 +281,17 @@ def _ordered(t):
     return torch.where(b >= 0x80000000, b ^ 0xFFFFFFFF, b | 0x80000000)
 
 
-def unit_steps(lanes, units, n_warps):
-    """Triangle steps of a leaf round: the posted ``lanes``' ``units`` (16
-    triangles each) run two a step, a half-warp each, warp by warp."""
+def warp_unit_steps(lanes, units, n_warps):
+    """Each warp's triangle steps in a leaf round: the posted ``lanes``'
+    ``units`` (16 triangles each) run two a step, a half-warp each."""
     per = torch.zeros(n_warps, dtype=torch.int64, device=lanes.device)
     per.index_add_(0, lanes // WARP, units)
-    return int(((per + 1) // 2).sum())
+    return (per + 1) // 2
+
+
+def unit_steps(lanes, units, n_warps):
+    """Triangle steps of a leaf round, summed over the warps."""
+    return int(warp_unit_steps(lanes, units, n_warps).sum())
 
 
 def merge_hits(cand, tt):
@@ -307,6 +316,7 @@ def _warp_run(walk, tri, ro, rd, minT, maxT, any_hit, mask):
     M = t.shape[0]
     W = M // WARP
     counts = dict(node_steps=0, tri_steps=0, box_tests=0, tri_tests=0)
+    per_warp = torch.zeros((W, 2), dtype=torch.int64, device=dev)
     w = walk(go)
     every = torch.arange(M, device=dev)
     while True:
@@ -319,7 +329,7 @@ def _warp_run(walk, tri, ro, rd, minT, maxT, any_hit, mask):
             leaf, c = w.step(act, t, rays, inv, counts)
             post[act[leaf]] = c[leaf]
             act = act[~leaf & w.walking(act)]
-        _add(counts, "node_steps", steps.view(W, WARP).amax(1).sum())
+        per_warp[:, 0] += steps.view(W, WARP).amax(1)
         i = torch.nonzero(post >= 0)[:, 0]
         if not i.numel():
             break
@@ -329,7 +339,7 @@ def _warp_run(walk, tri, ro, rd, minT, maxT, any_hit, mask):
                                        mn_[i], t[i])
         _add(counts, "box_tests", gate.numel())
         _add(counts, "tri_tests", SUB * gate.sum())
-        _add(counts, "tri_steps", unit_steps(i, gate.sum(1), W))
+        per_warp[:, 1] += warp_unit_steps(i, gate.sum(1), W)
         found, k = merge_hits(cand, tt)
         if any_hit:
             t[i[found]] = -float("inf")
@@ -340,6 +350,8 @@ def _warp_run(walk, tri, ro, rd, minT, maxT, any_hit, mask):
         u[j] = uu[found].gather(1, kf)[:, 0]
         v[j] = vv[found].gather(1, kf)[:, 0]
         slot[j] = (cl[found] * CLUSTER_K + kf[:, 0]).to(torch.int32)
+    counts.update(node_steps=int(per_warp[:, 0].sum()),
+                  tri_steps=int(per_warp[:, 1].sum()), warp_steps=per_warp)
     return (t[:N], slot[:N], u[:N], v[:N]), counts
 
 

@@ -4,6 +4,9 @@ backend for a scene.
 - ``soa``: the dense SoA tracer, the default up to BRUTE_FORCE_MAX_PRIMS
   primitives;
 - ``brute``: the brute-force tracer;
+- ``mxu``: the brute-force tracer over one product per batch
+  (``mxu_intersect.MXUBruteForceTracer``), only when asked for and with
+  vimg_tpu's warning: an experimental formulation there;
 - ``cluster``: the cluster tracer (kernels B3/B4 on CUDA, their plain
   walks on the CPU), the default for larger scenes with triangles and at
   most 64 spheres;
@@ -43,9 +46,9 @@ class BruteForceTracer:
 
 
 def make_tracer(scene: ir.Scene, force=None, differentiable=False):
-    """Pick the intersection backend: ``soa``, ``brute``, ``cluster``,
-    ``packet``, ``bvh`` or ``sweep`` (``force`` names one; None picks as
-    the module docstring says).
+    """Pick the intersection backend: ``soa``, ``brute``, ``mxu``,
+    ``cluster``, ``packet``, ``bvh`` or ``sweep`` (``force`` names one;
+    None picks as the module docstring says).
 
     ``differentiable=True`` (vimg_tpu's keyword) is met by every backend:
     the dense tracers are tensor code that autograd runs through (t and
@@ -58,9 +61,12 @@ def make_tracer(scene: ir.Scene, force=None, differentiable=False):
     if force == "brute":
         return BruteForceTracer(scene)
     if force == "mxu":
-        raise NotImplementedError(
-            "force='mxu' is vimg_tpu's parked matrix-unit formulation "
-            "(about 2e-3 intersection error); it is not ported")
+        import warnings
+        warnings.warn("force='mxu' is an experimental formulation with "
+                      "~2e-3 intersection error on this platform; use "
+                      "'soa'/'cluster' for production renders")
+        from vimg_tpu_torch.geometry.mxu_intersect import MXUBruteForceTracer
+        return MXUBruteForceTracer(scene)
     if force == "soa" or (force is None and n_prims <= BRUTE_FORCE_MAX_PRIMS):
         from vimg_tpu_torch.geometry.soa_intersect import SoATracer
         return SoATracer(scene)

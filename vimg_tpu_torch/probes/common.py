@@ -6,6 +6,7 @@ import argparse
 import ctypes
 import json
 import subprocess
+import time
 
 import torch
 
@@ -85,6 +86,22 @@ def device_ms(fn, reps=20):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def sync(device):
+    """Wait for the card's queued work (nothing on the CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def host_seconds(fn, device):
+    """(seconds, result) of one call of ``fn`` by the host's clock,
+    synchronised before and after."""
+    sync(device)
+    t0 = time.time()
+    out = fn()
+    sync(device)
+    return time.time() - t0, out
 
 
 def card_line(device):

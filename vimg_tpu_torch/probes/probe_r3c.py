@@ -12,14 +12,23 @@ step's sum, so nothing hoists.
 shared memory, the counterpart of SMEM) for CUDA tensors and
 ``smem_read_plain`` for CPU tensors. ``smem_read_cost`` is the probe:
 records carry the TPU probe's keys (probe, packed, n_reads, us_per_iter,
-ns_per_read). tools/probe_r3c.py's xla_gather and hit_info_cost measure
-XLA gathers and a package function and are not ported yet (ROADMAP).
+ns_per_read).
+
+The tool's other two measurements run the port's own path: ``xla_gather``
+(row gathers of the tool's three tables, a 4 x 16 material table, 100,000
+x 4 triangle attributes and a 512^2 x 4 texture, through
+``torch.index_select`` and a row sum, at 131,072 and 1,048,576 ids) and
+``hit_info_cost`` (``intersect.hit_info`` on 131,072 bounce rays' closest
+hits over terrain 100k). Device ms a call (5 calls queued behind a
+spinning kernel); None on the CPU.
 
 Run: ``python -m vimg_tpu_torch.probes.probe_r3c [--device cpu]
-[--n-iter N] [--out records.jsonl]``.
+[--n-iter N] [--out records.jsonl]``: the kernel probe, then
+``xla_gather`` and ``hit_info_cost``.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from vimg_tpu_torch.probes import common
@@ -116,11 +125,71 @@ def smem_read_cost(device="cuda", n_iter=N_ITER, log=None):
     return x, tab, res
 
 
+GATHER_TABLES = ((4, 16, "mat_table"), (100_000, 4, "tri_attrs"),
+                 (262_144, 4, "texture512"))
+
+
+def xla_gather(device="cuda", sizes=(131072, 1048576),
+               tables=GATHER_TABLES, log=None):
+    """The tool's gathers: index_select of B random rows of each table and
+    their row sums; logs ms and ns_per_row (None on the CPU). Returns
+    {(B, name): (table, ids, out)}."""
+    dev = common.resolve_device(device)
+    log = log or common.Log(dev)
+    res = {}
+    for B in sizes:
+        for rows, width, name in tables:
+            tab = torch.from_numpy(np.random.RandomState(0).rand(
+                rows, width).astype(np.float32)).to(dev)
+            idx = torch.from_numpy(np.random.RandomState(1).randint(
+                0, rows, B).astype(np.int32)).to(dev)
+
+            def f():
+                return torch.index_select(tab, 0, idx).sum(-1)
+            out = f()
+            ms = common.device_ms(f, reps=5) if dev.type == "cuda" else None
+            log(probe="xla_gather", B=B, table=name, rows=rows, width=width,
+                ms=ms, ns_per_row=None if ms is None else ms / B * 1e6)
+            res[(B, name)] = (tab, idx, out)
+    return res
+
+
+def hit_info_cost(device="cuda", n_tris=100_000, B=131072, log=None):
+    """The tool's hit_info cost: ClusterTracer's closest hits of the
+    bounce rays (probe_r3b.bounce_batches) over terrain ``n_tris``, then
+    ``intersect.hit_info`` reduced to p.sum + n_s.sum + n_g.sum; logs ms
+    and us_per_lane (None on the CPU). Returns the sum."""
+    from vimg_tpu_torch.geometry import intersect
+    from vimg_tpu_torch.geometry.cluster_trace import ClusterTracer
+    from vimg_tpu_torch.probes.probe_r3b import bounce_batches
+    from vimg_tpu_torch.scene.synthetic import terrain_scene
+    dev = common.resolve_device(device)
+    log = log or common.Log(dev)
+    scene = terrain_scene(n_tris, 512, 256, device=dev)
+    ro, rd = bounce_batches(scene, B)
+    hr = ClusterTracer(scene).closest(
+        scene, ro, rd, torch.full((B,), 1e-4, device=dev),
+        torch.full((B,), float("inf"), device=dev))
+
+    def f():
+        hi = intersect.hit_info(scene, ro, rd, hr)
+        return hi.p.sum() + hi.n_s.sum() + hi.n_g.sum()
+    out = f()
+    ms = common.device_ms(f, reps=5) if dev.type == "cuda" else None
+    log(probe="hit_info", B=B, ms=ms,
+        us_per_lane=None if ms is None else ms / B * 1e3,
+        value=float(out))
+    return out
+
+
 def main(argv=None):
     args = common.parse_args(__doc__, argv, (
         ("--n-iter", dict(type=int, default=N_ITER)),))
     dev = common.resolve_device(args.device)
-    smem_read_cost(dev, args.n_iter, common.Log(dev, args.out))
+    log = common.Log(dev, args.out)
+    smem_read_cost(dev, args.n_iter, log)
+    xla_gather(dev, log=log)
+    hit_info_cost(dev, log=log)
 
 
 if __name__ == "__main__":

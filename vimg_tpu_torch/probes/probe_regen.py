@@ -9,12 +9,19 @@ pop one, then the entries 0..sp are summed: 423 for these pushes. Output
 shared memory, the counterpart of SMEM) for CUDA tensors and
 ``stack_sum_plain`` for CPU tensors. ``probe_smem_dynamic_write`` is the
 probe: its record carries the TPU probe's keys (probe, ok, v) and the
-launch time. tools/probe_regen.py's sweep_regen and depth_decomposition
-drive the TPU megakernel's regeneration knob and are not ported yet
-(ROADMAP).
+launch time.
+
+``depth_decomposition`` runs the port's mesh megakernel B2
+(``render_megakernel``) on terrain 100k at 512x256 @ 32 spp MIS with
+max_depth 1, 2, 3, 6 and 64: the second of two renders is timed, with its
+segments, shadow rays and the walk's box and triangle tests and warp
+steps (B2's counters; the plain version's on the CPU). The tool's
+``regen_frac`` and ``rows`` are TPU knobs and are dropped; its
+``sweep_regen`` sweeps only them and is not ported. Times are None on the
+CPU.
 
 Run: ``python -m vimg_tpu_torch.probes.probe_regen [--device cpu]
-[--out records.jsonl]``.
+[--out records.jsonl]``: the kernel probe, then ``depth_decomposition``.
 """
 from __future__ import annotations
 
@@ -71,10 +78,43 @@ def probe_smem_dynamic_write(device="cuda", log=None):
     return x, out, ms
 
 
+MEGA_STATS = ("segments", "shadow_rays", "box_tests", "tri_tests",
+              "warp_node_steps", "warp_tri_steps")
+
+
+def depth_decomposition(device="cuda", n_tris=100_000, size=(512, 256),
+                        spp=32, depths=(1, 2, 3, 6, 64), log=None):
+    """The tool's depth sweep over B2; logs per depth mpaths, secs (None
+    on the CPU) and B2's stats. Returns {depth: (image, stats)}."""
+    from vimg_tpu_torch.render.mega.kernel import render_megakernel
+    from vimg_tpu_torch.scene import ir
+    from vimg_tpu_torch.scene.synthetic import terrain_scene
+    dev = common.resolve_device(device)
+    log = log or common.Log(dev)
+    W, H = size
+    scene = terrain_scene(n_tris, W, H, device=dev)
+    res = {}
+    for depth in depths:
+        st = ir.RenderSettings(W, H, spp=spp, max_depth=depth,
+                               integrator="mis", batch_size=1 << 18)
+        render_megakernel(scene, st)
+        dt, (img, stats) = common.host_seconds(
+            lambda: render_megakernel(scene, st, return_stats=True), dev)
+        card = dev.type == "cuda"
+        log(probe="depth", depth=depth,
+            mpaths=W * H * spp / dt / 1e6 if card else None,
+            secs=dt if card else None,
+            **{k: int(stats[k]) for k in MEGA_STATS if k in stats})
+        res[depth] = (img, stats)
+    return res
+
+
 def main(argv=None):
     args = common.parse_args(__doc__, argv)
     dev = common.resolve_device(args.device)
-    probe_smem_dynamic_write(dev, common.Log(dev, args.out))
+    log = common.Log(dev, args.out)
+    probe_smem_dynamic_write(dev, log)
+    depth_decomposition(dev, log=log)
 
 
 if __name__ == "__main__":

@@ -43,10 +43,35 @@ order and unsorted, into one packed (total, 16) float32 table of first
 hits and the rays that produced them (``trace_primaries``); a refilled
 lane then reads its row and skips its camera trace in the superstep. The
 table is allocated once and the chunks are written into it, so its peak
-is its own 64 bytes a path. vimg_tpu's ``ablate`` hook is not ported.
+is its own 64 bytes a path.
+
+``make_superstep(..., ablate=)`` is vimg_tpu's diagnosis hook
+(``probes/ablate_superstep.py`` drives it): a set of stage names whose
+work is replaced by a cheap stand-in, so that timing a superstep with and
+without each stage splits its cost. The keys and stand-ins are vimg_tpu's
+(``ABLATE_KEYS``); production callers leave the set empty, and then the
+superstep runs exactly its usual code. vimg_tpu's stand-ins keep their
+inputs alive (``* 1e-30``, ``* 0.0`` terms) so that XLA cannot drop the
+work around them; an eager loop drops nothing, so here they only keep the
+state's values what vimg_tpu's variant computes. What each leaves out on
+the card:
+
+- ``film``: the three index_add_ scatters of finished paths (the film
+  gets sum(result) * 1e-30 everywhere instead);
+- ``cumsum``: the prefix sum of free lanes (lane i takes slot i);
+- ``nee``: light sampling, the shadow trace and the NEE BSDF eval;
+- ``shadow``: the shadow trace only (nothing is occluded);
+- ``beval``: both BSDF evals (a cosine lobe, pdf |cos| / pi, f = pdf / 2);
+- ``bsample``: the BSDF sample (a cosine-hemisphere direction);
+- ``trace``: the closest trace (every ray hits primitive 0, a sphere, at
+  t = 1, u = v = 0.3);
+- ``hitinfo``: the hit's shading data (material 0, the normal -rd);
+- ``bg``: the background lookup (0.1 radiance, pdf 0.25).
+With ``beval`` and ``bsample`` both set the texture inputs are not fetched.
 """
 from __future__ import annotations
 
+import math
 import os
 import time
 
@@ -54,9 +79,10 @@ import numpy as np
 import torch
 
 from vimg_tpu_torch.core import rng
-from vimg_tpu_torch.core.math import div
+from vimg_tpu_torch.core.math import div, dot, onb_to_world
 from vimg_tpu_torch.core.raycone import propagate_refract
 from vimg_tpu_torch.core.rng import Draw
+from vimg_tpu_torch.core.warps import sample_hemisphere_cosine
 from vimg_tpu_torch.geometry import intersect
 from vimg_tpu_torch.lights import emitters
 from vimg_tpu_torch.materials import bsdf
@@ -80,6 +106,10 @@ _PRE_FIELDS = (("pre_t", "t"), ("pre_ptype", "prim_type"),
 _PRE_INT = ("prim_type", "prim_id")
 # stats dict of the latest render_wavefront (what return_stats returns)
 LAST_STATS = None
+# the stages make_superstep's ``ablate`` can replace (vimg_tpu's keys)
+ABLATE_KEYS = frozenset(("film", "cumsum", "nee", "shadow", "beval",
+                         "bsample", "trace", "hitinfo", "bg"))
+INV_PI = 1.0 / math.pi
 
 
 def morton_pixel_order(W, H):
@@ -136,24 +166,44 @@ def init_state(B, device, cones=False, prepass=False, sample_offset=0):
 
 
 def make_superstep(scene: ir.Scene, settings: ir.RenderSettings, tracer,
-                   total_paths: int, morton_pix=None, pre_tab=None):
+                   total_paths: int, morton_pix=None, pre_tab=None,
+                   ablate=frozenset()):
     """Returns superstep(state, accum) -> (state, accum); ``accum`` is the
     (3, H*W) film, ``morton_pix`` the work order's pixel ids (int64; None:
     raster order), ``pre_tab`` the pre-pass table (None: fresh lanes trace
-    their camera rays in the superstep)."""
+    their camera rays in the superstep), ``ablate`` the stages replaced by
+    stand-ins (module docstring; empty for a render)."""
+    ab = frozenset(ablate)
+    if not ab <= ABLATE_KEYS:
+        raise ValueError(f"unknown ablate keys {sorted(ab - ABLATE_KEYS)} "
+                         f"({sorted(ABLATE_KEYS)})")
     spp = settings.spp
     n_lights = scene.n_lights()
     nl = max(n_lights, 1)
     cones = scene.needs_cones
+    n_pix = settings.width * settings.height
+    # more work than the frame holds (the ablate probe's endless run): work
+    # ids past the frame name pixels below it, whose paths the film drops,
+    # as vimg_tpu's scatter drops out-of-range indices
+    past_frame = morton_pix is None and total_paths > n_pix * spp
 
     def refill(s, accum, finished):
         """Add finished paths to the film and pull new work."""
-        done = torch.nonzero(finished)[:, 0]
-        accum.index_add_(1, s["pix"][done], s["result"][done].T)
+        if "film" in ab:
+            accum = accum + torch.where(finished[:, None], s["result"],
+                                        0.0).sum() * 1e-30
+        else:
+            on_film = finished & (s["pix"] < n_pix) if past_frame \
+                else finished
+            done = torch.nonzero(on_film)[:, 0]
+            accum.index_add_(1, s["pix"][done], s["result"][done].T)
         n_done = s["n_done"] + finished.sum()
 
         free = finished | ~s["alive"]
-        slot = torch.cumsum(free.to(torch.int64), 0) - 1
+        if "cumsum" in ab:
+            slot = torch.arange(free.shape[0], device=free.device)
+        else:
+            slot = torch.cumsum(free.to(torch.int64), 0) - 1
         new_k = s["next_work"] + slot
         take = free & (new_k < total_paths)
         next_work = s["next_work"] + take.sum()
@@ -211,14 +261,22 @@ def make_superstep(scene: ir.Scene, settings: ir.RenderSettings, tracer,
         # ---- 1. trace pending rays ------------------------------------
         # idle lanes walk with maxT = -inf: they leave the walk at once;
         # with the pre-pass, so do fresh lanes (their hit is in the state)
-        live = alive & ~fresh if pre_tab is not None else alive
-        hr = tracer.closest(scene, ro, rd, minT,
-                            torch.where(live, infT, -INF))
-        if pre_tab is not None:
-            hr = intersect.HitResult(**{
-                h: torch.where(fresh, s[f], getattr(hr, h))
-                for f, h in _PRE_FIELDS})
-        hi = intersect.hit_info(scene, ro, rd, hr)
+        if "trace" in ab:
+            zi = torch.zeros(B, dtype=torch.int64, device=ro.device)
+            hr = intersect.HitResult(
+                t=1.0 + minT * 0.0 + rd[:, 0] * 1e-12,
+                prim_type=zi + ir.PRIM_SPHERE, prim_id=zi,
+                u=0.3 + minT * 0.0, v=0.3 + minT * 0.0)
+        else:
+            live = alive & ~fresh if pre_tab is not None else alive
+            hr = tracer.closest(scene, ro, rd, minT,
+                                torch.where(live, infT, -INF))
+            if pre_tab is not None:
+                hr = intersect.HitResult(**{
+                    h: torch.where(fresh, s[f], getattr(hr, h))
+                    for f, h in _PRE_FIELDS})
+        hi = _ablated_hit_info(ro, rd, hr) if "hitinfo" in ab else \
+            intersect.hit_info(scene, ro, rd, hr)
         found = alive & hr.hit
         missed = alive & ~hr.hit
 
@@ -238,8 +296,12 @@ def make_superstep(scene: ir.Scene, settings: ir.RenderSettings, tracer,
 
         # background on a miss: direct for camera rays, MIS-weighted
         # otherwise
-        bg = emitters.background_emit(scene, rd, s.get("cone_s"))
-        bgp = div(emitters.background_pdf(scene, rd), nl)
+        if "bg" in ab:
+            bg = rd * 0.0 + 0.1
+            bgp = rd[:, 0] * 0.0 + 0.25
+        else:
+            bg = emitters.background_emit(scene, rd, s.get("cone_s"))
+            bgp = div(emitters.background_pdf(scene, rd), nl)
         w_bg = torch.where(unweighted, 1.0, _balance(s["prev_pdf"], bgp))
         add_bg = missed & (fresh | scene.bg_is_emissive)
         result = result + torch.where(
@@ -265,10 +327,11 @@ def make_superstep(scene: ir.Scene, settings: ir.RenderSettings, tracer,
         if cones:
             nee_cone_w, nee_cone_s, ssa = _hit_cone(hi, ro, rd, s["cone_w"],
                                                     s["cone_s"])
-        tex = _texture_inputs(scene, hi, nee_cone_w, rd)
+        tex = None if {"beval", "bsample"} <= ab else \
+            _texture_inputs(scene, hi, nee_cone_w, rd)
         mat_delta = bsdf.is_delta(scene, hi.mat_id)
         n_shadow = s["n_shadow"]
-        if n_lights > 0:
+        if n_lights > 0 and "nee" not in ab:
             pick, lr1, lr2, _ = rng.uniform4(pix, samp, d, Draw.LIGHT_SAMPLE)
             ls = emitters.sample_lights(scene, hi.p, pick, lr1, lr2)
             do_nee = cont & ~mat_delta & (ls.pdf != 0.0)
@@ -276,10 +339,16 @@ def make_superstep(scene: ir.Scene, settings: ir.RenderSettings, tracer,
             shadow_max = torch.where(torch.isfinite(ls.dist),
                                      ls.dist - SHADOW_EPS, infT)
             shadow_max = torch.where(do_nee, shadow_max, -INF)
-            occl = tracer.occluded(scene, hi.p, ls.wi, minT, shadow_max)
+            if "shadow" in ab:
+                occl = ls.wi[:, 0] > 2.0     # never true
+            else:
+                occl = tracer.occluded(scene, hi.p, ls.wi, minT, shadow_max)
             n_shadow = n_shadow + do_nee.sum()
-            f, mpdf = bsdf.eval_pdf(scene, hi.mat_id, rd, ls.wi, hi,
-                                    s["non_spec"], tex=tex)
+            if "beval" in ab:
+                f, mpdf = _ablated_eval(ls.wi, hi)
+            else:
+                f, mpdf = bsdf.eval_pdf(scene, hi.mat_id, rd, ls.wi, hi,
+                                        s["non_spec"], tex=tex)
             ok = do_nee & ~occl & (mpdf != 0.0) & ~torch.isnan(mpdf)
             w = _balance(ls.pdf, mpdf * ls.G)
             contrib = (tp * f * ls.radiance
@@ -290,8 +359,14 @@ def make_superstep(scene: ir.Scene, settings: ir.RenderSettings, tracer,
         # ---- 3. BSDF sampling -----------------------------------------
         b1, b2, b3, b4 = rng.uniform4(pix, samp, d, Draw.BSDF_SAMPLE)
         rands = {"lobe": b1, "u": b2, "v": b3, "fresnel": b4}
-        sc = bsdf.sample_mat(scene, hi.mat_id, rd, hi, rands, s["non_spec"],
-                             tex=tex)
+        if "bsample" in ab:
+            sc = bsdf.ScatterSample(
+                wo=onb_to_world(hi.tangent, hi.bitangent, hi.n_s,
+                                sample_hemisphere_cosine(b2, b3)),
+                eta=b1 * 0.0, is_specular=b1 > 2.0, valid=b1 < 2.0)
+        else:
+            sc = bsdf.sample_mat(scene, hi.mat_id, rd, hi, rands,
+                                 s["non_spec"], tex=tex)
         absorbed = cont & ~sc.valid
         terminated = terminated | absorbed
         cont = cont & sc.valid
@@ -304,8 +379,11 @@ def make_superstep(scene: ir.Scene, settings: ir.RenderSettings, tracer,
             cone_s = torch.where(refr, s_refr, nee_cone_s)
         eta_scale = torch.where(refr, s["eta_scale"] / (sc.eta * sc.eta),
                                 s["eta_scale"])
-        f2, pdf2 = bsdf.eval_pdf(scene, hi.mat_id, rd, sc.wo, hi, non_spec,
-                                 tex=tex)
+        if "beval" in ab:
+            f2, pdf2 = _ablated_eval(sc.wo, hi)
+        else:
+            f2, pdf2 = bsdf.eval_pdf(scene, hi.mat_id, rd, sc.wo, hi,
+                                     non_spec, tex=tex)
         nan_pdf = torch.isnan(pdf2)
         terminated = terminated | (cont & nan_pdf)
         cont = cont & ~nan_pdf
@@ -335,6 +413,28 @@ def make_superstep(scene: ir.Scene, settings: ir.RenderSettings, tracer,
         return refill(s, accum, terminated)
 
     return superstep
+
+
+def _ablated_hit_info(ro, rd, hr):
+    """The ``hitinfo`` stand-in: material 0 and the normal -rd at the hit
+    point (vimg_tpu's)."""
+    n = -rd
+    z = n[:, 2] * 0.0
+    return intersect.HitInfo(
+        mat_id=torch.zeros(rd.shape[0], dtype=torch.int64, device=rd.device),
+        p=ro + rd * hr.t[:, None], n_s=n, n_g=n,
+        tangent=torch.stack([n[:, 1], -n[:, 0], z], -1),
+        bitangent=torch.stack([z, n[:, 2], -n[:, 1]], -1),
+        uv=n[:, :2] * 0.0, mr_uv=n[:, :2] * 0.0,
+        prim_area=1.0 + hr.t * 0.0, uv_area=1e-6 + hr.t * 0.0,
+        curvature=hr.t * 0.0)
+
+
+def _ablated_eval(wi, hi):
+    """The ``beval`` stand-in: a cosine lobe, pdf |wi.n_s| / pi and f =
+    pdf / 2 (vimg_tpu's)."""
+    pdf = torch.abs(dot(wi, hi.n_s)) * INV_PI
+    return hi.n_s * 0.0 + pdf[:, None] * 0.5, pdf
 
 
 def trace_primaries(scene, settings, tracer, morton_pix, total,

@@ -38,9 +38,10 @@ SIGNATURES = {
     "vimg_mega_occupancy": ([_I] * 2 + [_P] * 3, _I),
     # csrc/cluster_trace.cu: 4 tables, ro, rd, minT, maxT, n_rays,
     # n_nodes (wide or binary), any_hit, t, slot, u, v, steps (device
-    # uint64[2] or null), stream
-    "vimg_cluster_wide": ([_P] * 8 + [_I] * 3 + [_P] * 6, _I),
-    "vimg_cluster_skip": ([_P] * 8 + [_I] * 3 + [_P] * 6, _I),
+    # uint64[2] or null), warp_steps (device uint64 (n_warps, 2) or null),
+    # stream
+    "vimg_cluster_wide": ([_P] * 8 + [_I] * 3 + [_P] * 7, _I),
+    "vimg_cluster_skip": ([_P] * 8 + [_I] * 3 + [_P] * 7, _I),
     # csrc/packet_trace.cu: tri_t, meta, ro, rd, minT, maxT, n_rays, cp,
     # n_clusters, any_hit, f2b, unroll, entry_scale, scene box lo/hi (6),
     # t, code, steps (device uint64 or null), stream
@@ -106,6 +107,9 @@ SIGNATURES = {
     "vimg_probe_transc": ([_P] * 3, _I),
     "vimg_probe_throughput": ([_I] * 2 + [_P] * 3, _I),
     "vimg_probe_constructs": ([_P] * 3 + [_I] + [_P] * 2, _I),
+    # csrc/sah_sweep.cu (X3): seg_s, lo, hi, P, seg_cost, seg_j, scratch,
+    # stream
+    "vimg_sah_sweep": ([_P] * 3 + [_I] + [_P] * 4, _I),
     "vimg_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 
