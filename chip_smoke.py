@@ -200,9 +200,11 @@ Phases:
     sweep (mode 1) timed beside it and, where its tree differs, both SAH
     costs; X3 bit for bit its plain version on every level's inputs of the
     100k build, timed on a middle level's and level 0's inputs of each
-    terrain (on the device's clock, paced by the host, and each of its
-    four kernels by torch.profiler) beside the plain version and its
-    bound; one X2 walk over the 100k device tree (phase 6's bounce rays)
+    terrain (on the device's clock, paced by the host, and its one kernel
+    by torch.profiler, which must see no other) beside the plain version
+    and its bound, with its launch's plan (grid, chunks a tile, shared
+    memory, registers) and, for the 100k build, the look-back steps a tile
+    of geometry/sweep_schedule.py's replay; one X2 walk over the 100k device tree (phase 6's bounce rays)
     and ClusterTracer(builder="device") through B3 (camera, bounce,
     shadow), each bit for bit its plain walk, X3 launched 3 x levels;
 35. main path 23: make_tracer(force="mxu") (tensor code: no kernel may
@@ -3532,62 +3534,99 @@ def sweep_differ(got, ref):
     return int(bad.sum())
 
 
-X3_KERNELS = ("sweep_chunks", "sweep_carries", "sweep_cost", "sweep_argmin")
+X3_KERNELS = ("sah_sweep_coop",)
 
 
-def profiled_us(fn, reps, names):
+def profiled_us(fn, reps, names, sessions=3):
     """Each named kernel's device microseconds a call of ``fn``, mean over
     ``reps`` calls, from torch.profiler's CUDA activity (the kernels' own
     durations, whatever the host's pace); None for a kernel the profiler
-    did not see."""
+    did not see. Also the names of the other kernels it saw. A session
+    that saw none of the named kernels (CUPTI then returned no activity at
+    all) is profiled again, up to ``sessions`` times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = dict.fromkeys(names, 0.0)
-    for e in prof.key_averages():
-        t = getattr(e, "self_device_time_total",
-                    getattr(e, "self_cuda_time_total", 0.0))
-        for name in names:
-            if name in e.key:
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = dict.fromkeys(names, 0.0)
+        others = []
+        for e in prof.key_averages():
+            t = getattr(e, "self_device_time_total",
+                        getattr(e, "self_cuda_time_total", 0.0))
+            mine = [name for name in names if name in e.key]
+            for name in mine:
                 us[name] += t
-    return {k: (v / reps if v > 0 else None) for k, v in us.items()}
+            if t > 0 and not mine:
+                others.append(e.key)
+        if others or any(v > 0 for v in us.values()):
+            break
+    return {k: (v / reps if v > 0 else None) for k, v in us.items()}, others
 
 
 def x3_timing(label, inputs):
     """X3 on one level's inputs: ms a call on the device's clock
     (probes.common.device_ms: TIMED_LAUNCHES calls queued behind a spinning
     kernel), ms a call paced by the host (CUDA events around calls queued
-    one after another), each of its four kernels' own device us
-    (torch.profiler), and its plain version (one call, events), with the
-    bound (bytes). Returns (device ms, plain ms, bound ms, host-paced ms,
-    {kernel: us})."""
+    one after another), its kernel's own device us (torch.profiler, which
+    must see no other kernel), and its plain version (one call, events),
+    with the bound (bytes) and the launch's plan. Returns (device ms, plain
+    ms, bound ms, host-paced ms, {kernel: us}, plan)."""
     from vimg_tpu_torch.geometry import device_build as db
     from vimg_tpu_torch.probes import common
     P = inputs[0].shape[0]
     got, host_ms = event_ms(lambda: db.sah_sweep(*inputs), TIMED_LAUNCHES)
     ms = common.device_ms(lambda: db.sah_sweep(*inputs), TIMED_LAUNCHES)
-    kus = profiled_us(lambda: db.sah_sweep(*inputs), TIMED_LAUNCHES,
-                      X3_KERNELS)
+    kus, others = profiled_us(lambda: db.sah_sweep(*inputs), TIMED_LAUNCHES,
+                              X3_KERNELS)
     ref, plain_ms = event_ms(lambda: db.sah_sweep_plain(*inputs), 1)
     bad = sweep_differ(got, ref)
     if bad:
         fail(f"X3 {label}: {bad} slots differ from the plain version")
+    if others or None in kus.values():
+        fail(f"X3 {label}: the profiler saw {others} beside {kus}")
+    plan = db.sweep_plan(P, inputs[0].device)
     bound = 1e3 * X3_BYTES_PER_POS * P / HBM_BYTES_PER_S
     segs = int((inputs[0][1:] != inputs[0][:-1]).sum()) + 1
-    known = [v for v in kus.values() if v is not None]
     log(f"    X3 {label} (P = {P}, {segs} segments): {ms:.4f} ms a call on "
-        f"the device's clock, {host_ms:.4f} ms paced by the host; kernels "
-        + ", ".join(f"{k} " + ("not seen" if v is None else f"{v:.2f} us")
-                    for k, v in kus.items())
-        + (f" (sum {sum(known):.2f} us, profiler)" if known else "")
-        + f"; plain {plain_ms:.3f} ms, bound {bound:.5f} ms (bytes: "
-        f"{X3_BYTES_PER_POS} B a position at 3.35 TB/s)")
-    return ms, plain_ms, bound, host_ms, kus
+        f"the device's clock, {host_ms:.4f} ms paced by the host; kernel "
+        + ", ".join(f"{k} {v:.2f} us" for k, v in kus.items())
+        + f" (profiler, no other kernel); plain {plain_ms:.3f} ms, bound "
+        f"{bound:.5f} ms (bytes: {X3_BYTES_PER_POS} B a position at 3.35 "
+        f"TB/s); plan: grid {plan['grid']}, {plan['tile_chunks']} chunk(s) "
+        f"a tile, {plan['smem_bytes']} B shared (0: not staged), "
+        f"{plan['per_sm']} blocks / SM, {plan['regs']} registers")
+    return ms, plain_ms, bound, host_ms, kus, plan
+
+
+def x3_look_back(plan, levels):
+    """The look-back steps a tile of X3's launch, in each direction, on
+    the given levels' inputs: geometry/sweep_schedule.py's replay at the
+    launch's tile (its plan), checked bit for bit against the plain
+    version on the CPU. Returns {level: {"pre": [max, mean], "suf": ...}}."""
+    from vimg_tpu_torch.geometry import device_build as db
+    from vimg_tpu_torch.geometry import sweep_schedule as ss
+    out = {}
+    for level, inputs in levels.items():
+        seg, lo, hi = (x.cpu() for x in inputs)
+        cost, j, st = ss.replay(seg, lo, hi, plan["tile_chunks"] * ss.CHUNK)
+        if sweep_differ((cost, j), db.sah_sweep_plain(seg, lo, hi)):
+            fail(f"X3's replay differs from the plain version at level "
+                 f"{level}")
+        out[level] = {d: [int(st[f"steps_{d}"].max()),
+                          float(st[f"steps_{d}"].float().mean())]
+                      for d in ("pre", "suf")}
+        log(f"    X3's look-back (replay, {st['n_tiles']} tiles of "
+            f"{plan['tile_chunks']} chunk(s), {ss.WIDTH} tiles a step), "
+            f"level {level}: steps a tile from the left max "
+            f"{out[level]['pre'][0]} mean {out[level]['pre'][1]:.3f}, from "
+            f"the right max {out[level]['suf'][0]} mean "
+            f"{out[level]['suf'][1]:.3f}; {st['atomics']} key atomics")
+    return out
 
 
 def device_build_phase(phase6, card):
@@ -3605,6 +3644,7 @@ def device_build_phase(phase6, card):
     from vimg_tpu_torch.geometry import bvh
     from vimg_tpu_torch.geometry import cluster_trace as ct
     from vimg_tpu_torch.geometry import device_build as db
+    from vimg_tpu_torch.runtime import cuda
     from vimg_tpu_torch.runtime.native import build_bvh_native
     log("[34] main paths 21, 22: BVHTracer(builder='device') on terrain "
         f"{' and '.join(str(n) for n in X3_TERRAINS)} (X3), X2 and B3 over "
@@ -3664,10 +3704,12 @@ def device_build_phase(phase6, card):
         if hist.shape[0] != st["levels"]:
             fail("the level loop ran another number of levels")
         inputs = mid[3 * (len(mid) // 6)]       # the middle level, axis 0
-        ms, plain_ms, bound, host_ms, kus = x3_timing(
+        ms, plain_ms, bound, host_ms, kus, plan = x3_timing(
             f"terrain {n} level {len(mid) // 6}", inputs)
-        x3_timing(f"terrain {n} level 0", mid[0])
+        ms0, _, _, _, kus0, _ = x3_timing(f"terrain {n} level 0", mid[0])
         if n == X3_TERRAINS[0]:
+            steps = x3_look_back(plan, {0: mid[0],
+                                        len(mid) // 6: inputs})
             checked = []
 
             def both(seg, lo, hi):
@@ -3691,12 +3733,17 @@ def device_build_phase(phase6, card):
                    "bound_ms": bound, "bound_by": "bytes",
                    "library_ms": None, "clock": "device",
                    "host_paced_ms": host_ms, "kernel_us": kus,
+                   "ms_level0": ms0, "kernel_us_level0": kus0,
+                   "plan": plan, "look_back_steps": steps,
+                   "ptxas": cuda.ptxas_lines(cuda.BUILD_INFO["log"],
+                                             "sah_sweep"),
                    "launches_per_build": {}, "build_s": {}}
             walk_tr, rays = tr, phase6[n][1]
         else:
             row.update(ms_500k=ms, plain_ms_500k=plain_ms,
                        bound_ms_500k=bound, host_paced_ms_500k=host_ms,
-                       kernel_us_500k=kus)
+                       kernel_us_500k=kus, ms_level0_500k=ms0,
+                       kernel_us_level0_500k=kus0, plan_500k=plan)
         row["launches_per_build"][str(n)] = 3 * st["levels"]
         row["build_s"][str(n)] = dict(
             level_loop=st["level_seconds"], assembly=st["assembly_seconds"],

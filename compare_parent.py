@@ -1,12 +1,12 @@
-"""Time this checkout's kernels B2-B5, X2, the packet cull, P1 and P19 and
-main paths 1-11 and 13 against another checkout of the port, on one GPU,
+"""Time this checkout's kernels B2-B5, X2, X3, the packet cull, P1 and P19
+and main paths 1-11 and 13 against another checkout of the port, on one GPU,
 in turns.
 
 Unpack the other commit into a directory that .gitignore lists and run,
 from the repository root on a machine with an NVIDIA GPU:
 
     git archive PARENT | (mkdir -p _proof/parent && tar -x -C _proof/parent)
-    python3 compare_parent.py _proof/parent [--out parent.json]
+    python3 compare_parent.py _proof/parent [--out parent.json] [--parts x3]
 
 Each checkout runs in its own process (it builds its own kernel library
 under its own vimg_tpu_torch/_build/), in the order other, this, this,
@@ -52,6 +52,16 @@ then:
 - main paths 7 and 8: render_frame under s_normal at 4 spp on the
   flagship (1800x800) and terrain 100k (512x256) through render(), timed
   once each after a 1-spp warm-up frame, the films kept.
+
+X3 (the device build's SAH sweep, chip_smoke.py phase 34): terrain 100k
+and 500k through the checkout's level loop once with each sweep's inputs
+kept; for the level-0 and the middle level's axis-0 inputs of each, one
+call's outputs kept and three readings of probes.common.device_ms (20
+calls queued behind a spin); the level loop and BVHTracer(builder=
+"device") timed once each by the host's clock (synchronised), with the
+build's own split into level loop and host assembly. The inputs must be
+bit-equal across the runs (the level loop is exact) and so must X3's
+outputs. ``--parts x3`` runs only this reading.
 
 Then it checks that every meta, B3, B4 (t, slot, u, v), B5 (t, code) and
 P1 (bt, visits) is bit-equal across the four runs, that B1's and B2's
@@ -231,9 +241,87 @@ def p1_readings(cs, scene, dev):
     return res, outs
 
 
-def worker(tree, out):
+def x3_readings(cs, dev):
+    """X3 on the level-0 and middle-level inputs of terrain 100k's and
+    500k's device builds: the inputs and one call's outputs, three
+    readings of device_ms; the level loop and the build timed once."""
+    import torch
+    from vimg_tpu_torch.geometry import bvh
+    from vimg_tpu_torch.geometry import device_build as db
+    from vimg_tpu_torch.probes.common import device_ms
+    from vimg_tpu_torch.scene.synthetic import terrain_scene
+    res, outs = {}, {}
+    for n in cs.X3_TERRAINS:
+        scene = terrain_scene(n, cs.MESH_W, cs.MESH_H, device=dev)
+        bmin, bmax, cen, _, _ = bvh.scene_prim_bounds(scene)
+        t = [torch.as_tensor(x, device=dev) for x in (bmin, bmax, cen)]
+        max_levels = db.max_levels_for(bmin.shape[0])
+        kept = []
+
+        def keep(seg, lo, hi):
+            kept.append((seg, lo, hi))
+            return db.sah_sweep(seg, lo, hi)
+        db.build_levels(*t, max_levels, sweep=keep)
+        _, loop_s = cs.timed(lambda: db.build_levels(*t, max_levels))
+        _, build_s = cs.timed(lambda: bvh.BVHTracer(scene, builder="device"))
+        st = db.LAST_STATS
+        res[f"{n}/build"] = dict(loop_s=loop_s, build_s=build_s,
+                                 level_s=st["level_seconds"],
+                                 assembly_s=st["assembly_seconds"],
+                                 levels=st["levels"])
+        for key, inputs in (("level0", kept[0]),
+                            ("middle", kept[3 * (len(kept) // 6)])):
+            fn = lambda: db.sah_sweep(*inputs)
+            outs[f"{n}/{key}"] = [x.cpu() for x in (*inputs, *fn())]
+            res[f"{n}/{key}"] = dict(P=int(inputs[0].shape[0]), ms=[
+                device_ms(fn, cs.TIMED_LAUNCHES) for _ in range(READINGS)])
+    return res, outs
+
+
+def x3_checks(runs):
+    """X3's inputs and outputs bit-equal to run 2's (this checkout)."""
+    import torch
+    bad = []
+    ref = runs[1]["data"]["x3"]
+    for res in runs:
+        for key, got in res["data"]["x3"].items():
+            n = sum(int((a.view(torch.int32) != b.view(torch.int32)).sum())
+                    for a, b in zip(got, ref[key]))
+            if n:
+                bad.append(f"X3 {key} run {res['name']}: {n} values differ")
+    return bad
+
+
+def x3_report(runs, span):
+    print(f"X3 ms a call (device clock: 20 calls queued behind a spin, "
+          f"{READINGS} readings a run; other runs 1 and 4, this runs 2 and "
+          f"3):")
+    for key in runs[0]["x3"]:
+        if key.endswith("/build"):
+            continue
+        print(f"  terrain {key:14s} P {runs[1]['x3'][key]['P']}: other "
+              f"{span('other', lambda r: r['x3'][key]['ms'])}  this "
+              f"{span('this', lambda r: r['x3'][key]['ms'])}")
+    for key in runs[0]["x3"]:
+        if key.endswith("/build"):
+            print(f"  terrain {key}: level loop s, build s (its level loop "
+                  f"+ assembly), in run order: " + ", ".join(
+                      f"{r['name']} {r['x3'][key]['loop_s']:.4f}, "
+                      f"{r['x3'][key]['build_s']:.3f} "
+                      f"({r['x3'][key]['level_s']:.4f} + "
+                      f"{r['x3'][key]['assembly_s']:.3f})" for r in runs)
+                  + f"; {runs[1]['x3'][key]['levels']} levels")
+
+
+def worker(tree, out, parts):
     import torch
     cs = _smoke(tree)
+    if parts == "x3":
+        res, x3_outs = x3_readings(cs, torch.device("cuda", 0))
+        torch.save({"x3": x3_outs}, out + ".pt")
+        with open(out, "w") as f:
+            json.dump({"tree": tree, "x3": res}, f)
+        return
     from vimg_tpu_torch.geometry import cluster_trace as ct
     from vimg_tpu_torch.geometry import packet_trace as pt
     from vimg_tpu_torch.probes import common, probe_r2c
@@ -308,7 +396,8 @@ def worker(tree, out):
     res["frame9"], img9 = envtex_readings(cs, dev)
     if hasattr(cs, "train_run"):
         res["main10"] = train_readings(cs, dev)
-    torch.save({"b5": outs, "meta": metas, "p1": p1_outs, "img": img.cpu(),
+    res["x3"], x3_outs = x3_readings(cs, dev)
+    torch.save({"x3": x3_outs, "b5": outs, "meta": metas, "p1": p1_outs, "img": img.cpu(),
                 "img6_det": img6,
                 "walks": walk_outs, "b2": b2_outs, "img2": img2,
                 "img3": img3, "img9": img9, "main1": main1, **imgs78,
@@ -489,10 +578,12 @@ def main():
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("other", nargs="?", help="the other checkout's root")
     p.add_argument("--out", default=None, help="JSON of the readings")
+    p.add_argument("--parts", choices=("all", "x3"), default="all",
+                   help="x3: only X3 and the device builds")
     p.add_argument("--worker", default=None, help=argparse.SUPPRESS)
     args = p.parse_args()
     if args.worker:
-        return worker(os.path.abspath(args.worker), args.out)
+        return worker(os.path.abspath(args.worker), args.out, args.parts)
     import torch
     if not torch.cuda.is_available():
         sys.exit("compare_parent.py needs a GPU")
@@ -509,7 +600,8 @@ def main():
             path = os.path.join(tmp, f"run{i}.json")
             t0 = time.time()
             subprocess.run([sys.executable, os.path.abspath(__file__),
-                            "--worker", tree, "--out", path], check=True)
+                            "--worker", tree, "--out", path,
+                            "--parts", args.parts], check=True)
             with open(path) as f:
                 res = json.load(f)
             res.update(name=name, wall_s=time.time() - t0,
@@ -517,7 +609,15 @@ def main():
             runs.append(res)
             print(f"run {i} ({name}) done in {res['wall_s']:.1f} s",
                   flush=True)
-    bad = []
+    def span(key, get):
+        xs = [x for res in runs if res["name"] == key for x in get(res)]
+        return f"{min(xs):.6f}-{max(xs):.6f}"
+
+    bad = x3_checks(runs)
+    if args.parts == "x3":
+        x3_report(runs, span)
+        return finish(args, card, other, runs, bad, "X3's inputs and "
+                      "outputs bit-equal across the runs")
     ref = runs[1]["data"]
     for res in runs:
         bad += x2_checks(res, runs[1])
@@ -585,11 +685,8 @@ def main():
                                ref[f"img{n}"].view(torch.int32)):
                 bad.append(f"main path {n} run {res['name']}: another film")
 
-    def span(key, get):
-        xs = [x for res in runs if res["name"] == key for x in get(res)]
-        return f"{min(xs):.6f}-{max(xs):.6f}"
-
     x2_report(runs, span)
+    x3_report(runs, span)
     print(f"cull and B5 ms (20 calls between CUDA events, {READINGS} "
           f"readings a run; other runs 1 and 4, this runs 2 and 3):")
     for key in runs[0]["b5"]:
@@ -655,6 +752,16 @@ def main():
         print(f"main path {n} frame s, in run order: " + ", ".join(
             f"{r['name']} {r['frames78'][f'main{n}']['s']:.3f}"
             for r in runs))
+    finish(args, card, other, runs, bad,
+           "all meta, B3, B4, B5, X2, X3 and P1 outputs, B1 and B2 films "
+           "and counters (main paths 1, 4, 5), the films of main paths 7 "
+           "and 8, the heatmap and the deterministic films of main paths 11 "
+           "and 13 (-b 1) bit-equal across the runs, P19 held, the "
+           "wavefront frames' counts equal and their films agree")
+
+
+def finish(args, card, other, runs, bad, ok):
+    """Print the card, write the readings, exit non-zero on a failure."""
     print(card)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
@@ -665,11 +772,7 @@ def main():
                 failures=bad), f, indent=1)
     if bad:
         sys.exit("FAIL: " + "; ".join(bad))
-    print("all meta, B3, B4, B5, X2 and P1 outputs, B1 and B2 films and "
-          "counters (main paths 1, 4, 5), the films of main paths 7 and 8, "
-          "the heatmap and the deterministic films of main paths 11 and 13 "
-          "(-b 1) bit-equal across the runs, P19 held, the wavefront "
-          "frames' counts equal and their films agree")
+    print(ok)
 
 def x2_checks(res, ref):
     """X2's outputs, the heatmap and main paths 11 and 13's deterministic

@@ -1227,12 +1227,16 @@ def test_bvh_kernel_follows_scene(cuda):
 
 def _sweep_inputs(device, P, seed, seg_len):
     """One axis of one level as the device build hands it to X3: segment
-    starts (runs of random lengths up to ``seg_len``) and boxes with some
-    exact duplicates and zero-size ones."""
+    starts (runs of random lengths up to ``seg_len``, or with ``seg_len``
+    "chunk_edges" of 1 to 3 whole 1,024-position chunks, so that every
+    segment edge is a chunk edge) and boxes with some exact duplicates and
+    zero-size ones."""
     r = np.random.default_rng(seed)
     starts, s = [], 0
     while s < P:
-        n = int(min(r.integers(1, seg_len + 1), P - s))
+        n = (1024 * int(r.integers(1, 4)) if seg_len == "chunk_edges"
+             else int(r.integers(1, seg_len + 1)))
+        n = min(n, P - s)
         starts += [s] * n
         s += n
     c = r.random((P, 3)).astype(np.float32)
@@ -1257,14 +1261,23 @@ def _same_sweep(got, ref):
 @pytest.mark.cuda
 @pytest.mark.parametrize("P,seg_len", [(1, 1), (2, 2), (1000, 1000),
                                        (1025, 1025), (5000, 40), (70000, 1),
-                                       (70000, 3000), (300000, 300000)])
+                                       (70000, 3000), (300000, 300000),
+                                       (4_194_304, 4_194_304),
+                                       (4_194_304, 50),
+                                       (600_000, 600_000),
+                                       (500_000, "chunk_edges")])
 def test_sah_sweep_kernel_bit_equal_to_plain(cuda, P, seg_len):
     """X3 (csrc/sah_sweep.cu) bit for bit against sah_sweep_plain, both on
     the card, on segments from single positions to one segment spanning
     hundreds of 1,024-position chunks, with duplicate and zero-size boxes;
-    and with a NaN box (its segment's least cost NaN in both)."""
+    and with a NaN box (its segment's least cost NaN in both). At 4,194,304
+    positions the tiles outnumber what shared memory holds (inputs read
+    from HBM in both phases, several chunks a tile); at 600,000 they are
+    staged with several chunks a tile; "chunk_edges" puts every segment
+    edge on a chunk edge."""
     from vimg_tpu_torch.geometry import device_build as db
-    seg, lo, hi = _sweep_inputs(cuda, P, P + seg_len, seg_len)
+    seed = P + (seg_len if isinstance(seg_len, int) else 7)
+    seg, lo, hi = _sweep_inputs(cuda, P, seed, seg_len)
     before = db.LAUNCHES
     got = db.sah_sweep(seg, lo, hi)
     assert db.LAUNCHES == before + 1
@@ -1273,6 +1286,47 @@ def test_sah_sweep_kernel_bit_equal_to_plain(cuda, P, seg_len):
         lo[P // 2, 1] = float("nan")
         _same_sweep(db.sah_sweep(seg, lo, hi), db.sah_sweep_plain(seg, lo,
                                                                   hi))
+
+
+@pytest.mark.cuda
+def test_sah_sweep_one_kernel_a_call(cuda):
+    """X3 queues exactly one kernel a call (torch.profiler), at a level's
+    size of the 100k build and at one too large to stage. A session that
+    comes back with no device activity at all (CUPTI drops one now and
+    then) is profiled again, up to three times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from vimg_tpu_torch.geometry import device_build as db
+    for P in (99_460, 4_194_304):
+        seg, lo, hi = _sweep_inputs(cuda, P, 3, 500)
+        db.sah_sweep(seg, lo, hi)
+        torch.cuda.synchronize()
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                db.sah_sweep(seg, lo, hi)
+                torch.cuda.synchronize()
+            kernels = [e.name for e in prof.events()
+                       if getattr(e, "device_type", None) == DeviceType.CUDA]
+            if kernels:
+                break
+        assert len(kernels) == 1 and "sah_sweep_coop" in kernels[0], kernels
+
+
+@pytest.mark.cuda
+def test_sah_sweep_plan(cuda):
+    """The launch's shape: at the 100k build's size a chunk a tile, staged
+    in shared memory, every block resident; at 4,194,304 positions several
+    chunks a tile, read from HBM."""
+    from vimg_tpu_torch.geometry import device_build as db
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    small = db.sweep_plan(99_460, cuda)
+    assert small["tile_chunks"] == 1 and small["grid"] == 98
+    assert small["smem_bytes"] == 1024 * 28
+    large = db.sweep_plan(4_194_304, cuda)
+    assert large["smem_bytes"] == 0 and large["tile_chunks"] > 1
+    for plan in (small, large):
+        assert plan["grid"] <= plan["per_sm"] * sms
+        assert 0 < plan["regs"] <= 128
 
 
 @pytest.mark.cuda

@@ -60,9 +60,10 @@ EMPTY_J = 2 ** 31 - 1
 INF = float("inf")
 
 # csrc/sah_sweep.cu: positions a chunk, and float32 words of scratch a
-# chunk (aggregates and carries of both directions, 4 x 8)
+# chunk (room for a tile's two aggregates, 2 x 8, and the chunk's suffix
+# aggregate or right carry, 8); the 64-bit keys take 2 words a position
 SWEEP_CHUNK = 1024
-SCRATCH_PER_CHUNK = 32
+SCRATCH_PER_CHUNK = 24
 
 LAUNCHES = 0           # X3 launches, counted by sah_sweep
 # timings of the latest build_sweep_sah_device: P, levels (run), max_levels,
@@ -151,17 +152,24 @@ def sah_sweep(seg_s, lo, hi):
     vimg_tpu/geometry/device_build.py::_level (XLA, not Pallas). Torch has
     no segmented scan: the plain version makes about 17 passes over six
     columns in each direction at P = 100,000. X3 (csrc/sah_sweep.cu) is
-    four launches on the current stream: each 1,024-position chunk's
-    segmented (min, max) aggregates in both directions, one block that
-    scans the chunks' carries, a pass that rescans each chunk with its
-    carries, computes each position's cost and takes the segment's least
-    cost by a warp-aggregated atomic minimum on an order-preserving key of
-    the cost, and a pass that takes the least nl at that cost the same
-    way. Min and max are exact in any order, every product is rounded on
-    its own (__fmul_rn / __fadd_rn), and an atomic minimum is order-free,
-    so X3 equals the plain version bit for bit (a NaN cost makes its
-    segment's minimum NaN in both; NaN payloads aside). Its bound is
-    bytes (seg_s and six floats a position read, two outputs written)."""
+    one cooperative launch on the current stream, its blocks all resident
+    and separated into three phases by grid barriers: each block's tile of
+    1,024-position chunks gets its segmented (min, max) aggregates in both
+    directions (the tile's inputs kept in shared memory where they fit);
+    each tile's carries come from a look-back over the other tiles'
+    aggregates, 256 tiles a step, stopping at the first that holds a
+    boundary of the segment crossing in; each chunk is rescanned with its
+    carries, every position's cost computed, and each segment's least
+    (cost, nl), packed into one 64-bit key, taken by a segmented block
+    scan and one atomicMin a segment and chunk; the keys are decoded into
+    the outputs. Min and max are exact in any order, every product is
+    rounded on its own (__fmul_rn / __fadd_rn), and an atomic minimum is
+    order-free, so X3 equals the plain version bit for bit (a NaN cost
+    makes its segment's minimum NaN and its nl P + 1 in both; NaN payloads
+    aside). A refused cooperative launch raises; there is no other launch
+    to fall back on. Its bound is bytes (seg_s and six floats a position
+    read, two outputs written). geometry/sweep_schedule.py replays the
+    decomposition on the CPU."""
     global LAUNCHES
     dev = seg_s.device
     if dev.type == "cpu":
@@ -176,12 +184,14 @@ def sah_sweep(seg_s, lo, hi):
     _check(hi, "hi", torch.float32, (P, 3), dev)
     if not 0 < P < 2 ** 30:
         raise ValueError(f"P = {P} out of range")
+    # X3 reads 16-byte vectors from the start of each input
+    seg_s, lo, hi = (x if x.data_ptr() % 16 == 0 else x.clone()
+                     for x in (seg_s, lo, hi))
     seg_cost = torch.empty(P, dtype=torch.float32, device=dev)
     seg_j = torch.empty(P, dtype=torch.int32, device=dev)
     lib = load_library()
     n_chunks = -(-P // SWEEP_CHUNK)
-    # per chunk: prefix and suffix aggregates and carries (8 words each);
-    # then each position's cost and each slot's cost key
+    # the tiles' and chunks' aggregates, then each slot's 64-bit key
     scratch = torch.empty(n_chunks * SCRATCH_PER_CHUNK + 2 * P,
                           dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
@@ -192,6 +202,22 @@ def sah_sweep(seg_s, lo, hi):
     check(rc, "vimg_sah_sweep")
     LAUNCHES += 1
     return seg_cost, seg_j
+
+
+def sweep_plan(P, device="cuda"):
+    """The launch X3 makes for P positions on ``device``: its grid (the
+    tiles), chunks a tile, dynamic shared memory bytes (0 where the tiles
+    are not staged), resident blocks a multiprocessor at that memory, and
+    registers a thread."""
+    import ctypes
+    from vimg_tpu_torch.runtime.cuda import check, load_library
+    out = [ctypes.c_int() for _ in range(5)]
+    with torch.cuda.device(torch.device(device)):
+        rc = load_library().vimg_sah_sweep_plan(
+            P, *(ctypes.byref(x) for x in out))
+    check(rc, "vimg_sah_sweep_plan")
+    return dict(zip(("grid", "tile_chunks", "smem_bytes", "per_sm", "regs"),
+                    (x.value for x in out)))
 
 
 # ---------------------------------------------------------------------------

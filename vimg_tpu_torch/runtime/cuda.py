@@ -110,6 +110,8 @@ SIGNATURES = {
     # csrc/sah_sweep.cu (X3): seg_s, lo, hi, P, seg_cost, seg_j, scratch,
     # stream
     "vimg_sah_sweep": ([_P] * 3 + [_I] + [_P] * 4, _I),
+    # P, grid, tile_chunks, smem_bytes, per_sm, regs (host int*)
+    "vimg_sah_sweep_plan": ([_I] + [_P] * 5, _I),
     "vimg_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 
